@@ -1,0 +1,124 @@
+"""Deterministic synthetic dataset for runs on the card (chip_smoke.py).
+
+The port's own copy of the generator logic of tools/make_bench_data.py:
+one contig of random core sequence with interspersed repeat families (a
+300 bp ALU-like family, 1 copy per 3 kb, and a 6 kb LINE-like family, 1
+per 150 kb, each copy at 2% divergence) and telomeric/centromeric N runs,
+indexed with the port's index builder, plus 2x150 bp FR pairs (insert 420
++- 60, 0.5% substitutions, one indel in 5% of reads).  scale 1.0 is the
+46.7 Mbp chr21 class; scale 0.25 is 11.7 Mbp, the size of a yeast genome.
+
+Everything is made from fixed seeds and cached by existence under `dir`.
+"""
+
+from __future__ import annotations
+
+import os
+import sys
+
+import numpy as np
+
+BASES = np.frombuffer(b"ACGT", dtype=np.uint8)
+GENOME_LEN = 46_700_000
+READ_LEN = 150
+INSERT_MEAN, INSERT_STD = 420.0, 60.0
+
+
+def make_genome(path: str, scale: float, seed: int = 2024) -> None:
+    """One contig; random core + repeat families + N runs."""
+    rng = np.random.default_rng(seed)
+    n = int(GENOME_LEN * scale)
+    g = BASES[rng.integers(0, 4, n)]
+    # ALU-like family: 300bp consensus, ~n/3000 copies (1 per 3kb)
+    alu = BASES[rng.integers(0, 4, 300)]
+    for _ in range(n // 3000):
+        p = int(rng.integers(0, n - 300))
+        cp = alu.copy()
+        div = rng.random(300) < 0.02
+        cp[div] = BASES[rng.integers(0, 4, int(div.sum()))]
+        g[p:p + 300] = cp
+    # LINE-like family: 6kb consensus, 1 per 150kb
+    line = BASES[rng.integers(0, 4, 6000)]
+    for _ in range(n // 150_000):
+        p = int(rng.integers(0, n - 6000))
+        cp = line.copy()
+        div = rng.random(6000) < 0.02
+        cp[div] = BASES[rng.integers(0, 4, int(div.sum()))]
+        g[p:p + 6000] = cp
+    # telomere/centromere N runs
+    g[:10_000] = ord("N")
+    g[-10_000:] = ord("N")
+    mid = n // 2
+    g[mid:mid + 50_000] = ord("N")
+    with open(path, "w") as f:
+        f.write(">chr21s synthetic chr21-scale\n")
+        s = g.tobytes().decode()
+        for i in range(0, n, 80):
+            f.write(s[i:i + 80])
+            f.write("\n")
+
+
+def sample_reads_pe(prefix: str, fq1: str, fq2: str, n_pairs: int,
+                    seed: int = 7) -> None:
+    """Sample proper FR pairs from the built index's packed genome."""
+    from .index.fmindex import FMIndex
+    fm = FMIndex.load(prefix)
+    g = fm.ref_string  # 2-bit codes, forward strand first, len >= l_pac
+    rng = np.random.default_rng(seed)
+    B = "ACGT"
+    rc = {"A": "T", "C": "G", "G": "C", "T": "A"}
+    lines1, lines2 = [], []
+    npairs = 0
+    while npairs < n_pairs:
+        isize = int(rng.normal(INSERT_MEAN, INSERT_STD))
+        if isize < READ_LEN + 10:
+            continue
+        p = int(rng.integers(0, fm.l_pac - isize))
+        frag = g[p:p + isize]
+        r1 = frag[:READ_LEN].copy()
+        r2 = frag[-READ_LEN:][::-1].copy()  # reverse; complement via code
+        seqs = []
+        for ri, r in enumerate((r1, r2)):
+            # 0.5% subs, 0.05% indels via code-space edits
+            sub = rng.random(len(r)) < 0.005
+            r[sub] = (r[sub] + rng.integers(1, 4, int(sub.sum()))) % 4
+            s = "".join(B[c] for c in r)
+            if ri == 1:
+                s = "".join(rc[c] for c in s)
+            if rng.random() < 0.05:  # one indel in 5% of reads
+                q = int(rng.integers(10, len(s) - 10))
+                if rng.random() < 0.5:
+                    s = s[:q] + s[q + 1:] + B[int(rng.integers(0, 4))]
+                else:
+                    s = s[:q] + B[int(rng.integers(0, 4))] + s[q:-1]
+            seqs.append(s)
+        q = "I" * READ_LEN
+        lines1.append(f"@p{npairs}/1\n{seqs[0]}\n+\n{q}\n")
+        lines2.append(f"@p{npairs}/2\n{seqs[1]}\n+\n{q}\n")
+        npairs += 1
+    with open(fq1, "w") as f:
+        f.write("".join(lines1))
+    with open(fq2, "w") as f:
+        f.write("".join(lines2))
+
+
+def ensure(dir: str, scale: float, n_pairs: int) -> tuple[str, str, str]:
+    """Genome + index + reads under `dir` (made once); returns (index
+    prefix, r1.fq, r2.fq)."""
+    os.makedirs(dir, exist_ok=True)
+    fa = os.path.join(dir, "genome.fa")
+    if not os.path.exists(fa):
+        print(f"[bench-data] generating genome ({scale:.2f}x chr21)",
+              file=sys.stderr)
+        make_genome(fa, scale)
+    if not os.path.exists(fa + ".bwt.2bit.64"):
+        print("[bench-data] building index", file=sys.stderr)
+        from .index.build import build_index
+        build_index(fa, fa)
+    fq1 = os.path.join(dir, f"reads{n_pairs}_r1.fq")
+    fq2 = os.path.join(dir, f"reads{n_pairs}_r2.fq")
+    if not os.path.exists(fq2):
+        print(f"[bench-data] sampling {n_pairs} 2x{READ_LEN}bp pairs",
+              file=sys.stderr)
+        sample_reads_pe(fa, fq1, fq2, n_pairs)
+    return fa, fq1, fq2

@@ -1,0 +1,392 @@
+"""Command-line interface of the port: `python -m bwamem2_tpu_torch.cli
+{index,mem,version}`.
+
+Flag-for-flag compatible with bwa-mem2's getopt surface (fastmap.cpp:643-782,
+bwtindex.cpp:43-59), plus `--device {cuda,cpu}` (default cuda).  `mem` runs
+on one device: extension scoring in the CUDA kernel on "cuda", in its plain
+PyTorch version on "cpu"; asking for cuda without a usable GPU is an error,
+never a silent fall back to the host.
+"""
+
+from __future__ import annotations
+
+import getopt
+import os
+import sys
+import time
+
+from . import __version__
+from .options import (MEM_F_ALL, MEM_F_KEEP_SUPP_MAPQ, MEM_F_NOPAIRING,
+                      MEM_F_NO_MULTI, MEM_F_NO_RESCUE, MEM_F_PE,
+                      MEM_F_PRIMARY5, MEM_F_REF_HDR, MEM_F_SMARTPE,
+                      MEM_F_SOFTCLIP, MemOptions)
+
+
+def usage_mem(opt: MemOptions) -> str:
+    return f"""Usage: python -m bwamem2_tpu_torch.cli mem [options] <idxbase> <in1.fq> [in2.fq]
+
+Algorithm options:
+  -t INT     number of host worker threads [{opt.n_threads}]
+  -k INT     minimum seed length [{opt.min_seed_len}]
+  -w INT     band width for banded alignment [{opt.w}]
+  -d INT     off-diagonal X-dropoff [{opt.zdrop}]
+  -r FLOAT   look for internal seeds inside a seed longer than {{-k}} * FLOAT [{opt.split_factor}]
+  -y INT     seed occurrence for the 3rd round seeding [{opt.max_mem_intv}]
+  -c INT     skip seeds with more than INT occurrences [{opt.max_occ}]
+  -D FLOAT   drop chains shorter than FLOAT fraction of the longest overlapping chain [{opt.drop_ratio}]
+  -W INT     discard a chain if seeded bases shorter than INT [{opt.min_chain_weight}]
+  -m INT     perform at most INT rounds of mate rescues for each read [{opt.max_matesw}]
+  -S         skip mate rescue
+  -P         skip pairing; mate rescue performed unless -S also in use
+Scoring options:
+  -A INT     score for a sequence match [{opt.a}]
+  -B INT     penalty for a mismatch [{opt.b}]
+  -O INT[,INT]  gap open penalties for deletions and insertions [{opt.o_del},{opt.o_ins}]
+  -E INT[,INT]  gap extension penalty [{opt.e_del},{opt.e_ins}]
+  -L INT[,INT]  penalty for 5'- and 3'-end clipping [{opt.pen_clip5},{opt.pen_clip3}]
+  -U INT     penalty for an unpaired read pair [{opt.pen_unpaired}]
+  -x STR     read type. Changes multiple parameters: pacbio, ont2d, intractg
+Input/output options:
+  -p         smart pairing (ignoring in2.fq)
+  -R STR     read group header line such as '@RG\\tID:foo\\tSM:bar'
+  -H STR/FILE  insert STR to header if it starts with @; or insert lines in FILE
+  -o FILE    sam file to output results to [stdout]
+  -j         treat ALT contigs as part of the primary assembly
+  -5         for split alignment, take the alignment with the smallest coordinate as primary
+  -q         don't modify mapQ of supplementary alignments
+  -K INT     process INT input bases in each batch regardless of nThreads (for reproducibility)
+  -v INT     verbosity level
+  -T INT     minimum score to output [{opt.T}]
+  -h INT[,INT]  if there are <INT hits with score >80% of the max score, output all in XA [{opt.max_XA_hits},{opt.max_XA_hits_alt}]
+  -a         output all alignments for SE or unpaired PE
+  -C         append FASTA/FASTQ comment to SAM output
+  -V         output the reference FASTA header in the XR tag
+  -Y         use soft clipping for supplementary alignments
+  -M         mark shorter split hits as secondary
+  -I FLOAT[,FLOAT[,INT[,INT]]]  specify the mean, standard deviation (10% of the mean if absent),
+             max (4 sigma from the mean if absent) and min of insert size distribution
+Device options:
+  --device STR  cuda or cpu [cuda]; cuda without a usable GPU is an error
+  --resume      restart a killed run after its last journaled chunk (needs -o)
+"""
+
+
+def parse_mem_args(argv: list[str]):
+    """getopt-compatible parser for the `mem` subcommand."""
+    opt = MemOptions()
+    mode = None
+    fixed_chunk_size = -1
+    no_mt_io = False
+    rg_line = None
+    hdr_line = None
+    out_path = None
+    copy_comment = False
+    ignore_alt = False
+    pes0 = None
+    device_backend = True
+    device = "cuda"
+
+    optlist, args = getopt.gnu_getopt(
+        sys.argv[2:] if argv is None else argv,
+        "51qpaMCSPVYjk:c:v:s:r:t:R:A:B:O:E:U:w:L:d:T:Q:D:m:I:N:W:x:G:h:y:K:X:H:o:f:Z:",
+        ["device=", "resume"])
+    verbose = 3
+    resume = False
+    for c, val in optlist:
+        c = c[1:]
+        if c == "k":
+            opt.set("min_seed_len", int(val))
+        elif c == "1":
+            no_mt_io = True
+        elif c == "x":
+            mode = val
+        elif c == "w":
+            opt.set("w", int(val))
+        elif c == "A":
+            opt.set("a", int(val))
+        elif c == "B":
+            opt.set("b", int(val))
+        elif c == "T":
+            opt.set("T", int(val))
+        elif c == "U":
+            opt.set("pen_unpaired", int(val))
+        elif c == "t":
+            opt.n_threads = max(int(val), 1)
+        elif c in ("o", "f"):
+            out_path = val
+        elif c == "P":
+            opt.flag |= MEM_F_NOPAIRING
+        elif c == "a":
+            opt.flag |= MEM_F_ALL
+        elif c == "p":
+            opt.flag |= MEM_F_PE | MEM_F_SMARTPE
+        elif c == "M":
+            opt.flag |= MEM_F_NO_MULTI
+        elif c == "S":
+            opt.flag |= MEM_F_NO_RESCUE
+        elif c == "Y":
+            opt.flag |= MEM_F_SOFTCLIP
+        elif c == "V":
+            opt.flag |= MEM_F_REF_HDR
+        elif c == "5":
+            opt.flag |= MEM_F_PRIMARY5 | MEM_F_KEEP_SUPP_MAPQ
+        elif c == "q":
+            opt.flag |= MEM_F_KEEP_SUPP_MAPQ
+        elif c == "c":
+            opt.set("max_occ", int(val))
+        elif c == "d":
+            opt.set("zdrop", int(val))
+        elif c == "v":
+            verbose = int(val)
+            opt.verbose = verbose
+        elif c == "j":
+            ignore_alt = True
+        elif c == "r":
+            opt.set("split_factor", float(val))
+        elif c == "D":
+            opt.set("drop_ratio", float(val))
+        elif c == "m":
+            opt.set("max_matesw", int(val))
+        elif c == "s":
+            opt.set("split_width", int(val))
+        elif c == "G":
+            opt.set("max_chain_gap", int(val))
+        elif c == "N":
+            opt.set("max_chain_extend", int(val))
+        elif c == "W":
+            opt.set("min_chain_weight", int(val))
+        elif c == "y":
+            opt.set("max_mem_intv", int(val))
+        elif c == "C":
+            copy_comment = True
+        elif c == "K":
+            fixed_chunk_size = int(val)
+        elif c == "X":
+            opt.mask_level = float(val)
+        elif c == "h":
+            parts = val.replace(",", " ").split()
+            opt.set("max_XA_hits", int(parts[0]))
+            opt.set("max_XA_hits_alt",
+                    int(parts[1]) if len(parts) > 1 else int(parts[0]))
+        elif c == "Q":
+            opt.set("mapQ_coef_len", float(val))
+        elif c == "O":
+            parts = val.replace(",", " ").split()
+            opt.set("o_del", int(parts[0]))
+            opt.set("o_ins", int(parts[1]) if len(parts) > 1 else int(parts[0]))
+        elif c == "E":
+            parts = val.replace(",", " ").split()
+            opt.set("e_del", int(parts[0]))
+            opt.set("e_ins", int(parts[1]) if len(parts) > 1 else int(parts[0]))
+        elif c == "L":
+            parts = val.replace(",", " ").split()
+            opt.set("pen_clip5", int(parts[0]))
+            opt.set("pen_clip3",
+                    int(parts[1]) if len(parts) > 1 else int(parts[0]))
+        elif c == "R":
+            rg_line = val
+        elif c == "H":
+            if val.startswith("@"):
+                hdr_line = (hdr_line + "\n" + val) if hdr_line else val
+            else:
+                with open(val) as f:
+                    for ln in f:
+                        ln = ln.rstrip("\n")
+                        hdr_line = (hdr_line + "\n" + ln) if hdr_line else ln
+        elif c == "I":
+            from .align.pairing import PEStat
+            pes0 = [PEStat() for _ in range(4)]
+            parts = val.replace(",", " ").split()
+            p = pes0[1]
+            p.failed = 0
+            p.avg = float(parts[0])
+            p.std = float(parts[1]) if len(parts) > 1 else p.avg * 0.1
+            p.high = int(p.avg + 4.0 * p.std + 0.499)
+            p.low = max(int(p.avg - 4.0 * p.std + 0.499), 1)
+            if len(parts) > 2:
+                p.high = int(float(parts[2]) + 0.499)
+            if len(parts) > 3:
+                p.low = int(float(parts[3]) + 0.499)
+        elif c == "Z":
+            device_backend = val not in ("0", "off", "host")
+        elif c == "-device":
+            if val not in ("cuda", "cpu"):
+                raise ValueError(f"--device must be cuda or cpu, not {val!r}")
+            device = val
+        elif c == "-resume":
+            resume = True
+    return (opt, mode, fixed_chunk_size, no_mt_io, rg_line, hdr_line,
+            out_path, copy_comment, ignore_alt, pes0, verbose, args,
+            device_backend, device, resume)
+
+
+def main_mem(argv: list[str]) -> int:
+    from .align.pipeline import Aligner
+    from .index.fmindex import FMIndex
+    from .io.fastq import FastxReader
+    from .io.sam import pg_line, sam_header
+    from .runtime import run_pipeline
+
+    try:
+        (opt, mode, fixed_chunk_size, no_mt_io, rg_line, hdr_line, out_path,
+         copy_comment, ignore_alt, pes0, verbose, args, device_backend,
+         device, resume) = parse_mem_args(argv)
+    except ValueError as e:
+        # bad flag value: a usage error, not an internal failure
+        raise getopt.GetoptError(str(e))
+    if len(args) not in (2, 3):
+        sys.stderr.write(usage_mem(opt))
+        return 1
+    opt.finalize(mode)
+
+    backend = None
+    if device_backend:
+        # resolve the device before any work: cuda without a GPU raises
+        from .ops.backend import TorchBackend
+        from .ops import resolve_device
+        device = resolve_device(device)
+
+    prefix = args[0]
+    t0 = time.time()
+    sys.stderr.write(f"* loading index {prefix}\n")
+    fm = FMIndex.load(prefix)
+    if ignore_alt:
+        for a in fm.bns.anns:
+            a.is_alt = False
+    sys.stderr.write(f"* index loaded in {time.time()-t0:.1f}s\n")
+
+    rg_id = None
+    if rg_line:
+        rg_line = rg_line.replace("\\t", "\t")
+        if not rg_line.startswith("@RG"):
+            sys.stderr.write("[E] the read group line should start with @RG\n")
+            return 1
+        for field in rg_line.split("\t"):
+            if field.startswith("ID:"):
+                rg_id = field[3:]
+        hdr_line = (hdr_line + "\n" + rg_line) if hdr_line else rg_line
+
+    ks1 = FastxReader(args[1])
+    ks2 = None
+    if len(args) > 2:
+        if opt.flag & MEM_F_PE:
+            sys.stderr.write("[W] when '-p' is in use, the second query file "
+                             "is ignored.\n")
+        else:
+            ks2 = FastxReader(args[2])
+            opt.flag |= MEM_F_PE
+
+    journal = None
+    if resume:
+        # chunk-granular restart: requires a seekable -o file
+        if not out_path:
+            return _fatal("--resume requires -o <file>")
+        from .runtime import ChunkJournal
+        journal = ChunkJournal(out_path + ".resume")
+        if journal.n_done and not os.path.exists(out_path):
+            return _fatal(f"--resume: journal {out_path}.resume claims "
+                          f"{journal.n_done} chunks but {out_path} is "
+                          "missing; delete the journal to start over")
+        if journal.n_done and verbose >= 3:
+            sys.stderr.write(f"* resuming after {journal.n_done} chunks "
+                             f"({journal.n_reads} reads)\n")
+    fresh = journal is None or journal.end_offset is None \
+        or not os.path.exists(out_path)
+    out = open(out_path, "w" if fresh else "r+") if out_path else sys.stdout
+    if fresh:
+        out.write(sam_header(fm, hdr_line,
+                             pg_line(["bwa-mem2-tpu"] + (argv or []),
+                                     __version__)))
+        if journal is not None:
+            out.flush()
+            journal.truncate_output(out_path, out.tell())
+    else:
+        # drop any partial chunk, append after the last journaled one
+        out.flush()
+        journal.truncate_output(out_path, 0)
+        out.seek(journal.end_offset)
+
+    task_size = (fixed_chunk_size if fixed_chunk_size > 0
+                 else opt.chunk_size * opt.n_threads)
+
+    if device_backend:
+        backend = TorchBackend(fm, opt, device=device)
+        if verbose >= 3:
+            import torch
+            name = (torch.cuda.get_device_name(device)
+                    if device.type == "cuda" else "the CPU")
+            sys.stderr.write(f"* extension scoring on {device} ({name})\n")
+    aligner = Aligner(fm, opt, backend=backend, rg_id=rg_id, verbose=verbose)
+    # -t maps to chunk-pipeline compute workers, capped at 4 (host python
+    # saturates one GIL); output is order-identical for any count
+    nw = 1 if no_mt_io else min(max(opt.n_threads, 1), 4)
+    run_pipeline(aligner, ks1, ks2, task_size, out, pes0=pes0,
+                 copy_comment=copy_comment,
+                 pipeline_depth=1 if no_mt_io else 2, verbose=verbose,
+                 n_workers=nw, resume=journal)
+    if journal is not None:
+        journal.close()
+    if out is not sys.stdout:
+        out.close()
+    sys.stderr.write(f"* done in {time.time()-t0:.1f}s\n")
+    return 0
+
+
+def main_index(argv: list[str]) -> int:
+    from .index.build import build_index
+    optlist, args = getopt.gnu_getopt(argv, "p:")
+    prefix = None
+    for c, val in optlist:
+        if c == "-p":
+            prefix = val
+    if len(args) != 1:
+        sys.stderr.write("Usage: python -m bwamem2_tpu_torch.cli index "
+                         "[-p prefix] <in.fasta>\n")
+        return 1
+    build_index(args[0], prefix)
+    return 0
+
+
+def _fatal(msg: str) -> int:
+    """err_fatal-style clean failure (utils.h:42-47): one-line message on
+    stderr, nonzero exit, no traceback."""
+    sys.stderr.write(f"[E::main] {msg}\n")
+    return 1
+
+
+def main(argv: list[str] | None = None) -> int:
+    try:
+        return _main(argv)
+    except FileNotFoundError as e:
+        return _fatal(f"fail to open file '{e.filename or e}'")
+    except getopt.GetoptError as e:
+        return _fatal(str(e))
+    except BrokenPipeError:
+        return 1
+    except KeyboardInterrupt:
+        return 130
+
+
+def _main(argv: list[str] | None = None) -> int:
+    argv = sys.argv[1:] if argv is None else argv
+    if not argv:
+        sys.stderr.write(
+            "Usage: python -m bwamem2_tpu_torch.cli <command> [options]\n"
+            "Commands: index    index sequences in FASTA format\n"
+            "          mem      alignment (--device cuda|cpu)\n"
+            "          version  print version number\n")
+        return 1
+    cmd, rest = argv[0], argv[1:]
+    if cmd == "index":
+        return main_index(rest)
+    if cmd == "mem":
+        return main_mem(rest)
+    if cmd == "version":
+        print(__version__)
+        return 0
+    sys.stderr.write(f"[main] unrecognized command '{cmd}'\n")
+    return 1
+
+
+if __name__ == "__main__":
+    sys.exit(main())

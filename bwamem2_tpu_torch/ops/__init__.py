@@ -1,0 +1,29 @@
+"""Device side of the port: the device-resident index, the extension
+dispatch with its plain PyTorch reference, and the hand-written CUDA
+kernels' bindings."""
+
+from __future__ import annotations
+
+import torch
+
+
+def round_up(n: int, m: int) -> int:
+    return ((n + m - 1) // m) * m
+
+
+def resolve_device(device=None) -> torch.device:
+    """The device an entry point runs on: "cuda" unless the caller asks
+    for "cpu".  Asking for CUDA without a usable card raises: there is no
+    silent fallback to the CPU."""
+    dev = torch.device("cuda" if device is None else device)
+    if dev.type == "cuda":
+        if not torch.cuda.is_available():
+            raise RuntimeError(
+                "device 'cuda' requested but torch.cuda.is_available() is "
+                "False; pass device='cpu' (CLI: --device cpu) to run on "
+                "the CPU")
+        if dev.index is None:
+            dev = torch.device("cuda", torch.cuda.current_device())
+    elif dev.type != "cpu":
+        raise ValueError(f"unsupported device {dev}; use 'cuda' or 'cpu'")
+    return dev
