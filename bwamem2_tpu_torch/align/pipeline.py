@@ -6,7 +6,8 @@ Three phases over a chunk of reads:
   3. pair-end statistics + pairing/rescue + SAM          (worker_sam)
 
 The seeding and extension kernels are pluggable (host oracle vs device);
-the `backend` object provides collect_smems / extension kernels.
+the `backend` object provides collect_chunk (seeding + SA coordinates as
+flat arrays) and the extension kernels.
 """
 
 from __future__ import annotations
@@ -56,20 +57,9 @@ class Aligner:
     def kernel1(self, encs, opt):
         fm = self.fm
         if self.backend is not None:
-            flat = None
-            if hasattr(self.backend, "collect_chunk"):
-                # fused single-fetch seeding + SA (ops/seedall)
-                flat = self.backend.collect_chunk(encs, opt)
-            if flat is not None:
-                (smem_off, smem_m, smem_n, smem_s, occ_off, coords) = flat
-            else:
-                smems_per_read = self.backend.collect_smems(encs, opt)
-                # batch-resolve every read's SA positions in one device
-                # call, then chain the whole chunk in the native C++ port
-                (allpos, smem_off, smem_m, smem_n, smem_s,
-                 occ_off) = chain_mod.sa_positions_batch(opt,
-                                                         smems_per_read)
-                coords = self.backend.sa_lookup(allpos)
+            # fused single-fetch seeding + SA on the device (ops/seed.py)
+            (smem_off, smem_m, smem_n, smem_s, occ_off,
+             coords) = self.backend.collect_chunk(encs, opt)
             if self.native_rt and self._flat_ext_ok(encs, opt):
                 # flat survivor arrays straight into the native extension
                 with PROF("chaining"):

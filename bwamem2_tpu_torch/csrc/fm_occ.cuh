@@ -1,0 +1,173 @@
+// fm_occ.cuh: FM-index occ / LF primitives over the packed 32-byte occ row,
+// for the device (__popc, 16-byte loads) and for the host (the tests
+// compile this header as plain C++ and hold it against the plain PyTorch
+// versions in bwamem2_tpu_torch/ops/device_index.py).
+//
+// Row layout (ops/device_index.py): int32[nb][8] = [cp_lo[4] | code[4]],
+// 64 BWT chars per row as 2-bit codes, 16 per 32-bit word, LSB first.
+// occ_hi (only when has_hi): the counts' bits 32..39, one byte per base
+// packed into one word, read with unsigned shifts (a hi byte >= 128 makes
+// the stored int32 negative).  Semantics: GET_OCC (FMI_search.h:66-73),
+// backwardExt (FMI_search.cpp:1025-1052), get_sa_entry_compressed
+// (FMI_search.cpp:1103-1175), including the sentinel's phantom 'A' (its
+// slot stores code 0) and the int8 sign extension of the SA high byte.
+#pragma once
+
+#include <stdint.h>
+
+#ifdef __CUDACC__
+#define FM_HD __host__ __device__ __forceinline__
+#else
+#define FM_HD static inline
+#endif
+
+struct FmView {
+    const int32_t *occp;    // [nb][8]
+    const int32_t *occ_hi;  // [nb], read only when has_hi
+    int64_t counts[5];      // cumulative char counts (+1 sentinel shift)
+    int64_t sentinel;
+    int has_hi;
+};
+
+FM_HD int fm_popc(uint32_t x) {
+#ifdef __CUDA_ARCH__
+    return __popc(x);
+#else
+    return __builtin_popcount(x);
+#endif
+}
+
+// the block row of `blk`: two 16-byte loads on the device
+FM_HD void fm_row(const FmView &f, int64_t blk, uint32_t r[8]) {
+#ifdef __CUDA_ARCH__
+    const int4 *p = reinterpret_cast<const int4 *>(f.occp) + blk * 2;
+    const int4 a = __ldg(p), b = __ldg(p + 1);
+    r[0] = a.x; r[1] = a.y; r[2] = a.z; r[3] = a.w;
+    r[4] = b.x; r[5] = b.y; r[6] = b.z; r[7] = b.w;
+#else
+    for (int i = 0; i < 8; ++i) r[i] = (uint32_t)f.occp[blk * 8 + i];
+#endif
+}
+
+FM_HD uint32_t fm_hi(const FmView &f, int64_t blk) {
+#ifdef __CUDA_ARCH__
+    return (uint32_t)__ldg(f.occ_hi + blk);
+#else
+    return (uint32_t)f.occ_hi[blk];
+#endif
+}
+
+// mask over the first clip(y - 16*wi, 0, 16) chars of code word wi
+FM_HD uint32_t fm_prefix_mask(int y, int wi) {
+    int nf = y - 16 * wi;
+    nf = nf < 0 ? 0 : (nf > 16 ? 16 : nf);
+    return nf == 0 ? 0u : (0xFFFFFFFFu >> (32 - 2 * nf));
+}
+
+FM_HD int64_t fm_cp(const FmView &f, const uint32_t r[8], uint32_t hi,
+                    int c) {
+    int64_t v = (int64_t)r[c];
+    if (f.has_hi) v += (int64_t)((hi >> (8 * c)) & 0xFFu) << 32;
+    return v;
+}
+
+// 1 when the sentinel slot lies inside [block start, pos)
+FM_HD int fm_sent_in(const FmView &f, int64_t pos, int y) {
+    return (pos - y) <= f.sentinel && f.sentinel < pos;
+}
+
+// occ(pos, c) for all 4 chars from one row
+FM_HD void fm_occ4(const FmView &f, int64_t pos, int64_t out[4]) {
+    const int64_t blk = pos >> 6;
+    const int y = (int)(pos & 63);
+    uint32_t r[8];
+    fm_row(f, blk, r);
+    const uint32_t hi = f.has_hi ? fm_hi(f, blk) : 0u;
+    int n[4] = {0, 0, 0, 0};
+    for (int w = 0; w < 4; ++w) {
+        const uint32_t pm = fm_prefix_mask(y, w);
+        const uint32_t lo = r[4 + w] & 0x55555555u;
+        const uint32_t hb = (r[4 + w] >> 1) & 0x55555555u;
+        const uint32_t nlo = lo ^ 0x55555555u, nhb = hb ^ 0x55555555u;
+        n[0] += fm_popc(nlo & nhb & pm);
+        n[1] += fm_popc(lo & nhb & pm);
+        n[2] += fm_popc(nlo & hb & pm);
+        n[3] += fm_popc(lo & hb & pm);
+    }
+    n[0] -= fm_sent_in(f, pos, y);
+    for (int c = 0; c < 4; ++c) out[c] = fm_cp(f, r, hi, c) + n[c];
+}
+
+// # of chars equal to c among the first y chars of the row's code words
+FM_HD int fm_inblock(const uint32_t r[8], int y, int c) {
+    const uint32_t pat = (uint32_t)c * 0x55555555u;
+    int n = 0;
+    for (int w = 0; w < 4; ++w) {
+        const uint32_t m = r[4 + w] ^ pat;
+        n += fm_popc(~(m | (m >> 1)) & 0x55555555u & fm_prefix_mask(y, w));
+    }
+    return n;
+}
+
+// occ(pos, c) for one char
+FM_HD int64_t fm_occ_one(const FmView &f, int64_t pos, int c) {
+    const int64_t blk = pos >> 6;
+    const int y = (int)(pos & 63);
+    uint32_t r[8];
+    fm_row(f, blk, r);
+    const uint32_t hi = f.has_hi ? fm_hi(f, blk) : 0u;
+    const int n = fm_inblock(r, y, c) - (c == 0 ? fm_sent_in(f, pos, y) : 0);
+    return fm_cp(f, r, hi, c) + n;
+}
+
+// backwardExt: (k', l', s') of (k, l, s) extended by char a; two row reads
+FM_HD void fm_backward_ext(const FmView &f, int64_t k, int64_t l, int64_t s,
+                           int a, int64_t *ko, int64_t *lo, int64_t *so) {
+    int64_t sp[4], ep[4], ss[4];
+    fm_occ4(f, k, sp);
+    fm_occ4(f, k + s, ep);
+    for (int c = 0; c < 4; ++c) ss[c] = ep[c] - sp[c];
+    const int64_t sent = (k <= f.sentinel && f.sentinel < k + s) ? 1 : 0;
+    int64_t ll = l + sent;               // l3
+    for (int c = 3; c > a; --c) ll += ss[c];
+    *ko = f.counts[a] + sp[a];
+    *lo = ll;
+    *so = ss[a];
+}
+
+// (BWT char at pos (4 = sentinel), occ(pos, stored code)) from one row
+FM_HD int fm_bwt_char_occ(const FmView &f, int64_t pos, int64_t *occ) {
+    const int64_t blk = pos >> 6;
+    const int y = (int)(pos & 63);
+    uint32_t r[8];
+    fm_row(f, blk, r);
+    const uint32_t hi = f.has_hi ? fm_hi(f, blk) : 0u;
+    const int code = (int)((r[4 + (y >> 4)] >> ((y & 15) * 2)) & 3u);
+    const int n = fm_inblock(r, y, code)
+                  - (code == 0 ? fm_sent_in(f, pos, y) : 0);
+    *occ = fm_cp(f, r, hi, code) + n;
+    return pos == f.sentinel ? 4 : code;
+}
+
+// get_sa_entry_compressed: LF-walk from pos to a sampled slot (pos & 7 ==
+// 0) or the sentinel.  *steps = LF steps taken (row reads = steps, plus
+// one when the walk ends at the sentinel).
+FM_HD int64_t fm_sa_entry(const FmView &f, const int8_t *sa_ms,
+                          const uint32_t *sa_ls, int64_t pos, int *steps) {
+    int64_t sp = pos, off = 0;
+    while (sp & 7) {
+        int64_t occ;
+        const int b = fm_bwt_char_occ(f, sp, &occ);
+        if (b == 4) {
+            *steps = (int)off;
+            return off;
+        }
+        sp = f.counts[b] + occ;
+        ++off;
+    }
+    *steps = (int)off;
+    // (ms << 32) with ms sign-extended, written as a product: a left shift
+    // of a negative value is undefined in C++17
+    return (int64_t)sa_ms[sp >> 3] * 4294967296LL + (int64_t)sa_ls[sp >> 3]
+           + off;
+}

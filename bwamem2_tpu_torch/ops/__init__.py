@@ -1,6 +1,6 @@
-"""Device side of the port: the device-resident index, the extension
-dispatch with its plain PyTorch reference, and the hand-written CUDA
-kernels' bindings."""
+"""Device side of the port: the device-resident index, the seeding and
+extension dispatch with their plain PyTorch versions, and the bindings of
+the hand-written CUDA kernels."""
 
 from __future__ import annotations
 

@@ -1,11 +1,17 @@
 """Torch device backend: feeds the host pipeline (align/pipeline.py) with
 seeding results and scores the extension pairs on the device.
 
-This slice runs one device stage, banded-SW extension scoring (ops/bsw.py,
-the CUDA kernel csrc/bsw_extend.cu).  Seeding and SA resolution run in the
-port's native host runtime (the exact C++ oracle the JAX package falls back
-to for long and overflowed reads), and mate rescue runs on the host scalar
-path inside hostrt.sam_pe_batch: the backend has no `rescue_batch` yet.
+Two device stages run here:
+  * seeding + SA resolution (`collect_chunk`): ops/seed.py:FusedSeeder
+    with the kernels csrc/smem_collect.cu and csrc/sa_resolve.cu; reads
+    whose SMEMs outrun the per-read slot cap are re-seeded exactly by the
+    native host oracle (`_patch_chunk`) and counted as
+    `overflow.fused_read`;
+  * banded-SW extension scoring (ops/bsw.py, csrc/bsw_extend.cu).
+Every chunk seeds on the device, whatever its read count and read length
+(the kernel's candidate scratch is sized per grid).  Mate rescue runs on
+the host scalar path inside hostrt.sam_pe_batch: the backend has no
+`rescue_batch` yet.
 
 Uploading each chunk's padded read grid (`_bsw.encj`) is what engages the
 all-native flat extension path (Aligner._flat_ext_ok), whose scoring
@@ -17,12 +23,14 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from ..align.chain import sa_positions_batch
 from ..index.fmindex import FMIndex
 from ..native import hostrt
 from ..utils.profiling import PROF
 from . import resolve_device, round_up
 from .bsw import DeviceBSW
 from .device_index import DeviceFMIndex
+from .seed import FusedSeeder
 
 
 def _pad_reads(encs: list[np.ndarray], L: int | None = None):
@@ -51,9 +59,10 @@ class TorchBackend:
         self.device = resolve_device(device)
         self.dfm = DeviceFMIndex.from_host(fm, self.device)
         self._bsw = DeviceBSW(self.dfm, opt)
+        self.seeder = FusedSeeder(self.dfm)
 
-    def collect_smems(self, encs: list[np.ndarray], opt) -> list[list[tuple]]:
-        enc, _ = _pad_reads(encs)
+    def _attach_grid(self, encs):
+        enc, lens = _pad_reads(encs)
         N, L = enc.shape
         # the extension kernels flatten (seqid, qoff) to seqid*L+qoff in
         # int32 — guard the precondition here, at attach time
@@ -61,12 +70,65 @@ class TorchBackend:
             raise ValueError(f"read grid {N}x{L} overflows int32 flat "
                              "offsets")
         self._bsw.encj = torch.from_numpy(enc).to(self.device)
-        with PROF("seeding.host"):
-            return hostrt.collect_smems_reads(self.fm, encs, opt)
+        return lens
 
-    def sa_lookup(self, positions: np.ndarray) -> np.ndarray:
-        with PROF("sa_lookup"):
-            return hostrt.sa_entries_host(self.fm, positions)
+    def collect_chunk(self, encs: list[np.ndarray], opt):
+        """Fused seeding: (smem_off, m, n, s, occ_off, coords) ready for
+        the native chainer — what collect_smems +
+        chain.sa_positions_batch + sa_lookup give on the host."""
+        lens = self._attach_grid(encs)
+        if not lens.any():          # no bases: no SMEMs
+            e32, e64 = np.zeros(0, np.int32), np.zeros(0, np.int64)
+            return (np.zeros(len(encs) + 1, np.int64), e32, e32.copy(), e64,
+                    np.zeros(1, np.int64), e64.copy())
+        lensj = torch.from_numpy(lens).to(self.device)
+        with PROF("seeding.device"):
+            cnt, m, n, s, coords = self.seeder.run(self._bsw.encj, lensj,
+                                                   opt)
+        with PROF("seeding.assemble"):
+            return self._assemble_chunk(encs, opt, cnt, m, n, s, coords)
+
+    def _assemble_chunk(self, encs, opt, cnt, m, n, s, coords):
+        NR = len(encs)
+        bad = cnt < 0
+        PROF.count("overflow.fused_read", int(bad.sum()), NR)
+        smem_off = np.zeros(NR + 1, np.int64)
+        np.cumsum(np.maximum(cnt, 0), out=smem_off[1:])
+        if bad.any():
+            return self._patch_chunk(encs, opt, bad, smem_off, m, n, s,
+                                     coords)
+        occ_off = np.zeros(len(s) + 1, np.int64)
+        np.cumsum(np.minimum(s, opt.max_occ), out=occ_off[1:])
+        return smem_off, m, n, s, occ_off, coords
+
+    def _patch_chunk(self, encs, opt, bad, smem_off, m, n, s, coords):
+        """Merge the exact host oracle's output for the reads that outran
+        the device's slot cap (they hold no device entries) into the
+        device arrays, keeping read order."""
+        badidx = np.nonzero(bad)[0]
+        sub = hostrt.collect_smems_reads(self.fm, [encs[r] for r in badidx],
+                                         opt)
+        pos_p, off_p, m_p, n_p, s_p, occ_p = sa_positions_batch(opt, sub)
+        coords_p = hostrt.sa_entries_host(self.fm, pos_p)
+        NR = len(encs)
+        rid_d = np.repeat(np.arange(NR), np.diff(smem_off))
+        rid_h = np.repeat(badidx, np.diff(off_p))
+        rid = np.concatenate([rid_d, rid_h])
+        order = np.argsort(rid, kind="stable")
+        m_f = np.concatenate([m, m_p])[order].astype(np.int32)
+        n_f = np.concatenate([n, n_p])[order].astype(np.int32)
+        s_f = np.concatenate([s, s_p])[order].astype(np.int64)
+        crid = np.concatenate([
+            np.repeat(rid_d, np.minimum(s, opt.max_occ)),
+            np.repeat(rid_h, np.diff(occ_p))])
+        c_f = np.concatenate([coords, coords_p])[
+            np.argsort(crid, kind="stable")].astype(np.int64)
+        smem_off = np.zeros(NR + 1, np.int64)
+        np.cumsum(np.bincount(rid, minlength=NR), out=smem_off[1:])
+        occ_off = np.zeros(len(s_f) + 1, np.int64)
+        np.cumsum(np.minimum(s_f, opt.max_occ), out=occ_off[1:])
+        assert occ_off[-1] == len(c_f)
+        return smem_off, m_f, n_f, s_f, occ_off, c_f
 
     def read_grid_width(self) -> int:
         encj = self._bsw.encj

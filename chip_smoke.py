@@ -8,22 +8,40 @@ for the H100, sm_90a):
 
 Phases, each of which fails the run (non-zero exit, no result line):
   1. the card's name and power limit (nvidia-smi);
-  2. build: the CUDA kernel (nvcc, csrc/bsw_extend.cu) and the native host
-     runtime (g++) from the checkout's sources, in parallel;
+  2. build: the four CUDA kernels (one nvcc per csrc/*.cu: bsw_extend,
+     smem_collect, sa_resolve, row_gather) and the native host runtime
+     (g++) from the checkout's sources, all started together;
   3. data: a synthetic 11.7 Mbp genome (scale 0.25 of the chr21 class, the
      size of a yeast genome) with repeat families and N runs, its index and
      10,000 2x150 bp pairs, made once from fixed seeds under .tmp/;
-  4. main path: `mem` PE through the port's CLI entry on cuda (default
-     options, 2.25 Mbp task size), with every launch counter set to 0 just
-     before and read just after;
-  5. kernel vs plain: bsw_extend against bsw_desc_ref on the card at every
-     production rung (Q in 127/255/383 x T in 96..608) with P = 4096
-     real-length descriptors, exact equality, with times and the bound;
-  6. goldens: tests/fixtures/golden_se.sam and golden_pe.sam reproduced on
+  4. main path: `mem` PE through the port's CLI entry on cuda, driven
+     twice, each with every launch counter set to 0 just before and read
+     just after: (a) default options with a 2.25 Mbp task size (`-K`, 2
+     chunks) on the 10,000 pairs; (b) the CLI's default task size (10 Mbp:
+     a 66,668-read chunk) on 35,000 pairs of the same genome.  In each,
+     smem_collect, sa_resolve and bsw_extend launch at least once per
+     chunk, no plain version runs, every read is seeded on the device
+     route, and at most 1 % of the reads overflow to the host seeding
+     oracle;
+  5. kernel vs plain, exact equality, with times and bounds:
+     a. bsw_extend against bsw_desc_ref at every production rung (Q in
+        127/255/383 x T in 96..608) with P = 4096 real-length descriptors;
+     b. the smem_collect and sa_resolve wrappers against smem_collect_ref
+        and sa_resolve_ref on 2,048 reads of the smoke FASTQ and on the
+        first chunk of each main-path run (15,000 and 66,668 reads), with
+        their SA positions; at both chunks the backend's collect_chunk
+        arrays also equal the native host oracle's;
+  6. the gather probe (bwamem2_tpu_torch/tools/gather_scale_probe.py) on
+     cuda, its path's launch counter set to 0 before and read after; then
+     row_gather against tab[idx] and torch.index_select at the probe's
+     sizes and on the smoke index's own occ rows, with the probe's 32,768
+     rows and with 2^22 rows, where the card's time outweighs the call's
+     host work (the timed shape);
+  7. goldens: tests/fixtures/golden_se.sam and golden_pe.sam reproduced on
      cuda;
-  7. the main path's SAM equals the port's host-native run
+  8. run (a)'s SAM equals the port's host-native run
      (Aligner(backend=None), one process per chunk, started after phase 4
-     and run during phases 5-6) byte for byte except @PG.
+     and run during phases 5-7) byte for byte except @PG.
 The last two stdout lines are the card line and
 {"ok": true, "device": {...}}; the line before them is the per-kernel JSON.
 The run's numbers are also written to .tmp/chip_smoke/chip_smoke.json.
@@ -45,6 +63,8 @@ REPO = os.path.dirname(os.path.abspath(__file__))
 WORK = os.path.join(REPO, ".tmp", "chip_smoke")
 DATA_SCALE, N_PAIRS = 0.25, 10_000
 TASK_BASES = 2_250_000
+DEFAULT_PAIRS = 35_000   # run (b): more than one chunk at the CLI default
+DEFAULT_TASK_BASES = 10_000_000   # options.chunk_size x 1 thread
 P_KERNEL = 4096
 Q_RUNGS = (127, 255, 383)
 T_RUNGS = (96, 160, 224, 320, 448, 608)
@@ -54,6 +74,10 @@ OPS_PER_CELL = 24
 INT32_OPS_PER_S = 132 * 64 * 1.98e9
 HBM_BYTES_PER_S = 3.35e12
 DESC_BYTES, OUT_BYTES = 36, 24
+N_SEED = 2048            # reads in the seeding kernel-vs-plain sample
+P_GATHER = 1 << 22       # rows of the timed row_gather calls
+PROBE_SIZES_MB = (4, 16, 64, 256, 1024, 2048, 4096)
+MAX_OVERFLOW = 0.01      # share of main-path reads allowed to the oracle
 
 
 def log(msg: str) -> None:
@@ -75,10 +99,19 @@ def card_line() -> str:
 
 
 # ----------------------------------------------------------------- builds
-def build_all() -> dict:
-    """nvcc and g++ started together; returns seconds per build."""
-    from bwamem2_tpu_torch.native import get_lib
+def kernels():
+    """The wrappers of the four kernels, by name."""
     from bwamem2_tpu_torch.ops.bsw_cuda import bsw_extend
+    from bwamem2_tpu_torch.ops.row_gather import row_gather
+    from bwamem2_tpu_torch.ops.seed import sa_resolve, smem_collect
+    return dict(bsw_extend=bsw_extend, smem_collect=smem_collect,
+                sa_resolve=sa_resolve, row_gather=row_gather)
+
+
+def build_all() -> dict:
+    """One nvcc per kernel source and g++, all started together; returns
+    seconds per build."""
+    from bwamem2_tpu_torch.native import get_lib
     secs, errs = {}, []
 
     def timed(name, fn):
@@ -89,19 +122,19 @@ def build_all() -> dict:
             errs.append(f"{name}: {e}")
         secs[name] = time.perf_counter() - t0
 
-    ts = [threading.Thread(target=timed, args=("nvcc bsw_extend.cu",
-                                               bsw_extend.lib)),
-          threading.Thread(target=timed, args=("g++ native runtime",
-                                               get_lib))]
+    jobs = [(f"nvcc {k.SOURCES[0]}", k.lib) for k in kernels().values()]
+    jobs.append(("g++ native runtime", get_lib))
+    ts = [threading.Thread(target=timed, args=j) for j in jobs]
     for t in ts:
         t.start()
     for t in ts:
         t.join()
     if errs:
         fail("build failed:\n" + "\n".join(errs))
-    for ln in bsw_extend.build_log.splitlines():
-        if "registers" in ln or "spill" in ln or "error" in ln.lower():
-            log(f"  ptxas: {ln.strip()}")
+    for name, k in kernels().items():
+        for ln in k.build_log.splitlines():
+            if "registers" in ln or "spill" in ln or "error" in ln.lower():
+                log(f"  ptxas {name}: {ln.strip()}")
     return secs
 
 
@@ -202,6 +235,198 @@ def kernel_vs_plain(torch, fm, opt) -> dict:
     return tot
 
 
+def cuda_ms(torch, fn, reps: int) -> float:
+    """Mean CUDA-event milliseconds of fn() over `reps` calls, after one
+    warm-up call."""
+    fn()
+    e0 = torch.cuda.Event(enable_timing=True)
+    e1 = torch.cuda.Event(enable_timing=True)
+    e0.record()
+    for _ in range(reps):
+        fn()
+    e1.record()
+    torch.cuda.synchronize()
+    return e0.elapsed_time(e1) / reps
+
+
+def chunk_reads(fq1: str, fq2: str, task_bases: int):
+    """The first chunk of a FASTQ pair at `task_bases`, as the CLI reads
+    it."""
+    from bwamem2_tpu_torch.io.fastq import FastxReader, read_chunk
+    return read_chunk(FastxReader(fq1), FastxReader(fq2), task_bases)
+
+
+def host_route(fm, encs, opt):
+    """The native host oracle's six seeding arrays (rt_collect_smems_reads,
+    the max_occ sampling of sa_positions_batch, rt_sa_entries)."""
+    from bwamem2_tpu_torch.align.chain import sa_positions_batch
+    from bwamem2_tpu_torch.native import hostrt
+    sub = hostrt.collect_smems_reads(fm, encs, opt)
+    pos, smem_off, m, n, s, occ_off = sa_positions_batch(opt, sub)
+    return smem_off, m, n, s, occ_off, hostrt.sa_entries_host(fm, pos)
+
+
+def seeding_vs_plain(torch, fm, passes, opt) -> dict:
+    """The smem_collect and sa_resolve wrappers against their plain
+    versions (exact) on each pass's read grid and its SA positions, with
+    times and bounds.  passes: (tag, fq1, fq2, task_bases, n_reads or None
+    for the whole first chunk).  On whole chunks the backend's
+    collect_chunk arrays are also held against the host oracle's."""
+    import numpy as np
+    from bwamem2_tpu_torch.align.seeding import encode_reads
+    from bwamem2_tpu_torch.ops import seed
+    from bwamem2_tpu_torch.ops.backend import TorchBackend, _pad_reads
+    backend = TorchBackend(fm, opt)
+    dfm = backend.dfm
+    split_len = int(opt.min_seed_len * opt.split_factor + 0.499)
+    ev = lambda: torch.cuda.Event(enable_timing=True)  # noqa: E731
+    out = {}
+    for tag, fq1, fq2, task, n_reads in passes:
+        encs = encode_reads([r.seq for r in
+                             chunk_reads(fq1, fq2, task)[:n_reads]])
+        enc, lens = _pad_reads(encs)
+        e, ln = torch.from_numpy(enc).cuda(), torch.from_numpy(lens).cuda()
+        N, L = e.shape
+        cap = seed.smem_cap(L)
+        args = (dfm, e, ln, opt.min_seed_len, split_len,
+                int(opt.split_width), int(opt.max_mem_intv), cap)
+        got = seed.smem_collect(*args)
+        m_c, n_c, s_c, pos = seed.compact_and_expand(*got[:5],
+                                                     int(opt.max_occ))
+        coords = seed.sa_resolve(dfm, pos)
+        torch.cuda.synchronize()
+        sm_ms = cuda_ms(torch, lambda: seed.smem_collect(*args), 3)
+        sa_ms = cuda_ms(torch, lambda: seed.sa_resolve(dfm, pos), 5)
+        nbwd, nsm, P = int(got[5].sum()), int(s_c.numel()), pos.numel()
+        r = dict(reads=N, L=L, cap=cap, smems=nsm, positions=P,
+                 bwd_ext=nbwd, overflowed=int((got[4] < 0).sum()),
+                 smem_ms=sm_ms, sa_ms=sa_ms)
+        # smem_collect bytes: 2 occ rows of 32 B per backward_ext, the
+        # grid and lengths in, the written slots and per-read counts out
+        sm_bytes = nbwd * 64 + N * (L + 4) + nsm * 24 + N * 12
+        r["smem_bound_ms"] = sm_bytes / HBM_BYTES_PER_S * 1e3
+        e0, e1 = ev(), ev()
+        e0.record()
+        want = seed.smem_collect_ref(*args)
+        e1.record()
+        torch.cuda.synchronize()
+        r["smem_plain_ms"] = e0.elapsed_time(e1)
+        cnt = want[4]
+        err = max(int((got[4] - cnt).abs().max()),
+                  int((got[5] - want[5]).abs().max()))
+        slot = (torch.arange(cap, device=e.device)[None, :]
+                < cnt.clamp(min=0)[:, None])
+        for g, w in zip(got[:4], want[:4]):
+            d = (g.long() - w.long()).abs()
+            err = max(err, int(torch.where(slot, d, 0).max()))
+        r["smem_err"] = err
+        reads = []
+        e0.record()
+        want_c = seed.sa_resolve_ref(dfm, pos, reads)
+        e1.record()
+        torch.cuda.synchronize()
+        r["sa_plain_ms"] = e0.elapsed_time(e1)
+        r["sa_err"] = int((coords - want_c).abs().max()) if P else 0
+        r["sa_row_reads"] = reads[0]
+        # sa_resolve bytes: one 32 B row per LF step, 1 + 4 B of SA per
+        # position, the position in and the coordinate out
+        r["sa_bound_ms"] = ((reads[0] * 32 + P * (5 + 16))
+                            / HBM_BYTES_PER_S * 1e3)
+        if err or r["sa_err"]:
+            fail(f"{tag}: seeding kernels disagree with their plain "
+                 f"versions: smem_collect max abs err {err}, sa_resolve "
+                 f"{r['sa_err']}")
+        note = ""
+        if n_reads is None:
+            # the whole stage as the main path runs it, warm (host clock;
+            # run() ends in its fetch), and its arrays against the oracle
+            r["seeder_s"] = []
+            for _ in range(2):
+                t0 = time.perf_counter()
+                backend.seeder.run(e, ln, opt)
+                r["seeder_s"].append(time.perf_counter() - t0)
+            flat = backend.collect_chunk(encs, opt)
+            for nm, x, y in zip(("smem_off", "m", "n", "s", "occ_off",
+                                 "coords"), flat, host_route(fm, encs, opt)):
+                if not np.array_equal(x, y):
+                    fail(f"{tag}: collect_chunk {nm} differs from the host "
+                         f"oracle's")
+            note = ("; collect_chunk == host oracle; FusedSeeder.run warm: "
+                    + ", ".join(f"{x:.4f}s" for x in r["seeder_s"]))
+        out[tag] = r
+        log(f"  {tag}: {N} reads x L={L}, cap {cap}: smem_collect "
+            f"{sm_ms:.3f} ms (bound {r['smem_bound_ms']:.4f} ms, "
+            f"{nbwd} backward_ext, {r['overflowed']} overflowed), "
+            f"sa_resolve {sa_ms:.3f} ms on {P} positions (bound "
+            f"{r['sa_bound_ms']:.5f} ms); plain {r['smem_plain_ms']:.1f} / "
+            f"{r['sa_plain_ms']:.1f} ms, identical" + note)
+    return out
+
+
+def gather_phase(torch, fm) -> dict:
+    """The gather probe's path (the port's probe entry on cuda, counts set
+    to 0 just before and read just after), then the row_gather wrapper
+    against tab[idx] and torch.index_select at the probe's sizes and on
+    the smoke index's occ rows, with the probe's P rows and with P_GATHER
+    rows; the kernel, tab[idx] and index_select are timed at P_GATHER, where
+    the card's time outweighs the call's host work (the probe's own rows
+    give the P-row times)."""
+    from bwamem2_tpu_torch.ops.device_index import DeviceFMIndex
+    from bwamem2_tpu_torch.ops.row_gather import row_gather, row_gather_ref
+    from bwamem2_tpu_torch.tools import gather_scale_probe as gp
+    row_gather.reset()
+    rows = gp.probe(PROBE_SIZES_MB, "cuda", reps=3, out=sys.stdout)
+    torch.cuda.synchronize()
+    launches, plain = row_gather.launches, row_gather.plain_calls
+    if launches == 0 or plain:
+        fail(f"the probe path launched row_gather {launches} times "
+             f"({plain} plain calls)")
+    dfm = DeviceFMIndex.from_host(fm, "cuda")
+    dev = dfm.device
+
+    def occ_rows():
+        import numpy as np
+        blk = np.random.default_rng(3).integers(0, dfm.occp.shape[0],
+                                                P_GATHER)
+        return dfm.occp, torch.from_numpy(blk.astype(np.int32)).cuda()
+
+    cases = [(f"{mb} MB", lambda mb=mb: gp.make_table(mb, dev, p=P_GATHER))
+             for mb in PROBE_SIZES_MB] + [("smoke occp", occ_rows)]
+    tot = dict(ms=0.0, plain_ms=0.0, library_ms=0.0, bound_ms=0.0, err=0)
+    per = []
+    log(f"  {'table':>12} {'P':>8} {'W':>3} {'kernel_ms':>10} "
+        f"{'plain_ms':>9} {'index_select_ms':>15} {'bound_ms':>9}")
+    for name, mk in cases:
+        tab, idx = mk()
+        for ix in (idx[:gp.P], idx):
+            got = row_gather(tab, ix)
+            want = row_gather_ref(tab, ix)
+            lib = torch.index_select(tab, 0, ix)
+            torch.cuda.synchronize()
+            if not (torch.equal(got, want) and torch.equal(got, lib)):
+                fail(f"row_gather disagrees with tab[idx] on {name}, "
+                     f"P={ix.numel()}")
+            del got, want, lib
+        k_ms = cuda_ms(torch, lambda: row_gather(tab, idx), 5)
+        p_ms = cuda_ms(torch, lambda: row_gather_ref(tab, idx), 5)
+        l_ms = cuda_ms(torch, lambda: torch.index_select(tab, 0, idx), 5)
+        # bytes: each distinct row read once, the indices read, the rows
+        # written
+        P, W = idx.numel(), tab.shape[1]
+        rows_read = int(torch.unique(idx).numel())
+        b_ms = ((rows_read + P) * W * 4 + 4 * P) / HBM_BYTES_PER_S * 1e3
+        per.append(dict(table=name, P=P, W=W, rows_read=rows_read, ms=k_ms,
+                        plain_ms=p_ms, library_ms=l_ms, bound_ms=b_ms))
+        log(f"  {name:>12} {P:>8} {W:>3} {k_ms:>10.4f} {p_ms:>9.4f} "
+            f"{l_ms:>15.4f} {b_ms:>9.5f}")
+        if name != "smoke occp":
+            for key, v in (("ms", k_ms), ("plain_ms", p_ms),
+                           ("library_ms", l_ms), ("bound_ms", b_ms)):
+                tot[key] += v
+        del tab, idx
+    return dict(launches=launches, probe=rows, cases=per, **tot)
+
+
 # ------------------------------------------------------------ main path
 def read_sam_body(path: str) -> list[str]:
     with open(path) as f:
@@ -229,13 +454,67 @@ def oracle_chunk(prefix: str, fq1: str, fq2: str, idx: int) -> str:
     return "".join(r.sam for r in reads)
 
 
-def n_chunks(fq1: str, fq2: str) -> int:
+def n_chunks(fq1: str, fq2: str, task_bases: int) -> int:
     from bwamem2_tpu_torch.io.fastq import FastxReader, read_chunk
     ks1, ks2 = FastxReader(fq1), FastxReader(fq2)
     n = 0
-    while read_chunk(ks1, ks2, TASK_BASES):
+    while read_chunk(ks1, ks2, task_bases):
         n += 1
     return n
+
+
+def drive_main(torch, card: str, tag: str, cli_args: list, fq1: str,
+               fq2: str, n_reads: int, task_bases: int) -> dict:
+    """One run of `mem` PE through the CLI entry on cuda, with every
+    launch counter and PROF record set to 0 just before and read just
+    after; fails unless smem_collect, sa_resolve and bsw_extend launched
+    at least once per chunk, no plain version ran, every read took the
+    device seeding route and at most MAX_OVERFLOW of them overflowed."""
+    from bwamem2_tpu_torch import cli
+    from bwamem2_tpu_torch.utils.profiling import PROF
+    K = kernels()
+    for d in (PROF.t, PROF.n, PROF.c, PROF.ctot):
+        d.clear()
+    for k in K.values():
+        k.reset()
+    t0 = time.perf_counter()
+    rc = cli.main(["mem", *cli_args])
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = {n: k.launches for n, k in K.items()}
+    plain = {n: k.plain_calls for n, k in K.items()}
+    if rc != 0:
+        fail(f"{tag}: mem exited with {rc}")
+    chunks = n_chunks(fq1, fq2, task_bases)
+    for kn in ("smem_collect", "sa_resolve", "bsw_extend"):
+        if launches[kn] < chunks:
+            fail(f"{tag}: main path launched {kn} {launches[kn]} times "
+                 f"over {chunks} chunks")
+    if any(plain.values()):
+        # a CPU tensor is the only way to a plain version: none means every
+        # read grid and index table was a CUDA tensor
+        fail(f"{tag}: main path ran plain versions on cuda: {plain}")
+    seeded = PROF.ctot.get("overflow.fused_read", 0)
+    overflow = PROF.c.get("overflow.fused_read", 0)
+    if seeded != n_reads:
+        fail(f"{tag}: {n_reads - seeded} reads skipped the device seeding "
+             f"route")
+    if overflow > MAX_OVERFLOW * n_reads:
+        fail(f"{tag}: {overflow} of {n_reads} reads outran the device slot "
+             f"cap (limit {MAX_OVERFLOW:.0%}): seeding went back to the "
+             f"host")
+    phases = {k: round(v, 3) for k, v in sorted(PROF.t.items())}
+    log(f"  {tag}: {n_reads} reads in {wall:.2f}s = "
+        f"{n_reads / wall:.1f} reads/s, {chunks} chunks, launches "
+        f"{launches} [{card}]")
+    log(f"    overflow.fused_read {overflow} of {seeded} reads "
+        f"({100.0 * overflow / n_reads:.3f} %)")
+    log(f"    seeding.device {phases.get('seeding.device', 0.0):.3f}s "
+        f"(FusedSeeder.run, {chunks} chunks) [{card}]")
+    log(f"    host phases (s): {json.dumps(phases)}")
+    return dict(reads=n_reads, chunks=chunks, wall_s=round(wall, 3),
+                reads_per_s=round(n_reads / wall, 1), launches=launches,
+                overflow_fused_read=overflow, phases_s=phases)
 
 
 def goldens() -> None:
@@ -243,8 +522,8 @@ def goldens() -> None:
     from bwamem2_tpu_torch.index.fmindex import FMIndex
     from bwamem2_tpu_torch.io.fastq import FastxReader, read_chunk
     from bwamem2_tpu_torch.ops.backend import TorchBackend
-    from bwamem2_tpu_torch.ops.bsw_cuda import bsw_extend
     from bwamem2_tpu_torch.options import MEM_F_PE, MemOptions
+    K = {n: k for n, k in kernels().items() if n != "row_gather"}
     fx = os.path.join(REPO, "tests", "fixtures")
     data = os.path.join(REPO, "tests", "data")
     fm = FMIndex.load(os.path.join(fx, "ref_small.fa"))
@@ -256,7 +535,7 @@ def goldens() -> None:
             opt.flag |= MEM_F_PE
         ks = [FastxReader(os.path.join(data, f)) for f in fqs]
         reads = read_chunk(ks[0], ks[1] if pe else None, 10**9)
-        n0 = bsw_extend.launches
+        n0 = {n: k.launches for n, k in K.items()}
         backend = TorchBackend(fm, opt)
         Aligner(fm, opt, backend=backend, verbose=0).process(reads, 0)
         if not backend._bsw.encj.is_cuda:
@@ -268,10 +547,10 @@ def goldens() -> None:
             bad = sum(a != b for a, b in zip(ours, want))
             fail(f"{golden} differs on cuda ({bad} lines of {len(want)}, "
                  f"{len(ours)} produced)")
-        if bsw_extend.launches == n0:
-            fail(f"{golden}: the kernel was not launched")
-        log(f"  {golden}: identical ({len(want)} records, "
-            f"{bsw_extend.launches - n0} kernel launches)")
+        n = {name: k.launches - n0[name] for name, k in K.items()}
+        if not all(n.values()):
+            fail(f"{golden}: a kernel was not launched: {n}")
+        log(f"  {golden}: identical ({len(want)} records, launches {n})")
 
 
 def main() -> None:
@@ -306,84 +585,115 @@ def main() -> None:
     log(f"[3] data: l_pac={fm.l_pac} ({DATA_SCALE}x chr21), {N_PAIRS} "
         f"pairs, {time.perf_counter() - t0:.1f}s")
 
-    # ---- main path: counts to 0, drive the CLI entry, read the counts
-    from bwamem2_tpu_torch import cli
-    from bwamem2_tpu_torch.ops.bsw_cuda import bsw_extend
-    from bwamem2_tpu_torch.utils.profiling import PROF
+    # ---- main path, twice: counts to 0, drive the CLI entry, read them
     os.makedirs(WORK, exist_ok=True)
     sam = os.path.join(WORK, "main_path.sam")
-    PROF.t.clear()
-    PROF.n.clear()
-    bsw_extend.launches = 0
-    bsw_extend.plain_calls = 0
-    t0 = time.perf_counter()
-    rc = cli.main(["mem", "-K", str(TASK_BASES), "-v", "1", "-o", sam,
-                   prefix, fq1, fq2])
-    torch.cuda.synchronize()
-    wall = time.perf_counter() - t0
-    launches, plain = bsw_extend.launches, bsw_extend.plain_calls
-    if rc != 0:
-        fail(f"mem exited with {rc}")
-    if launches == 0:
-        fail("main path ran without launching bsw_extend")
-    if plain:
-        # a CPU read grid is the only way to the plain version: none means
-        # every rung group's grid (encj) was a CUDA tensor
-        fail(f"main path ran the plain version {plain} times on cuda")
-    n_reads = 2 * N_PAIRS
-    chunks = n_chunks(fq1, fq2)
-    phases = {k: round(v, 3) for k, v in sorted(PROF.t.items())}
-    log(f"[4] main path: {n_reads} reads in {wall:.2f}s = "
-        f"{n_reads / wall:.1f} reads/s, {chunks} chunks, bsw_extend "
-        f"launches {launches} [{card}]")
-    log(f"  host phases (s): {json.dumps(phases)}")
+    log("[4] main path (mem PE, CLI entry, cuda):")
+    run_a = drive_main(torch, card, f"(a) -K {TASK_BASES}", [
+        "-K", str(TASK_BASES), "-v", "1", "-o", sam, prefix, fq1, fq2],
+        fq1, fq2, 2 * N_PAIRS, TASK_BASES)
+    chunks = run_a["chunks"]
+    _, fq1d, fq2d = benchdata.ensure(
+        os.path.join(REPO, ".tmp", f"bench_scale{DATA_SCALE}"), DATA_SCALE,
+        DEFAULT_PAIRS)
+    run_b = drive_main(torch, card, "(b) default task size", [
+        "-v", "1", "-o", os.path.join(WORK, "main_default.sam"), prefix,
+        fq1d, fq2d], fq1d, fq2d, 2 * DEFAULT_PAIRS, DEFAULT_TASK_BASES)
+    # the kernels line counts the launches of both runs
+    launches = {n: run_a["launches"][n] + run_b["launches"][n]
+                for n in run_a["launches"]}
 
-    # the host-native oracle (one process per chunk) runs while the kernel
-    # is held against its plain version and the goldens run
+    # the host-native oracle (one process per chunk) runs while the kernels
+    # are held against their plain versions and the goldens run
     # (leaving the `with` terminates the pool, also when a phase fails)
     import multiprocessing as mp
+    opt = MemOptions().finalize(None)
     t0 = time.perf_counter()
     with mp.get_context("spawn").Pool(min(chunks, os.cpu_count() or 1)) \
             as pool:
         futs = [pool.apply_async(oracle_chunk, (prefix, fq1, fq2, i))
                 for i in range(chunks)]
-        log(f"[5] kernel vs plain on {name}, P={P_KERNEL} per rung:")
-        tot = kernel_vs_plain(torch, fm, MemOptions().finalize(None))
+        log(f"[5a] bsw_extend vs plain on {name}, P={P_KERNEL} per rung:")
+        tot = kernel_vs_plain(torch, fm, opt)
         log(f"  all rungs identical; kernel {tot['ms']:.3f} ms, plain "
             f"{tot['plain_ms']:.1f} ms, bound {tot['bound_ms']:.4f} ms "
             f"({tot['cells']} cells) [{card}]")
-        log("[6] goldens on cuda:")
+        log(f"[5b] smem_collect / sa_resolve vs plain on {name} [{card}]:")
+        sd = seeding_vs_plain(torch, fm, (
+            ("sample", fq1, fq2, TASK_BASES, N_SEED),
+            ("chunk (a)", fq1, fq2, TASK_BASES, None),
+            ("chunk (b)", fq1d, fq2d, DEFAULT_TASK_BASES, None)), opt)
+        log(f"[6] gather probe on {name} [{card}]:")
+        gt = gather_phase(torch, fm)
+        log("[7] goldens on cuda:")
         goldens()
         oracle = "".join(f.get() for f in futs)
     ours = [ln for ln in read_sam_body(sam) if not ln.startswith("@")]
     want = oracle.splitlines(keepends=True)
     if ours != want:
         bad = sum(a != b for a, b in zip(ours, want))
-        fail(f"main-path SAM differs from the host-native run: {bad} of "
+        fail(f"run (a)'s SAM differs from the host-native run: {bad} of "
              f"{len(want)} records ({len(ours)} produced)")
-    log(f"[7] main-path SAM == host-native Aligner(backend=None) SAM "
+    log(f"[8] run (a)'s SAM == host-native Aligner(backend=None) SAM "
         f"({len(want)} records; oracle {time.perf_counter() - t0:.1f}s)")
 
-    kern = dict(name="bsw_extend", route="cuda",
-                source="bwamem2_tpu_torch/csrc/bsw_extend.cu",
-                replaces="bwamem2_tpu/ops/bsw_pallas.py:69",
-                launches=launches, max_abs_err=tot["err"],
-                ms=round(tot["ms"], 4), plain_ms=round(tot["plain_ms"], 3),
-                bound_ms=round(tot["bound_ms"], 5),
-                bound_by=("operations" if tot["ops_ms"] >= tot["mem_ms"]
-                          else "bytes"),
-                library_ms=None,
-                shape=f"sum over {len(Q_RUNGS) * len(T_RUNGS)} rungs "
-                      f"(Q x T), P={P_KERNEL} each")
-    result = dict(kernels=[kern], card=card, reads=n_reads,
-                  wall_s=round(wall, 3), reads_per_s=round(n_reads / wall, 1),
+    # the seeding kernels' times and bounds at run (b)'s first chunk, the
+    # largest shape the main path gave them; errors over every pass
+    big = sd["chunk (b)"]
+    sm_err = max(r["smem_err"] for r in sd.values())
+    sa_err = max(r["sa_err"] for r in sd.values())
+    by = lambda ops, mem: "operations" if ops >= mem else "bytes"  # noqa
+    kern = [
+        dict(name="bsw_extend", route="cuda",
+             source="bwamem2_tpu_torch/csrc/bsw_extend.cu",
+             replaces="bwamem2_tpu/ops/bsw_pallas.py:69",
+             launches=launches["bsw_extend"], max_abs_err=tot["err"],
+             ms=round(tot["ms"], 4), plain_ms=round(tot["plain_ms"], 3),
+             bound_ms=round(tot["bound_ms"], 5),
+             bound_by=by(tot["ops_ms"], tot["mem_ms"]), library_ms=None,
+             library_note="no PyTorch call computes banded SW",
+             shape=f"sum over {len(Q_RUNGS) * len(T_RUNGS)} rungs (Q x T), "
+                   f"P={P_KERNEL} each"),
+        dict(name="smem_collect", route="cuda",
+             source="bwamem2_tpu_torch/csrc/smem_collect.cu",
+             replaces="bwamem2_tpu/ops/seedall.py:93",
+             launches=launches["smem_collect"], max_abs_err=sm_err,
+             ms=round(big["smem_ms"], 4),
+             plain_ms=round(big["smem_plain_ms"], 3),
+             bound_ms=round(big["smem_bound_ms"], 5), bound_by="bytes",
+             library_ms=None, library_note="no PyTorch call computes SMEMs",
+             shape=f"{big['reads']} reads x L={big['L']} (run (b)'s first "
+                   f"chunk), {big['bwd_ext']} backward_ext"),
+        dict(name="sa_resolve", route="cuda",
+             source="bwamem2_tpu_torch/csrc/sa_resolve.cu",
+             replaces="bwamem2_tpu/ops/seedall.py:602",
+             launches=launches["sa_resolve"], max_abs_err=sa_err,
+             ms=round(big["sa_ms"], 4), plain_ms=round(big["sa_plain_ms"], 3),
+             bound_ms=round(big["sa_bound_ms"], 5), bound_by="bytes",
+             library_ms=None,
+             library_note="no PyTorch call computes SA walks",
+             shape=f"{big['positions']} positions (run (b)'s first chunk), "
+                   f"{big['sa_row_reads']} row reads"),
+        dict(name="row_gather", route="cuda",
+             source="bwamem2_tpu_torch/csrc/row_gather.cu",
+             replaces="tools/gather_scale_probe.py:78",
+             launches=gt["launches"], max_abs_err=gt["err"],
+             ms=round(gt["ms"], 4), plain_ms=round(gt["plain_ms"], 4),
+             bound_ms=round(gt["bound_ms"], 5), bound_by="bytes",
+             library_ms=round(gt["library_ms"], 4),
+             library_note="torch.index_select",
+             shape=f"sum over the probe's {len(PROBE_SIZES_MB)} tables "
+                   f"(4-4096 MB), P={P_GATHER} rows of 16 int32 each"),
+    ]
+    result = dict(kernels=kern, card=card, main_a=run_a, main_b=run_b,
+                  launches=launches,
                   build_s={k: round(v, 1) for k, v in secs.items()},
-                  phases_s=phases,
+                  seeding=sd, gather=gt,
                   total_s=round(time.perf_counter() - t_start, 1))
     with open(os.path.join(WORK, "chip_smoke.json"), "w") as f:
         json.dump(result, f, indent=1)
     log(f"[done] {result['total_s']}s")
-    print(json.dumps({"kernels": [kern]}))
+    print(json.dumps({"kernels": kern}))
     print(card)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": name,

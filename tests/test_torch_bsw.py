@@ -201,10 +201,7 @@ def test_cuda_dp_source_packed_ref(host_dp, monkeypatch):
     """The kernel's 2-bit packed genome path against the reference's."""
     d = make_desc(23, 96, 127, 160)
     monkeypatch.setattr(DeviceFMIndex, "REF_PACK_MIN", 16)
-
-    class FM:
-        ref_string = d[0]
-    dfm = DeviceFMIndex.from_host(FM, "cpu")
+    dfm = DeviceFMIndex.from_genome(d[0], "cpu")
     assert dfm.ref_packed
     got = run_host_dp(host_dp, d, 127, DEFAULT, ref=dfm.ref.numpy(),
                       packed=True)

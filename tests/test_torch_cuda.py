@@ -1,0 +1,121 @@
+"""The port's seeding and gather kernels against their plain versions on
+the card (marker `cuda`; they skip without a GPU).
+
+This file imports only the port, numpy and torch — no JAX — so that it
+runs on a machine with a GPU and no JAX:
+
+    pytest -m cuda tests/test_torch_cuda.py
+
+The plain versions are held against the JAX package on the CPU by
+tests/test_torch_seed.py and tests/test_torch_gather.py; chip_smoke.py
+repeats these checks at the main path's sizes.  Tolerance 0 (integer).
+"""
+
+import os
+
+import numpy as np
+import pytest
+import torch
+
+from bwamem2_tpu_torch.align.seeding import encode_reads
+from bwamem2_tpu_torch.index.fmindex import FMIndex
+from bwamem2_tpu_torch.io.fastq import FastxReader, read_chunk
+from bwamem2_tpu_torch.ops import seed as tseed
+from bwamem2_tpu_torch.ops.backend import _pad_reads
+from bwamem2_tpu_torch.ops.device_index import DeviceFMIndex
+from bwamem2_tpu_torch.ops.row_gather import row_gather, row_gather_ref
+from bwamem2_tpu_torch.options import MemOptions
+
+from conftest import DATA, FIXTURES
+
+PREFIX = os.path.join(FIXTURES, "ref_small.fa")
+
+
+@pytest.fixture(scope="module")
+def card():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    return torch.device("cuda")
+
+
+@pytest.mark.cuda
+def test_seeding_kernels_match_ref_on_card(card):
+    """smem_collect (with the default cap and a cap of 5 that overflows
+    most reads) and sa_resolve (every BWT position) against their plain
+    versions on the card."""
+    fm = FMIndex.load(PREFIX)
+    dfm = DeviceFMIndex.from_host(fm, card)
+    reads = read_chunk(FastxReader(os.path.join(DATA, "reads_r1.fq")),
+                       FastxReader(os.path.join(DATA, "reads_r2.fq")),
+                       10**9)
+    enc, lens = _pad_reads(encode_reads([r.seq for r in reads]))
+    e, ln = torch.from_numpy(enc).to(card), torch.from_numpy(lens).to(card)
+    opt = MemOptions().finalize()
+    for cap in (tseed.smem_cap(enc.shape[1]), 5):
+        args = (dfm, e, ln, opt.min_seed_len, 29, opt.split_width,
+                opt.max_mem_intv, cap)
+        n = tseed.smem_collect.launches
+        got = [t.cpu().numpy() for t in tseed.smem_collect(*args)]
+        torch.cuda.synchronize()
+        assert tseed.smem_collect.launches == n + 1
+        want = [t.cpu().numpy() for t in tseed.smem_collect_ref(*args)]
+        np.testing.assert_array_equal(got[4], want[4])
+        np.testing.assert_array_equal(got[5], want[5])
+        slot = np.arange(cap)[None, :] < np.maximum(want[4], 0)[:, None]
+        for g, w in zip(got[:4], want[:4]):
+            np.testing.assert_array_equal(g[slot], w[slot])
+    pos = torch.arange(fm.ref_seq_len, device=card)
+    n = tseed.sa_resolve.launches
+    got = tseed.sa_resolve(dfm, pos)
+    torch.cuda.synchronize()
+    assert tseed.sa_resolve.launches == n + 1
+    np.testing.assert_array_equal(got.cpu().numpy(),
+                                  tseed.sa_resolve_ref(dfm, pos).cpu().numpy())
+
+
+@pytest.mark.cuda
+def test_smem_collect_long_reads_on_card(card):
+    """Reads of 300-1,000 bp (mutated genome slices, some with N bases):
+    the kernel's per-grid scratch takes any read length."""
+    fm = FMIndex.load(PREFIX)
+    dfm = DeviceFMIndex.from_host(fm, card)
+    with open(os.path.join(DATA, "ref_small.fa")) as f:
+        genome = "".join(ln.strip() for ln in f if not ln.startswith(">"))
+    rng = np.random.default_rng(7)
+    seqs = []
+    for _ in range(256):
+        ln = int(rng.integers(300, 1001))
+        p = int(rng.integers(0, len(genome) - ln))
+        s = list(genome[p:p + ln])
+        for _ in range(ln // 80):
+            s[int(rng.integers(0, ln))] = "ACGTN"[int(rng.integers(0, 5))]
+        seqs.append("".join(s))
+    enc, lens = _pad_reads(encode_reads(seqs))
+    e, ln = torch.from_numpy(enc).to(card), torch.from_numpy(lens).to(card)
+    opt = MemOptions().finalize()
+    cap = tseed.smem_cap(enc.shape[1])
+    args = (dfm, e, ln, opt.min_seed_len, 29, opt.split_width,
+            opt.max_mem_intv, cap)
+    got = [t.cpu().numpy() for t in tseed.smem_collect(*args)]
+    want = [t.cpu().numpy() for t in tseed.smem_collect_ref(*args)]
+    np.testing.assert_array_equal(got[4], want[4])
+    np.testing.assert_array_equal(got[5], want[5])
+    assert (want[4] > 0).all()
+    slot = np.arange(cap)[None, :] < np.maximum(want[4], 0)[:, None]
+    for g, w in zip(got[:4], want[:4]):
+        np.testing.assert_array_equal(g[slot], w[slot])
+
+
+@pytest.mark.cuda
+def test_row_gather_kernel_matches_ref_on_card(card):
+    for nblocks, W in ((1 << 16, 16), (1 << 12, 8)):
+        rng = np.random.default_rng(W)
+        tab = torch.from_numpy(rng.integers(-2**31, 2**31, (nblocks, W))
+                               .astype(np.int32)).to(card)
+        idx = torch.from_numpy(rng.integers(0, nblocks, 32768)
+                               .astype(np.int32)).to(card)
+        n = row_gather.launches
+        got = row_gather(tab, idx)
+        torch.cuda.synchronize()
+        assert row_gather.launches == n + 1
+        assert torch.equal(got, row_gather_ref(tab, idx))

@@ -1,9 +1,11 @@
-"""The port stands alone: no jax, nothing of bwamem2_tpu.
+"""The port stands alone: no jax, nothing of bwamem2_tpu or tools/.
 
 An AST scan of every Python file of bwamem2_tpu_torch/ and of
-chip_smoke.py finds no import of `jax` or `bwamem2_tpu` (absolute, or
-relative imports climbing out of the package), and a fresh interpreter
-that imports every module of the port has neither in sys.modules.
+chip_smoke.py finds no import of `jax`, `bwamem2_tpu` or the repo's
+`tools` (absolute, or relative imports climbing out of the package), and a
+fresh interpreter that imports every module of the port has none of them
+in sys.modules.  (tools/gather_scale_probe.py runs its probe when
+imported; the port has its own copy under bwamem2_tpu_torch/tools/.)
 """
 
 import ast
@@ -14,7 +16,7 @@ import sys
 from conftest import REPO
 
 PKG = os.path.join(REPO, "bwamem2_tpu_torch")
-BANNED = ("jax", "jaxlib", "bwamem2_tpu")
+BANNED = ("jax", "jaxlib", "bwamem2_tpu", "tools")
 
 
 def _port_files():

@@ -1,9 +1,11 @@
 """The port end to end on the CPU: golden SAM byte for byte.
 
-TorchBackend(device="cpu") seeds with the port's native host runtime and
-scores every extension rung group with bsw_desc_ref (the CUDA kernel's
-plain version) through the flat all-native extension path; mate rescue
-runs on the host scalar path.  Outputs must equal the committed goldens.
+TorchBackend(device="cpu") seeds through the fused collect_chunk route
+(smem_collect_ref and sa_resolve_ref, the seeding kernels' plain versions)
+and scores every extension rung group with bsw_desc_ref (the extension
+kernel's plain version) through the flat all-native extension path; mate
+rescue runs on the host scalar path.  Outputs must equal the committed
+goldens.
 """
 
 import os
@@ -17,6 +19,7 @@ from bwamem2_tpu_torch.index.fmindex import FMIndex
 from bwamem2_tpu_torch.io.fastq import FastxReader, read_chunk
 from bwamem2_tpu_torch.ops.backend import TorchBackend
 from bwamem2_tpu_torch.ops.bsw_cuda import bsw_extend
+from bwamem2_tpu_torch.ops.seed import sa_resolve, smem_collect
 from bwamem2_tpu_torch.options import MEM_F_PE, MemOptions
 
 from conftest import DATA, FIXTURES
@@ -52,8 +55,13 @@ def test_golden_on_cpu_through_plain_kernel(fm, pe):
                            None, 10**9)
     backend = TorchBackend(fm, opt, device="cpu")
     n_plain, n_launch = bsw_extend.plain_calls, bsw_extend.launches
+    seeding = (smem_collect, sa_resolve)
+    n_seed = [(k.plain_calls, k.launches) for k in seeding]
     al = Aligner(fm, opt, backend=backend, verbose=0)
     al.process(reads, 0)
+    # seeding took the fused collect_chunk route, on the plain versions
+    for k, (p0, l0) in zip(seeding, n_seed):
+        assert (k.plain_calls, k.launches) == (p0 + 1, l0)
     # the flat all-native extension path ran (DeviceBSW.run_arrays is its
     # only caller of the wrapper), scoring on the plain kernel
     assert al._flat_ext_ok([r.seq for r in reads], opt)
