@@ -3,7 +3,8 @@
 The same BWA-MEM seed-and-extend aligner, with SAM output byte-identical to
 the JAX package's, running on one NVIDIA GPU (written for the H100, sm_90a).
 Device kernels are written by hand in CUDA C++ (`csrc/`: seeding,
-SA resolution, extension scoring and the row gather of the gather probe),
+SA resolution, extension scoring, mate rescue and the row gather of the
+gather probe),
 each beside a plain PyTorch version of the same function (`ops/`); the
 host runtime (chaining, extension acceptance, pairing, SAM text) is the
 package's own copy of the native C++ runtime (`native/`).

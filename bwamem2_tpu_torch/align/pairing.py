@@ -19,6 +19,7 @@ from ..options import (MEM_F_ALL, MEM_F_NOPAIRING, MEM_F_NO_RESCUE,
                        MEM_F_PRIMARY5)
 from ..utils.f32 import f32, fmul
 from ..utils.hashing import hash_64
+from ..utils.profiling import PROF
 from .extend import AlnReg
 from . import finalize as fin
 
@@ -134,7 +135,8 @@ def matesw(fm: FMIndex, opt, pes: list[PEStat], a: AlnReg, l_ms: int,
 
     When `rescue` holds a pre-batched device result for (rkey..., r) the
     SW call is skipped (mem_sam_pe_batch consumption, bwamem_pair.cpp:713);
-    results are bit-identical either way."""
+    results are bit-identical either way.  A lookup that misses a given
+    `rescue` is counted as `overflow.rescue_miss`."""
     l_pac = fm.l_pac
     skip = [p.failed != 0 for p in pes]
     for reg in ma:
@@ -156,6 +158,8 @@ def matesw(fm: FMIndex, opt, pes: list[PEStat], a: AlnReg, l_ms: int,
         if a.rid == rid and re - rb >= opt.min_seed_len:
             res = rescue.get(rkey + (r,)) if rescue is not None else None
             if res is None:
+                if rescue is not None:
+                    PROF.count("overflow.rescue_miss")
                 if is_rev:
                     seq = np.array(
                         [3 - int(c) if c < 4 else 4 for c in ms[::-1]],
@@ -198,7 +202,8 @@ def batch_rescue_pre(fm: FMIndex, opt, pes, regs_per_read, encs,
     sequential skip rules in matesw only grow as rescued hits are inserted,
     so problems skipped at runtime simply leave their batch result unused.
 
-    Returns (descriptor dict for ops.kswv.DeviceKswv.align_batch, keys)."""
+    Returns (descriptor dict for TorchBackend.rescue_batch, which scores
+    it with ops/kswv.py:DeviceKswv.align_batch, keys)."""
     l_pac = fm.l_pac
     keys: list[tuple] = []
     qoff, qdir, qcomp, qlen = [], [], [], []
@@ -248,21 +253,6 @@ def batch_rescue_pre(fm: FMIndex, opt, pes, regs_per_read, encs,
                 toff=np.array(toff, np.int64),
                 tlen=np.array(tlen, np.int32),
                 u8=np.array(u8, bool))
-
-    def enc_host(i, ql):
-        p, end, j, r = keys[i]
-        ms = encs[(p << 1) | (not end)]
-        if desc["qdir"][i] < 0:
-            return np.array([3 - int(c) if c < 4 else 4 for c in ms[::-1]],
-                            np.uint8)
-        return ms
-
-    def ref_host(i, tl):
-        t0 = int(desc["toff"][i])
-        return np.ascontiguousarray(fm.ref_string[t0: t0 + tl])
-
-    desc["enc_host"] = enc_host
-    desc["ref_host"] = ref_host
     return desc, keys
 
 

@@ -218,7 +218,8 @@ class Aligner:
                             else hostrt.pestat_batch(self.fm, opt, fr,
                                                      self.verbose))
                 keys = res = None
-                if self._device_rescue():
+                device = self._device_rescue()
+                if device:
                     # chunk-wide device rescue batch (mem_sam_pe_batch pre)
                     with PROF("matesw"):
                         desc, keys = hostrt.rescue_pre_batch(
@@ -229,11 +230,14 @@ class Aligner:
                             if res is None:
                                 keys = None
                 with PROF("pairing"):
-                    sams = hostrt.sam_pe_batch(
+                    sams, n_host_sw = hostrt.sam_pe_batch(
                         self.fm, opt, reads, fr, pes6, n_processed,
                         self.rg_id, keys=keys, res7=res)
                     for r, s in zip(reads, sams):
                         r.sam = s.decode("ascii")
+                if device:
+                    # rescue SWs the device batch missed ran on the host
+                    PROF.count("overflow.rescue_miss", n_host_sw)
                 return len(reads)
             else:
                 with PROF("finalize.sam"):
@@ -257,6 +261,7 @@ class Aligner:
                     desc, keys = pairing.batch_rescue_pre(
                         self.fm, opt, pes, regs_per_read, encs,
                         self.backend.read_grid_width())
+                    rescue = {}       # matesw counts each lookup it misses
                     if keys:
                         out = self.backend.rescue_batch(desc)
                         if out is not None:

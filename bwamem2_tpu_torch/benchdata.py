@@ -7,6 +7,9 @@ per 150 kb, each copy at 2% divergence) and telomeric/centromeric N runs,
 indexed with the port's index builder, plus 2x150 bp FR pairs (insert 420
 +- 60, 0.5% substitutions, one indel in 5% of reads).  scale 1.0 is the
 46.7 Mbp chr21 class; scale 0.25 is 11.7 Mbp, the size of a yeast genome.
+`rescue_windows` and `rescue_batch` make random mate-rescue problems on a
+genome, for holding the rescue kernel against its plain version and the
+native ksw_align.
 
 Everything is made from fixed seeds and cached by existence under `dir`.
 """
@@ -122,3 +125,62 @@ def ensure(dir: str, scale: float, n_pairs: int) -> tuple[str, str, str]:
               file=sys.stderr)
         sample_reads_pe(fa, fq1, fq2, n_pairs)
     return fa, fq1, fq2
+
+
+def rescue_windows(genome: np.ndarray, seed: int, n: int, L: int,
+                   qr: tuple[int, int], tr: tuple[int, int], nmut: int,
+                   n_every: int, plant: int):
+    """n random mate-rescue problems on the doubled `genome`, one per row of
+    an int8[n, L] read grid: qlen drawn from [qr), tlen from [tr); even
+    problems query a slice of their own window (from `plant` bases in, with
+    `nmut` substitutions: rescuable), odd ones random bases; one in
+    `n_every` gets an N and one in three is reverse-complemented (qdir -1,
+    qcomp).  Returns (enc, qoff, qdir, qcomp, qlen, toff, tlen)."""
+    l_pac = len(genome) // 2
+    rng = np.random.default_rng(seed)
+    enc = np.full((n, L), 4, np.int8)
+    qoff = np.zeros(n, np.int32)
+    qdir = np.zeros(n, np.int32)
+    qcomp = np.zeros(n, bool)
+    qlen = np.zeros(n, np.int32)
+    toff = np.zeros(n, np.int64)
+    tlen = np.zeros(n, np.int32)
+    for i in range(n):
+        ql = int(rng.integers(*qr))
+        tl = int(rng.integers(*tr))
+        tb = int(rng.integers(0, l_pac - tl))
+        if i % 2 == 0:
+            q = genome[tb + plant: tb + plant + ql].copy()
+            mut = rng.integers(0, ql, nmut)
+            q[mut] = (q[mut] + 1) % 4
+        else:
+            q = rng.integers(0, 4, ql).astype(np.uint8)
+        if i % n_every == 0:
+            q[rng.integers(0, ql)] = 4
+        enc[i, :ql] = q
+        rev = i % 3 == 0
+        qoff[i] = i * L + (ql - 1 if rev else 0)
+        qdir[i] = -1 if rev else 1
+        qcomp[i] = rev
+        qlen[i] = ql
+        toff[i] = tb
+        tlen[i] = tl
+    return enc, qoff, qdir, qcomp, qlen, toff, tlen
+
+
+def rescue_batch(genome: np.ndarray, parts: list[dict]):
+    """Several rescue_windows sets as one batch on a shared read grid.
+    parts: rescue_windows keywords (seed, n, qr, tr, nmut, n_every, plant;
+    an L there is replaced by the grid's, the longest qr) plus u8, the
+    precision class of the set.  Returns (enc int8[sum n, L], descriptors
+    as DeviceKswv.align_batch takes them)."""
+    L = max(p["qr"][1] for p in parts)
+    ws = [rescue_windows(genome, **{k: v for k, v in p.items()
+                                    if k not in ("L", "u8")}, L=L)
+          for p in parts]
+    row0 = np.cumsum([0] + [p["n"] for p in parts])
+    desc = dict(zip(("qoff", "qdir", "qcomp", "qlen", "toff", "tlen"), (
+        np.concatenate([w[1] + r * L for w, r in zip(ws, row0)]),
+        *(np.concatenate([w[k] for w in ws]) for k in range(2, 7)))))
+    desc["u8"] = np.concatenate([np.full(p["n"], p["u8"]) for p in parts])
+    return np.concatenate([w[0] for w in ws]), desc

@@ -24,6 +24,7 @@ _SRC_PATHS = [os.path.join(_HERE, "core.cpp"),
 _HDR_PATHS = [os.path.join(_HERE, "nsort.h")]
 _lock = threading.Lock()
 _lib = None
+KSW_XBYTE, KSW_XSUBO, KSW_XSTART = 0x10000, 0x40000, 0x80000   # ksw.h
 
 
 def _stale() -> bool:
@@ -204,6 +205,51 @@ def ksw_align(query, target, mat, o_del, e_del, o_ins, e_ins, xtra):
     get_lib().ksw_align(len(query), query, len(target), target, m, mat,
                         o_del, e_del, o_ins, e_ins, xtra, out)
     return tuple(int(x) for x in out)
+
+
+def ksw_align_batch(queries, targets, mat, o_del, e_del, o_ins, e_ins,
+                    xtra) -> np.ndarray:
+    """ksw_align over lists of uint8 queries and targets, one xtra per
+    problem; returns int32[n, 7] (score, te, qe, score2, te2, tb, qb)."""
+    n = len(queries)
+    off = lambda xs: np.concatenate(  # noqa: E731
+        [[0], np.cumsum([len(x) for x in xs])]).astype(np.int64)
+    cat = lambda xs: np.ascontiguousarray(  # noqa: E731
+        np.concatenate([np.zeros(0, np.uint8)] + list(xs)), np.uint8)
+    mat = np.ascontiguousarray(mat, dtype=np.int8)
+    out = np.empty((n, 7), dtype=np.int32)
+    get_lib().ksw_align_batch(
+        n, cat(queries), off(queries)[:-1],
+        np.array([len(x) for x in queries], np.int32), cat(targets),
+        off(targets)[:-1], np.array([len(x) for x in targets], np.int32),
+        int(np.sqrt(mat.size)), mat, o_del, e_del, o_ins, e_ins,
+        np.ascontiguousarray(xtra, np.int32), out)
+    return out
+
+
+def ksw_align_desc(enc: np.ndarray, genome: np.ndarray, desc: dict,
+                   opt) -> np.ndarray:
+    """The host oracle of ops/kswv.py:DeviceKswv.align_batch: mem_matesw's
+    ksw_align on each rescue problem of `desc`, its query read from the
+    int8[N, L] read grid `enc` (reverse-complemented when qdir < 0) and its
+    target from the doubled genome.  Returns int32[n, 7]."""
+    L = enc.shape[1]
+    qs, ts = [], []
+    for qoff, qdir, ql, t0, tl in zip(desc["qoff"], desc["qdir"],
+                                      desc["qlen"], desc["toff"],
+                                      desc["tlen"]):
+        row, col = divmod(int(qoff), L)
+        if qdir < 0:
+            q = enc[row, col - ql + 1: col + 1][::-1]
+            q = np.where(q < 4, 3 - q, q)
+        else:
+            q = enc[row, col: col + ql]
+        qs.append(q.astype(np.uint8))
+        ts.append(genome[t0: t0 + tl])
+    xtra = (KSW_XSUBO | KSW_XSTART | np.where(desc["u8"], KSW_XBYTE, 0)
+            | opt.min_seed_len * opt.a)
+    return ksw_align_batch(qs, ts, np.array(opt.mat, np.int8), opt.o_del,
+                           opt.e_del, opt.o_ins, opt.e_ins, xtra)
 
 
 def ksw_global(query, target, mat, o_del, e_del, o_ins, e_ins, w,

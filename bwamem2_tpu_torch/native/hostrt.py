@@ -128,7 +128,7 @@ def _lib():
             POINTER(BnsC), POINTER(MemOptC), POINTER(ReadsC),
             POINTER(RegsC), POINTER(ctypes.c_double), c_int64, c_int64,
             _pi32, _pi32, _pi32, _pi32, _pi32, c_char_p, c_int64,
-            _pi64, _pi64]
+            _pi64, _pi64, _pi64]
         lib.rt_smems_pivots.restype = POINTER(SmemsOutC)
         lib.rt_smems_pivots.argtypes = [
             POINTER(FmiC), np.ctypeslib.ndpointer(np.uint8,
@@ -603,8 +603,9 @@ def pes_to_stats(pes) -> np.ndarray:
 def rescue_pre_batch(fm, opt, reads, fr: FlatRegs, pes6: np.ndarray,
                      L: int):
     """Collect the chunk's mate-rescue SW problems as device descriptors.
-    Returns (desc dict for ops.kswv.DeviceKswv.align_batch, keys arrays)
-    or (None, None) when there is nothing to rescue."""
+    Returns (desc dict for TorchBackend.rescue_batch, which scores it with
+    ops/kswv.py:DeviceKswv.align_batch, keys arrays) or (None, None) when
+    there is nothing to rescue."""
     lib = _lib()
     bv = bns_view(fm)
     oc = make_opt_c(opt)
@@ -636,32 +637,17 @@ def rescue_pre_batch(fm, opt, reads, fr: FlatRegs, pes6: np.ndarray,
                 tlen=arr(ro.tlen, np.int32),
                 u8=arr(ro.u8c, np.uint8).astype(bool))
     lib.rt_free(rop)
-
-    # host-fallback sequence providers for non-u8-class / saturated lanes
-    # (DeviceKswv.align_batch consumes these; ops/kswv.py:330-347)
-    from ..index.io import NT4_TABLE
-
-    def enc_host(i, ql):
-        row = int(desc["qoff"][i]) // L
-        ms = NT4_TABLE[np.frombuffer(reads[row].seq.encode(), np.uint8)]
-        if desc["qdir"][i] < 0:
-            return np.array([3 - int(c) if c < 4 else 4 for c in ms[::-1]],
-                            np.uint8)
-        return np.ascontiguousarray(ms)
-
-    def ref_host(i, tl):
-        t0 = int(desc["toff"][i])
-        return np.ascontiguousarray(fm.ref_string[t0:t0 + tl])
-
-    desc["enc_host"] = enc_host
-    desc["ref_host"] = ref_host
     return desc, keys
 
 
 def sam_pe_batch(fm, opt, reads, fr: FlatRegs, pes6: np.ndarray,
                  n_processed: int, rg_id: str | None,
-                 keys=None, res7: np.ndarray | None = None) -> list[bytes]:
-    """mem_sam_pe over all pairs of the chunk; returns per-read SAM text."""
+                 keys=None, res7: np.ndarray | None = None
+                 ) -> tuple[list[bytes], int]:
+    """mem_sam_pe over all pairs of the chunk, with the rescue results
+    `res7` of the problems `keys` (rescue_pre_batch's).  Returns (per-read
+    SAM text, the number of rescue SWs that found no result in res7 and ran
+    on the host scalar kernel)."""
     lib = _lib()
     bv = bns_view(fm)
     oc = make_opt_c(opt)
@@ -669,6 +655,7 @@ def sam_pe_batch(fm, opt, reads, fr: FlatRegs, pes6: np.ndarray,
     rc = fr.c_struct()
     per_len = np.zeros(len(reads), np.int64)
     out_len = c_int64()
+    n_host_sw = c_int64()
     rg = rg_id.encode() if rg_id else None
     if keys is not None and res7 is not None:
         n_res = len(keys["key_p"])
@@ -689,7 +676,8 @@ def sam_pe_batch(fm, opt, reads, fr: FlatRegs, pes6: np.ndarray,
         kp.ctypes.data_as(_pi32), ke.ctypes.data_as(_pi32),
         kj.ctypes.data_as(_pi32), kr.ctypes.data_as(_pi32),
         rr.ctypes.data_as(_pi32), rg, len(rg) if rg else 0,
-        per_len.ctypes.data_as(_pi64), ctypes.byref(out_len))
+        per_len.ctypes.data_as(_pi64), ctypes.byref(out_len),
+        ctypes.byref(n_host_sw))
     if not ptr:
         raise RuntimeError("paired reads have different names")
     blob = ctypes.string_at(ptr, out_len.value)
@@ -699,7 +687,7 @@ def sam_pe_batch(fm, opt, reads, fr: FlatRegs, pes6: np.ndarray,
     for ln in per_len.tolist():
         out.append(blob[pos:pos + ln])
         pos += ln
-    return out
+    return out, n_host_sw.value
 
 
 def finalize_se_batch(fm, opt, reads, fr: FlatRegs, n_processed: int,

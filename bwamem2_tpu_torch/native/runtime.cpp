@@ -1150,6 +1150,7 @@ struct RescueMap {
     const i32 *key_p = nullptr, *key_end = nullptr, *key_j = nullptr,
               *key_r = nullptr;
     const i32 *res = nullptr;  // n x 7 kswr tuples
+    mutable i64 host_sw = 0;   // rescue SWs that found no result here
     // simple open-addressed map built once per chunk
     std::vector<i64> table;    // index+1, 0 = empty
     u64 mask = 0;
@@ -1216,6 +1217,7 @@ static i32 matesw(const BnsC &bns, const MemOptC &opt, const PEStatC *pes,
             if (pre) {
                 memcpy(res, pre, sizeof res);
             } else {
+                ++rescue.host_sw;
                 const u8 *seq = ms;
                 if (is_rev) {
                     seqbuf.resize(l_ms);
@@ -1946,13 +1948,16 @@ RescueOut *rt_rescue_pre_batch(const BnsC *bns, const MemOptC *opt,
 // bwamem.cpp:1256-1268 + mem_sam_pe_batch_post consumption).  `res7` holds
 // the device kswv results for the rescue problems keyed by the rt_rescue_
 // pre_batch key arrays (n_rescue == 0 -> all rescues run the scalar kernel
-// here).  Returns the SAM blob; per_len[i] = read i's byte length.
+// here).  Returns the SAM blob; per_len[i] = read i's byte length;
+// *n_host_sw = the rescue SWs run here by the scalar kernel because `res7`
+// had no result for them.
 char *rt_sam_pe_batch(const BnsC *bns, const MemOptC *opt,
                       const ReadsC *reads, RegsC *R, const double *pes6,
                       i64 n_processed_pairs, i64 n_rescue, const i32 *key_p,
                       const i32 *key_end, const i32 *key_j,
                       const i32 *key_r, const i32 *res7, const char *rg_id,
-                      i64 l_rg, i64 *per_len, i64 *out_len) {
+                      i64 l_rg, i64 *per_len, i64 *out_len,
+                      i64 *n_host_sw) {
     PEStatC pes[4];
     for (i32 d = 0; d < 4; ++d) {
         pes[d].failed = (i32)pes6[d * 6];
@@ -2010,6 +2015,7 @@ char *rt_sam_pe_batch(const BnsC *bns, const MemOptC *opt,
     memcpy(buf, blob.data(), blob.size());
     buf[blob.size()] = 0;
     *out_len = (i64)blob.size();
+    *n_host_sw = rm.host_sw;
     return buf;
 }
 

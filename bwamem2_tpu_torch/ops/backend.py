@@ -1,17 +1,20 @@
 """Torch device backend: feeds the host pipeline (align/pipeline.py) with
-seeding results and scores the extension pairs on the device.
+seeding results and scores the extension pairs and the mate-rescue
+problems on the device.
 
-Two device stages run here:
+Three device stages run here:
   * seeding + SA resolution (`collect_chunk`): ops/seed.py:FusedSeeder
     with the kernels csrc/smem_collect.cu and csrc/sa_resolve.cu; reads
     whose SMEMs outrun the per-read slot cap are re-seeded exactly by the
     native host oracle (`_patch_chunk`) and counted as
     `overflow.fused_read`;
-  * banded-SW extension scoring (ops/bsw.py, csrc/bsw_extend.cu).
+  * banded-SW extension scoring (ops/bsw.py, csrc/bsw_extend.cu);
+  * mate rescue (`rescue_batch`): ops/kswv.py:DeviceKswv with the kernel
+    csrc/kswv.cu, for every problem of the chunk whatever its length; a
+    rescue SW that later finds no batch result runs on the host scalar
+    kernel and is counted as `overflow.rescue_miss` (align/pipeline.py).
 Every chunk seeds on the device, whatever its read count and read length
-(the kernel's candidate scratch is sized per grid).  Mate rescue runs on
-the host scalar path inside hostrt.sam_pe_batch: the backend has no
-`rescue_batch` yet.
+(the kernel's candidate scratch is sized per grid).
 
 Uploading each chunk's padded read grid (`_bsw.encj`) is what engages the
 all-native flat extension path (Aligner._flat_ext_ok), whose scoring
@@ -30,6 +33,7 @@ from ..utils.profiling import PROF
 from . import resolve_device, round_up
 from .bsw import DeviceBSW
 from .device_index import DeviceFMIndex
+from .kswv import DeviceKswv
 from .seed import FusedSeeder
 
 
@@ -59,6 +63,7 @@ class TorchBackend:
         self.device = resolve_device(device)
         self.dfm = DeviceFMIndex.from_host(fm, self.device)
         self._bsw = DeviceBSW(self.dfm, opt)
+        self._kswv = DeviceKswv(self.dfm, opt)
         self.seeder = FusedSeeder(self.dfm)
 
     def _attach_grid(self, encs):
@@ -133,3 +138,13 @@ class TorchBackend:
     def read_grid_width(self) -> int:
         encj = self._bsw.encj
         return 0 if encj is None else int(encj.shape[1])
+
+    def rescue_batch(self, desc: dict) -> np.ndarray | None:
+        """Score a chunk's pre-collected rescue problems (hostrt.
+        rescue_pre_batch / pairing.batch_rescue_pre) against this thread's
+        read grid: int32[n, 7] native ksw_align tuples; None when no grid is
+        attached on this thread (no chunk in flight here)."""
+        encj = self._bsw.encj
+        if encj is None:
+            return None
+        return self._kswv.align_batch(encj, desc)

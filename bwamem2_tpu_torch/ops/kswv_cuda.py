@@ -1,0 +1,84 @@
+"""The kswv CUDA kernel (csrc/kswv.cu): bind and launch.
+
+Built by ops/cuda_build.py.  `kswv(...)` is the wrapper: for tensors on the
+CPU it runs the plain version (ops/kswv.py:kswv_two_phase_ref); for CUDA
+tensors it launches the kernel or raises — it never falls back.
+`kswv.launches` counts kernel launches, `kswv.plain_calls` the CPU calls.
+"""
+
+from __future__ import annotations
+
+import torch
+
+from .cuda_build import I32, I64, VP, CudaKernel, check_tensors
+from .kswv import kswv_two_phase_ref
+
+__all__ = ["Kswv", "kswv"]
+
+
+class Kswv(CudaKernel):
+    """Wrapper of the kswv kernel: (r0, r1), int32[P, 6] each (see
+    kswv_two_phase_ref for the arguments)."""
+
+    NAME = "kswv"
+    SOURCES = ("kswv.cu", "kswv_dp.cuh", "bsw_extend_dp.cuh")
+    SIGNATURE = ("kswv_launch",
+                 [VP, I64, VP, I64, I32] + [VP] * 6 + [I32] * 11
+                 + [VP] * 4)
+
+    def __call__(self, ref, enc, qoff, qdir, qcomp, qlen, toff, tlen,
+                 Qmax: int, Tmax: int, minsc: int, mat_a: int, mat_b: int,
+                 o_del: int, e_del: int, o_ins: int, e_ins: int,
+                 ref_packed: bool = False, u8: bool = True):
+        args = (ref, enc, qoff, qdir, qcomp, qlen, toff, tlen, Qmax, Tmax,
+                minsc, mat_a, mat_b, o_del, e_del, o_ins, e_ins, ref_packed,
+                u8)
+        if enc.device.type == "cpu":
+            self._plain()
+            return kswv_two_phase_ref(*args)
+        return self.launch(*args)
+
+    def launch(self, ref, enc, qoff, qdir, qcomp, qlen, toff, tlen, Qmax,
+               Tmax, minsc, mat_a, mat_b, o_del, e_del, o_ins, e_ins,
+               ref_packed=False, u8=True):
+        """Launch the CUDA kernel on the current stream (no sync)."""
+        dev = enc.device
+        if dev.type != "cuda":
+            raise ValueError(f"kswv kernel needs CUDA tensors, got {dev}")
+        P = qoff.shape[0]
+        want = dict(ref=(ref, torch.uint8, 1), enc=(enc, torch.int8, 2),
+                    qoff=(qoff, torch.int32, 1), qdir=(qdir, torch.int32, 1),
+                    qcomp=(qcomp, torch.bool, 1),
+                    qlen=(qlen, torch.int32, 1), toff=(toff, torch.int64, 1),
+                    tlen=(tlen, torch.int32, 1))
+        check_tensors("kswv", dev, **want)
+        for name, (t, _, nd) in want.items():
+            if nd == 1 and name != "ref" and t.shape[0] != P:
+                raise ValueError(f"kswv: {name} has {t.shape[0]} entries, "
+                                 f"expected {P}")
+        if Qmax <= 0 or Qmax % 16:
+            raise ValueError(f"kswv: Qmax={Qmax} must be a positive "
+                             "multiple of 16")
+        if Tmax <= 0:
+            raise ValueError(f"kswv: Tmax={Tmax} out of range")
+        if not u8 and Qmax * max(mat_a, 1) > 32767:
+            # row maxima are kept as int16, the i16 class's own width (the
+            # native kernel saturates there, the int32 emulation does not)
+            raise ValueError(f"kswv: i16 scores of Qmax={Qmax} x a={mat_a} "
+                             "overflow 16 bits")
+        out = torch.empty((2, P, 6), dtype=torch.int32, device=dev)
+        if P == 0:
+            return out[0], out[1]
+        scratch = torch.empty((4, Qmax, P), dtype=torch.int32, device=dev)
+        rowmax = torch.empty((Tmax, P), dtype=torch.int16, device=dev)
+        self._launch(
+            dev, enc.data_ptr(), enc.numel(), ref.data_ptr(), ref.numel(),
+            int(bool(ref_packed)), qoff.data_ptr(), qdir.data_ptr(),
+            qcomp.data_ptr(), qlen.data_ptr(), toff.data_ptr(),
+            tlen.data_ptr(), P, Qmax, Tmax, int(bool(u8)), minsc, mat_a,
+            mat_b, o_del, e_del, o_ins, e_ins, scratch.data_ptr(),
+            rowmax.data_ptr(), out.data_ptr())
+        return out[0], out[1]
+
+
+kswv = Kswv()

@@ -8,9 +8,9 @@ for the H100, sm_90a):
 
 Phases, each of which fails the run (non-zero exit, no result line):
   1. the card's name and power limit (nvidia-smi);
-  2. build: the four CUDA kernels (one nvcc per csrc/*.cu: bsw_extend,
-     smem_collect, sa_resolve, row_gather) and the native host runtime
-     (g++) from the checkout's sources, all started together;
+  2. build: the five CUDA kernels (one nvcc per csrc/*.cu: bsw_extend,
+     smem_collect, sa_resolve, kswv, row_gather) and the native host
+     runtime (g++) from the checkout's sources, all started together;
   3. data: a synthetic 11.7 Mbp genome (scale 0.25 of the chr21 class, the
      size of a yeast genome) with repeat families and N runs, its index and
      10,000 2x150 bp pairs, made once from fixed seeds under .tmp/;
@@ -20,9 +20,11 @@ Phases, each of which fails the run (non-zero exit, no result line):
      chunks) on the 10,000 pairs; (b) the CLI's default task size (10 Mbp:
      a 66,668-read chunk) on 35,000 pairs of the same genome.  In each,
      smem_collect, sa_resolve and bsw_extend launch at least once per
-     chunk, no plain version runs, every read is seeded on the device
-     route, and at most 1 % of the reads overflow to the host seeding
-     oracle;
+     chunk and kswv at least once per chunk with rescue problems, no plain
+     version runs, every read is seeded on the device route, at most 1 %
+     of the reads overflow to the host seeding oracle, and every rescue SW
+     takes its result from the chunk's kswv batch (`overflow.rescue_miss`
+     is 0);
   5. kernel vs plain, exact equality, with times and bounds:
      a. bsw_extend against bsw_desc_ref at every production rung (Q in
         127/255/383 x T in 96..608) with P = 4096 real-length descriptors;
@@ -31,6 +33,13 @@ Phases, each of which fails the run (non-zero exit, no result line):
         first chunk of each main-path run (15,000 and 66,668 reads), with
         their SA positions; at both chunks the backend's collect_chunk
         arrays also equal the native host oracle's;
+     c. kswv against kswv_two_phase_ref on the rescue problems of the
+        first chunk of each main-path run (captured as the pipeline hands
+        them to TorchBackend.rescue_batch), on a synthetic i16-class batch
+        (qlen 250-512, windows up to 2,048) and on a batch of longer
+        problems (qlen 513-1,500 in the i16 class, windows up to 4,000 in
+        the u8 class); DeviceKswv.align_batch against the native ksw_align
+        on the same problems, whose host seconds are timed;
   6. the gather probe (bwamem2_tpu_torch/tools/gather_scale_probe.py) on
      cuda, its path's launch counter set to 0 before and read after; then
      row_gather against tab[idx] and torch.index_select at the probe's
@@ -38,7 +47,7 @@ Phases, each of which fails the run (non-zero exit, no result line):
      rows and with 2^22 rows, where the card's time outweighs the call's
      host work (the timed shape);
   7. goldens: tests/fixtures/golden_se.sam and golden_pe.sam reproduced on
-     cuda;
+     cuda, golden_pe.sam with its rescue batch through kswv;
   8. run (a)'s SAM equals the port's host-native run
      (Aligner(backend=None), one process per chunk, started after phase 4
      and run during phases 5-7) byte for byte except @PG.
@@ -74,6 +83,15 @@ OPS_PER_CELL = 24
 INT32_OPS_PER_S = 132 * 64 * 1.98e9
 HBM_BYTES_PER_S = 3.35e12
 DESC_BYTES, OUT_BYTES = 36, 24
+# kswv bound model (csrc/kswv.cu header): the least int32 operations per
+# striped cell of the main pass, by class, and per cell of the one lazy-F
+# segment every row runs at least; the bytes of a problem's descriptors in
+# and two rows of 6 out
+KSWV_OPS_PER_CELL = {True: 10, False: 8}      # u8, i16
+KSWV_LAZY_OPS = 4
+KSWV_DESC_BYTES, KSWV_OUT_BYTES = 25, 48
+N_I16 = 1024             # problems in the synthetic i16-class batch
+N_LONG = 256             # problems per class in the long-problem batch
 N_SEED = 2048            # reads in the seeding kernel-vs-plain sample
 P_GATHER = 1 << 22       # rows of the timed row_gather calls
 PROBE_SIZES_MB = (4, 16, 64, 256, 1024, 2048, 4096)
@@ -100,12 +118,13 @@ def card_line() -> str:
 
 # ----------------------------------------------------------------- builds
 def kernels():
-    """The wrappers of the four kernels, by name."""
+    """The wrappers of the five kernels, by name."""
     from bwamem2_tpu_torch.ops.bsw_cuda import bsw_extend
+    from bwamem2_tpu_torch.ops.kswv_cuda import kswv
     from bwamem2_tpu_torch.ops.row_gather import row_gather
     from bwamem2_tpu_torch.ops.seed import sa_resolve, smem_collect
     return dict(bsw_extend=bsw_extend, smem_collect=smem_collect,
-                sa_resolve=sa_resolve, row_gather=row_gather)
+                sa_resolve=sa_resolve, kswv=kswv, row_gather=row_gather)
 
 
 def build_all() -> dict:
@@ -363,6 +382,101 @@ def seeding_vs_plain(torch, fm, passes, opt) -> dict:
     return out
 
 
+def synthetic_rescue(torch, genome, tag: str, seed: int, parts) -> tuple:
+    """A batch of benchdata.rescue_windows problems on the smoke genome.
+    parts: [(n, qlen range, tlen range, u8 class)], seeded seed, seed+1...
+    Returns (tag, read grid on the card, descriptors)."""
+    from bwamem2_tpu_torch.benchdata import rescue_batch
+    enc, desc = rescue_batch(genome, [
+        dict(seed=seed + k, n=n, qr=qr, tr=tr, nmut=qr[1] // 40, n_every=5,
+             plant=11, u8=u8) for k, (n, qr, tr, u8) in enumerate(parts)])
+    return tag, torch.from_numpy(enc).cuda(), desc
+
+
+def rescue_vs_plain(torch, fm, opt, batches) -> dict:
+    """Phase 5c.  batches: [(tag, read grid on the card, descriptors)].
+    For each: DeviceKswv.align_batch against the native ksw_align
+    7-tuples (exact; the native oracle timed on the host), then
+    per precision class the kswv wrapper against kswv_two_phase_ref on the
+    card (exact), with the kernel's CUDA-event ms, the plain version's ms
+    and the bound of the cells these problems ran."""
+    import numpy as np
+    from bwamem2_tpu_torch.native import ksw_align_desc
+    from bwamem2_tpu_torch.ops import round_up
+    from bwamem2_tpu_torch.ops.device_index import DeviceFMIndex
+    from bwamem2_tpu_torch.ops.kswv import DeviceKswv, kswv_two_phase_ref
+    from bwamem2_tpu_torch.ops.kswv_cuda import kswv
+    dfm = DeviceFMIndex.from_genome(fm.ref_string, "cuda")
+    dk = DeviceKswv(dfm, opt)
+    ev = lambda: torch.cuda.Event(enable_timing=True)  # noqa: E731
+    out = {}
+    for tag, encj, desc in batches:
+        n = len(desc["qoff"])
+        enc = encj.cpu().numpy()
+        t0 = time.perf_counter()
+        want7 = ksw_align_desc(enc, fm.ref_string, desc, opt)
+        host_s = time.perf_counter() - t0
+        got7 = dk.align_batch(encj, desc)
+        if not np.array_equal(got7, want7):
+            bad = int((got7 != want7).any(1).sum())
+            fail(f"5c {tag}: DeviceKswv differs from the native ksw_align "
+                 f"on {bad} of {n} problems")
+        r = dict(problems=n, u8=int(desc["u8"].sum()), native_host_s=host_s,
+                 classes={})
+        for u8 in (True, False):
+            idx = np.nonzero(desc["u8"] == u8)[0]
+            if not len(idx):
+                continue
+            put = lambda a, dt: torch.from_numpy(  # noqa: E731
+                np.ascontiguousarray(a[idx], dt)).cuda()
+            Qmax = round_up(int(desc["qlen"][idx].max()), 16)
+            Tmax = int(desc["tlen"][idx].max())
+            args = (dfm.ref, encj, put(desc["qoff"], np.int32),
+                    put(desc["qdir"], np.int32), put(desc["qcomp"], bool),
+                    put(desc["qlen"], np.int32), put(desc["toff"], np.int64),
+                    put(desc["tlen"], np.int32), Qmax, Tmax, dk.minsc, opt.a,
+                    opt.b, opt.o_del, opt.e_del, opt.o_ins, opt.e_ins,
+                    dfm.ref_packed, u8)
+            got = kswv.launch(*args)
+            work: list = []
+            e0, e1 = ev(), ev()
+            e0.record()
+            want = kswv_two_phase_ref(*args, work=work)
+            e1.record()
+            torch.cuda.synchronize()
+            p_ms = e0.elapsed_time(e1)
+            bad = int(((got[0] != want[0]).any(1)
+                       | (got[1] != want[1]).any(1)).sum())
+            err = max(int((g - w).abs().max()) for g, w in zip(got, want))
+            if bad:
+                fail(f"5c {tag}: kswv disagrees with kswv_two_phase_ref on "
+                     f"{bad} of {len(idx)} problems (max abs err {err})")
+            k_ms = cuda_ms(torch, lambda: kswv.launch(*args), 5)
+            cells = sum(c for c, _ in work)
+            rows = sum(x for _, x in work)
+            ops_ms = ((cells * KSWV_OPS_PER_CELL[u8]
+                       + rows * (16 if u8 else 8) * KSWV_LAZY_OPS)
+                      / INT32_OPS_PER_S * 1e3)
+            nbytes = (len(idx) * (KSWV_DESC_BYTES + KSWV_OUT_BYTES)
+                      + int(desc["qlen"][idx].sum())
+                      + int(desc["tlen"][idx].sum()))
+            mem_ms = nbytes / HBM_BYTES_PER_S * 1e3
+            cls = "u8" if u8 else "i16"
+            r["classes"][cls] = dict(
+                P=len(idx), Qmax=Qmax, Tmax=Tmax, cells=cells, rows=rows,
+                ms=k_ms, plain_ms=p_ms, bound_ms=max(ops_ms, mem_ms),
+                bound_by="operations" if ops_ms >= mem_ms else "bytes",
+                err=err)
+            log(f"  {tag} {cls}: P={len(idx)} Qmax={Qmax} Tmax={Tmax}, "
+                f"{cells} cells in {rows} rows: kernel {k_ms:.4f} ms, "
+                f"plain {p_ms:.1f} ms, bound {max(ops_ms, mem_ms):.5f} ms, "
+                f"identical")
+        out[tag] = r
+        log(f"  {tag}: {n} problems ({r['u8']} u8): DeviceKswv == native "
+            f"ksw_align; native ksw_align {host_s:.4f} s on the host")
+    return out
+
+
 def gather_phase(torch, fm) -> dict:
     """The gather probe's path (the port's probe entry on cuda, counts set
     to 0 just before and read just after), then the row_gather wrapper
@@ -433,9 +547,10 @@ def read_sam_body(path: str) -> list[str]:
         return [ln for ln in f if not ln.startswith("@PG")]
 
 
-def oracle_chunk(prefix: str, fq1: str, fq2: str, idx: int) -> str:
-    """SAM text of chunk `idx` from the host-native Aligner(backend=None),
-    chunked exactly as the CLI run (-K TASK_BASES, PE)."""
+def oracle_chunk(prefix: str, fq1: str, fq2: str, idx: int):
+    """(SAM text, seconds) of chunk `idx` from the host-native
+    Aligner(backend=None), chunked exactly as the CLI run (-K TASK_BASES,
+    PE)."""
     from bwamem2_tpu_torch.align.pipeline import Aligner
     from bwamem2_tpu_torch.index.fmindex import FMIndex
     from bwamem2_tpu_torch.io.fastq import FastxReader, read_chunk
@@ -449,9 +564,10 @@ def oracle_chunk(prefix: str, fq1: str, fq2: str, idx: int) -> str:
         r.comment = None
     opt = MemOptions().finalize(None)
     opt.flag |= MEM_F_PE
+    t0 = time.perf_counter()
     Aligner(FMIndex.load(prefix), opt, backend=None, verbose=0).process(
         reads, base)
-    return "".join(r.sam for r in reads)
+    return "".join(r.sam for r in reads), time.perf_counter() - t0
 
 
 def n_chunks(fq1: str, fq2: str, task_bases: int) -> int:
@@ -468,18 +584,34 @@ def drive_main(torch, card: str, tag: str, cli_args: list, fq1: str,
     """One run of `mem` PE through the CLI entry on cuda, with every
     launch counter and PROF record set to 0 just before and read just
     after; fails unless smem_collect, sa_resolve and bsw_extend launched
-    at least once per chunk, no plain version ran, every read took the
-    device seeding route and at most MAX_OVERFLOW of them overflowed."""
+    at least once per chunk and kswv at least once per chunk with rescue
+    problems, no plain version ran, every read took the device seeding
+    route, at most MAX_OVERFLOW of them overflowed and no rescue SW missed
+    its chunk's kswv batch.  The first chunk's rescue problems and read grid
+    are returned under "_capture" for phase 5c."""
     from bwamem2_tpu_torch import cli
+    from bwamem2_tpu_torch.ops.backend import TorchBackend
     from bwamem2_tpu_torch.utils.profiling import PROF
     K = kernels()
+    rescues = []     # (read grid, descriptors, result is None) per batch
+    orig = TorchBackend.rescue_batch
+
+    def spy(self, desc):
+        res = orig(self, desc)
+        rescues.append((self._bsw.encj, desc, res is None))
+        return res
+
     for d in (PROF.t, PROF.n, PROF.c, PROF.ctot):
         d.clear()
     for k in K.values():
         k.reset()
+    TorchBackend.rescue_batch = spy
     t0 = time.perf_counter()
-    rc = cli.main(["mem", *cli_args])
-    torch.cuda.synchronize()
+    try:
+        rc = cli.main(["mem", *cli_args])
+        torch.cuda.synchronize()
+    finally:
+        TorchBackend.rescue_batch = orig
     wall = time.perf_counter() - t0
     launches = {n: k.launches for n, k in K.items()}
     plain = {n: k.plain_calls for n, k in K.items()}
@@ -490,6 +622,19 @@ def drive_main(torch, card: str, tag: str, cli_args: list, fq1: str,
         if launches[kn] < chunks:
             fail(f"{tag}: main path launched {kn} {launches[kn]} times "
                  f"over {chunks} chunks")
+    if not rescues or any(r[2] for r in rescues):
+        fail(f"{tag}: {len(rescues)} rescue batches, "
+             f"{sum(r[2] for r in rescues)} without a read grid: rescue "
+             f"did not run on the card")
+    if launches["kswv"] < len(rescues):
+        fail(f"{tag}: main path launched kswv {launches['kswv']} times over "
+             f"{len(rescues)} chunks with rescue problems")
+    miss = PROF.c.get("overflow.rescue_miss", 0)
+    if miss:
+        fail(f"{tag}: {miss} rescue SWs found no kswv batch result and ran "
+             f"on the host")
+    problems = [len(r[1]["qoff"]) for r in rescues]
+    n_u8 = [int(r[1]["u8"].sum()) for r in rescues]
     if any(plain.values()):
         # a CPU tensor is the only way to a plain version: none means every
         # read grid and index table was a CUDA tensor
@@ -511,10 +656,16 @@ def drive_main(torch, card: str, tag: str, cli_args: list, fq1: str,
         f"({100.0 * overflow / n_reads:.3f} %)")
     log(f"    seeding.device {phases.get('seeding.device', 0.0):.3f}s "
         f"(FusedSeeder.run, {chunks} chunks) [{card}]")
+    log(f"    rescue: problems per chunk {problems} (u8 {n_u8}, i16 "
+        f"{[p - u for p, u in zip(problems, n_u8)]}), "
+        f"overflow.rescue_miss 0; matesw {phases.get('matesw', 0.0):.3f}s, "
+        f"pairing {phases.get('pairing', 0.0):.3f}s [{card}]")
     log(f"    host phases (s): {json.dumps(phases)}")
     return dict(reads=n_reads, chunks=chunks, wall_s=round(wall, 3),
                 reads_per_s=round(n_reads / wall, 1), launches=launches,
-                overflow_fused_read=overflow, phases_s=phases)
+                overflow_fused_read=overflow, rescue_problems=problems,
+                rescue_u8=n_u8, phases_s=phases,
+                _capture=rescues[0][:2])
 
 
 def goldens() -> None:
@@ -548,7 +699,8 @@ def goldens() -> None:
             fail(f"{golden} differs on cuda ({bad} lines of {len(want)}, "
                  f"{len(ours)} produced)")
         n = {name: k.launches - n0[name] for name, k in K.items()}
-        if not all(n.values()):
+        # SE has no mate rescue; PE rescues through kswv
+        if not all(v for name, v in n.items() if pe or name != "kswv"):
             fail(f"{golden}: a kernel was not launched: {n}")
         log(f"  {golden}: identical ({len(want)} records, launches {n})")
 
@@ -602,6 +754,7 @@ def main() -> None:
     # the kernels line counts the launches of both runs
     launches = {n: run_a["launches"][n] + run_b["launches"][n]
                 for n in run_a["launches"]}
+    cap_a, cap_b = run_a.pop("_capture"), run_b.pop("_capture")
 
     # the host-native oracle (one process per chunk) runs while the kernels
     # are held against their plain versions and the goldens run
@@ -623,19 +776,30 @@ def main() -> None:
             ("sample", fq1, fq2, TASK_BASES, N_SEED),
             ("chunk (a)", fq1, fq2, TASK_BASES, None),
             ("chunk (b)", fq1d, fq2d, DEFAULT_TASK_BASES, None)), opt)
+        log(f"[5c] kswv vs plain and DeviceKswv vs native ksw_align on "
+            f"{name} [{card}]:")
+        rs = rescue_vs_plain(torch, fm, opt, (
+            ("chunk (a)", *cap_a), ("chunk (b)", *cap_b),
+            synthetic_rescue(torch, fm.ref_string, "i16 batch", 17, [
+                (N_I16, (250, 513), (300, 2049), False)]),
+            synthetic_rescue(torch, fm.ref_string, "long batch", 19, [
+                (N_LONG, (513, 1501), (600, 3001), False),
+                (N_LONG, (60, 150), (2049, 4001), True)])))
+        del cap_a, cap_b
         log(f"[6] gather probe on {name} [{card}]:")
         gt = gather_phase(torch, fm)
         log("[7] goldens on cuda:")
         goldens()
-        oracle = "".join(f.get() for f in futs)
+        oracle = [f.get() for f in futs]
     ours = [ln for ln in read_sam_body(sam) if not ln.startswith("@")]
-    want = oracle.splitlines(keepends=True)
+    want = "".join(o[0] for o in oracle).splitlines(keepends=True)
     if ours != want:
         bad = sum(a != b for a, b in zip(ours, want))
         fail(f"run (a)'s SAM differs from the host-native run: {bad} of "
              f"{len(want)} records ({len(ours)} produced)")
     log(f"[8] run (a)'s SAM == host-native Aligner(backend=None) SAM "
-        f"({len(want)} records; oracle {time.perf_counter() - t0:.1f}s)")
+        f"({len(want)} records; oracle {time.perf_counter() - t0:.1f}s, "
+        f"per chunk " + ", ".join(f"{o[1]:.1f}s" for o in oracle) + ")")
 
     # the seeding kernels' times and bounds at run (b)'s first chunk, the
     # largest shape the main path gave them; errors over every pass
@@ -643,6 +807,10 @@ def main() -> None:
     sm_err = max(r["smem_err"] for r in sd.values())
     sa_err = max(r["sa_err"] for r in sd.values())
     by = lambda ops, mem: "operations" if ops >= mem else "bytes"  # noqa
+    # kswv's time and bound on run (b)'s first chunk's rescue problems, the
+    # largest batch the main path gave it; errors over every batch
+    rb = rs["chunk (b)"]["classes"]
+    ks_err = max(c["err"] for r in rs.values() for c in r["classes"].values())
     kern = [
         dict(name="bsw_extend", route="cuda",
              source="bwamem2_tpu_torch/csrc/bsw_extend.cu",
@@ -674,6 +842,19 @@ def main() -> None:
              library_note="no PyTorch call computes SA walks",
              shape=f"{big['positions']} positions (run (b)'s first chunk), "
                    f"{big['sa_row_reads']} row reads"),
+        dict(name="kswv", route="cuda",
+             source="bwamem2_tpu_torch/csrc/kswv.cu",
+             replaces="bwamem2_tpu/ops/kswv.py:303",
+             launches=launches["kswv"], max_abs_err=ks_err,
+             ms=round(sum(c["ms"] for c in rb.values()), 4),
+             plain_ms=round(sum(c["plain_ms"] for c in rb.values()), 3),
+             bound_ms=round(sum(c["bound_ms"] for c in rb.values()), 5),
+             bound_by=rb[max(rb, key=lambda k: rb[k]["P"])]["bound_by"],
+             library_ms=None,
+             library_note="no PyTorch call computes striped SW",
+             shape=", ".join(f"{c['P']} {k} problems, Qmax={c['Qmax']}, "
+                             f"Tmax={c['Tmax']}" for k, c in rb.items())
+             + " (run (b)'s first chunk)"),
         dict(name="row_gather", route="cuda",
              source="bwamem2_tpu_torch/csrc/row_gather.cu",
              replaces="tools/gather_scale_probe.py:78",
@@ -688,7 +869,7 @@ def main() -> None:
     result = dict(kernels=kern, card=card, main_a=run_a, main_b=run_b,
                   launches=launches,
                   build_s={k: round(v, 1) for k, v in secs.items()},
-                  seeding=sd, gather=gt,
+                  seeding=sd, rescue=rs, gather=gt,
                   total_s=round(time.perf_counter() - t_start, 1))
     with open(os.path.join(WORK, "chip_smoke.json"), "w") as f:
         json.dump(result, f, indent=1)

@@ -1,5 +1,5 @@
-"""The port's seeding and gather kernels against their plain versions on
-the card (marker `cuda`; they skip without a GPU).
+"""The port's seeding, rescue and gather kernels against their plain
+versions on the card (marker `cuda`; they skip without a GPU).
 
 This file imports only the port, numpy and torch — no JAX — so that it
 runs on a machine with a GPU and no JAX:
@@ -7,7 +7,8 @@ runs on a machine with a GPU and no JAX:
     pytest -m cuda tests/test_torch_cuda.py
 
 The plain versions are held against the JAX package on the CPU by
-tests/test_torch_seed.py and tests/test_torch_gather.py; chip_smoke.py
+tests/test_torch_seed.py, tests/test_torch_kswv.py and
+tests/test_torch_gather.py; chip_smoke.py
 repeats these checks at the main path's sizes.  Tolerance 0 (integer).
 """
 
@@ -18,11 +19,15 @@ import pytest
 import torch
 
 from bwamem2_tpu_torch.align.seeding import encode_reads
+from bwamem2_tpu_torch.benchdata import rescue_batch, rescue_windows
 from bwamem2_tpu_torch.index.fmindex import FMIndex
 from bwamem2_tpu_torch.io.fastq import FastxReader, read_chunk
+from bwamem2_tpu_torch.native import ksw_align_desc
 from bwamem2_tpu_torch.ops import seed as tseed
 from bwamem2_tpu_torch.ops.backend import _pad_reads
 from bwamem2_tpu_torch.ops.device_index import DeviceFMIndex
+from bwamem2_tpu_torch.ops.kswv import DeviceKswv, kswv_two_phase_ref
+from bwamem2_tpu_torch.ops.kswv_cuda import kswv
 from bwamem2_tpu_torch.ops.row_gather import row_gather, row_gather_ref
 from bwamem2_tpu_torch.options import MemOptions
 
@@ -119,3 +124,53 @@ def test_row_gather_kernel_matches_ref_on_card(card):
         torch.cuda.synchronize()
         assert row_gather.launches == n + 1
         assert torch.equal(got, row_gather_ref(tab, idx))
+
+
+@pytest.mark.cuda
+def test_kswv_kernel_matches_ref_on_card(card):
+    """kswv, both precision classes (u8 on 2x150-like problems, i16 on
+    qlen 250-512 with windows up to 2,048), against kswv_two_phase_ref on
+    the card, both phases."""
+    fm = FMIndex.load(PREFIX)
+    dfm = DeviceFMIndex.from_host(fm, card)
+    opt = MemOptions().finalize()
+    sc = (opt.min_seed_len * opt.a, opt.a, opt.b, opt.o_del, opt.e_del,
+          opt.o_ins, opt.e_ins, dfm.ref_packed)
+    for u8, seed, n, L, qr, tr, Qmax in (
+            (True, 3, 512, 160, (60, 152), (150, 800), 160),
+            (False, 5, 128, 512, (250, 513), (300, 2049), 512)):
+        w = rescue_windows(fm.ref_string, seed, n, L, qr, tr, nmut=4,
+                           n_every=5, plant=7)
+        t = [torch.from_numpy(np.ascontiguousarray(x)).to(card) for x in w]
+        Tmax = int(w[-1].max())
+        n0 = kswv.launches
+        got = kswv(dfm.ref, *t, Qmax, Tmax, *sc, u8)
+        torch.cuda.synchronize()
+        assert kswv.launches == n0 + 1
+        want = kswv_two_phase_ref(dfm.ref, *t, Qmax, Tmax, *sc, u8)
+        for g, x in zip(got, want):
+            assert torch.equal(g, x)
+        assert int((want[1][:, 0] > 0).sum()) > 0     # phase 1 ran
+
+
+@pytest.mark.cuda
+def test_device_kswv_long_problems_on_card(card):
+    """DeviceKswv.align_batch on the card, on problems longer than the JAX
+    package's device caps (qlen 513-1,200 in the i16 class, windows of
+    2,049-4,000 bases in the u8 class), equals the native ksw_align: every
+    problem runs in the kernel, whatever its length."""
+    fm = FMIndex.load(PREFIX)
+    dfm = DeviceFMIndex.from_host(fm, card)
+    opt = MemOptions().finalize()
+    enc, desc = rescue_batch(fm.ref_string, [
+        dict(seed=9, n=48, qr=(513, 1201), tr=(600, 3000), nmut=30,
+             n_every=5, plant=7, u8=False),
+        dict(seed=11, n=48, qr=(60, 120), tr=(2049, 4001), nmut=3,
+             n_every=5, plant=7, u8=True)])
+    n0 = kswv.launches
+    got = DeviceKswv(dfm, opt).align_batch(torch.from_numpy(enc).to(card),
+                                           desc)
+    assert kswv.launches == n0 + 2                    # one per class
+    np.testing.assert_array_equal(got, ksw_align_desc(enc, fm.ref_string,
+                                                      desc, opt))
+    assert (got[:, 6] >= 0).sum() > 0                 # some were rescued

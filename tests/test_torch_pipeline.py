@@ -1,26 +1,31 @@
 """The port end to end on the CPU: golden SAM byte for byte.
 
 TorchBackend(device="cpu") seeds through the fused collect_chunk route
-(smem_collect_ref and sa_resolve_ref, the seeding kernels' plain versions)
-and scores every extension rung group with bsw_desc_ref (the extension
-kernel's plain version) through the flat all-native extension path; mate
-rescue runs on the host scalar path.  Outputs must equal the committed
-goldens.
+(smem_collect_ref and sa_resolve_ref, the seeding kernels' plain versions),
+scores every extension rung group with bsw_desc_ref (the extension
+kernel's plain version) through the flat all-native extension path, and
+scores each PE chunk's mate-rescue batch through TorchBackend.rescue_batch
+with kswv_two_phase_ref (the rescue kernel's plain version).  Outputs must
+equal the committed goldens, also under the PE flags that change rescue
+(-S, -P, -I) and in -p mode.
 """
 
 import os
 
+import numpy as np
 import pytest
 import torch
 
 from bwamem2_tpu_torch import cli
 from bwamem2_tpu_torch.align.pipeline import Aligner
 from bwamem2_tpu_torch.index.fmindex import FMIndex
-from bwamem2_tpu_torch.io.fastq import FastxReader, read_chunk
+from bwamem2_tpu_torch.io.fastq import FastxReader, Read, read_chunk
 from bwamem2_tpu_torch.ops.backend import TorchBackend
 from bwamem2_tpu_torch.ops.bsw_cuda import bsw_extend
+from bwamem2_tpu_torch.ops.kswv_cuda import kswv
 from bwamem2_tpu_torch.ops.seed import sa_resolve, smem_collect
 from bwamem2_tpu_torch.options import MEM_F_PE, MemOptions
+from bwamem2_tpu_torch.utils.profiling import PROF
 
 from conftest import DATA, FIXTURES
 
@@ -42,8 +47,28 @@ def fm():
     return FMIndex.load(PREFIX)
 
 
+@pytest.fixture
+def rescued(monkeypatch):
+    """The query lengths of every TorchBackend.rescue_batch call's problems;
+    on teardown, checks that no rescue SW missed its batch and ran on the
+    host."""
+    seen = []
+    orig = TorchBackend.rescue_batch
+
+    def spy(self, desc):
+        out = orig(self, desc)
+        assert out is not None      # a grid is attached: no host fallback
+        seen.append(desc["qlen"])
+        return out
+
+    monkeypatch.setattr(TorchBackend, "rescue_batch", spy)
+    miss0 = PROF.c["overflow.rescue_miss"]
+    yield seen
+    assert PROF.c["overflow.rescue_miss"] == miss0
+
+
 @pytest.mark.parametrize("pe", [False, True], ids=["se", "pe"])
-def test_golden_on_cpu_through_plain_kernel(fm, pe):
+def test_golden_on_cpu_through_plain_kernel(fm, pe, rescued):
     opt = MemOptions().finalize()
     if pe:
         opt.flag |= MEM_F_PE
@@ -55,6 +80,7 @@ def test_golden_on_cpu_through_plain_kernel(fm, pe):
                            None, 10**9)
     backend = TorchBackend(fm, opt, device="cpu")
     n_plain, n_launch = bsw_extend.plain_calls, bsw_extend.launches
+    n_kswv = (kswv.plain_calls, kswv.launches)
     seeding = (smem_collect, sa_resolve)
     n_seed = [(k.plain_calls, k.launches) for k in seeding]
     al = Aligner(fm, opt, backend=backend, verbose=0)
@@ -68,10 +94,80 @@ def test_golden_on_cpu_through_plain_kernel(fm, pe):
     assert backend.read_grid_width() > 0
     assert bsw_extend.plain_calls > n_plain
     assert bsw_extend.launches == n_launch
+    # PE: the chunk's rescue batch ran on the plain version of the kernel
+    if pe:
+        assert sum(map(len, rescued)) > 0
+        assert kswv.plain_calls > n_kswv[0]
+    else:
+        assert not rescued and kswv.plain_calls == n_kswv[0]
+    assert kswv.launches == n_kswv[1]
     ours = "".join(r.sam for r in reads).splitlines(keepends=True)
     golden = golden_lines("golden_pe.sam" if pe else "golden_se.sam")
     assert len(ours) == len(golden)
     assert ours == golden
+
+
+@pytest.mark.parametrize("flags,fastq,golden", [
+    ("-S", "reads_r1.fq reads_r2.fq", "golden_pe_S.sam"),
+    ("-P", "reads_r1.fq reads_r2.fq", "golden_pe_P.sam"),
+    ("-I400,50", "reads_r1.fq reads_r2.fq", "golden_pe_I400_50.sam"),
+    ("-p", "reads_mixed.fq", "golden_mixed_p.sam"),
+], ids=["S", "P", "I400_50", "mixed_p"])
+def test_pe_flag_golden_on_cpu(fm, flags, fastq, golden, rescued):
+    """The PE goldens whose flags change rescue, through TorchBackend on
+    the CPU with the flags parsed by the port's CLI: -S skips rescue (no
+    batch), the others rescue through rescue_batch."""
+    fqs = [os.path.join(DATA, f) for f in fastq.split()]
+    parsed = cli.parse_mem_args(flags.split() + [PREFIX, *fqs])
+    opt, mode, pes0 = parsed[0], parsed[1], parsed[9]
+    opt.finalize(mode)
+    if len(fqs) == 2:
+        opt.flag |= MEM_F_PE
+    reads = read_chunk(FastxReader(fqs[0]),
+                       FastxReader(fqs[1]) if len(fqs) == 2 else None,
+                       10**9)
+    n_kswv = kswv.plain_calls
+    Aligner(fm, opt, backend=TorchBackend(fm, opt, device="cpu"),
+            verbose=0).process(reads, 0, pes0=pes0)
+    if flags == "-S":
+        assert not rescued and kswv.plain_calls == n_kswv
+    else:
+        assert sum(map(len, rescued)) > 0 and kswv.plain_calls > n_kswv
+    ours = "".join(r.sam for r in reads).splitlines(keepends=True)
+    assert ours == golden_lines(golden)
+
+
+def test_long_read_pe_rescue_on_device_route(fm, rescued):
+    """600 bp pairs (the i16 class, queries longer than the JAX package's
+    512-base device cap): every rescue problem goes through rescue_batch
+    to the kernel's plain version, and the SAM equals the host-native
+    run's."""
+    rng = np.random.default_rng(77)
+    comp = {"A": "T", "C": "G", "G": "C", "T": "A"}
+    reads = []
+    for i in range(32):     # >= 10 proper pairs, so pestat succeeds
+        isize = int(rng.normal(1000, 40))
+        p = int(rng.integers(0, fm.l_pac - isize))
+        frag = "".join("ACGTN"[c] for c in fm.ref_string[p:p + isize])
+        r1 = frag[:600]
+        r2 = "".join(comp.get(c, "N") for c in frag[-600:])[::-1]
+        if i % 4 == 0:      # knock one mate's seeds out so rescue fires
+            r2 = "".join("ACGT"[c] for c in rng.integers(0, 4, 600))
+        for seq in (r1, r2):
+            reads.append(Read(name=f"L{i}", comment=None, seq=seq,
+                              qual="I" * 600))
+    opt = MemOptions().finalize()
+    opt.flag |= MEM_F_PE
+    out = {}
+    n_kswv = kswv.plain_calls
+    for backend in (TorchBackend(fm, opt, device="cpu"), None):
+        rd = [Read(name=r.name, comment=None, seq=r.seq, qual=r.qual)
+              for r in reads]
+        Aligner(fm, opt, backend=backend, verbose=0).process(rd, 0)
+        out[backend is None] = "".join(r.sam for r in rd)
+    assert max(int(q.max()) for q in rescued) == 600
+    assert kswv.plain_calls > n_kswv
+    assert out[False] == out[True]
 
 
 def test_cli_mem_device_cpu_pe_golden(tmp_path):
