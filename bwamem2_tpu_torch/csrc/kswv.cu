@@ -13,25 +13,36 @@
 // toff, tlen bases forward; 2-bit packed when ref_packed).  Output int32[2,
 // P, 6]: phase 0 and phase 1 rows of (score, te, qe, score2, te2,
 // saturated).  Every problem must have qlen <= Qmax (a multiple of 16) and
-// tlen <= Tmax; the kernel clamps to keep a broken descriptor inside the
-// scratch.  There is no length cap: the wrapper sizes the scratch per
-// launch from the batch's longest query and window.  The i16 class needs
-// Qmax * a <= 32767 (row maxima are int16, where the native kernel
+// tlen <= Tmax; the kernel clamps to keep a broken descriptor inside its
+// stripes and its row array.  There is no length cap: the launch sizes the
+// stripes from the batch's longest query.  The i16 class needs Qmax * a <=
+// 32767 (row maxima and shared stripes are int16, where the native kernel
 // saturates).
 //
-// Design (right and simple first): one thread per problem, running the
-// scalar striped emulation of kswv_dp.cuh for both phases back to back, so
-// phase 1's descriptors never leave the thread.  The stripes H0, H1, E and
-// Hmax live in a wrapper-allocated global scratch laid out [4][Qmax][P]
-// and the per-row maxima in int16[Tmax][P] (the b-array is replayed from
-// them once te is known), so neighbouring threads at the same cell touch
-// neighbouring words, as bsw_extend's [Qmax+1][P] scratch does.  One
-// thread per problem keeps the lane-exact semantics in one place that the
-// host tests compile; its cost is that a warp runs as long as its longest
-// problem and each cell's loads wait on the scratch.  A half-warp per
-// problem, its 16 lanes the 16 SIMD lanes of the striped register
-// (__shfl_up_sync for the lane shift, __all_sync for the lazy-F exit), is
-// the redesign for speed.
+// Design: one lane group per problem, the SIMD lanes of the striped
+// register as threads (kswv_group.cuh): a half-warp for u8, a quarter-warp
+// for i16.  Lane l owns stripe column l; the striped lane shift is a
+// __shfl_up_sync, the lazy-F exit an __all_sync, the row maximum a
+// __reduce_max_sync, and the row's target base one load per lane for NL
+// rows, broadcast a row at a time.  Both phases run back to back in the
+// group, so phase 1's descriptors never leave it.  The stripes never touch
+// global memory: with slen <= 16 (every u8 query of up to 256 bases, i16
+// ones of up to 128) they are registers, in a kernel instantiated per
+// register bucket (u8: 8, 12, 16 segments; i16: 16); longer queries keep
+// them in dynamic shared memory, 7 bytes per query column (int16 H, E,
+// Hmax; the uint8 profile), with as many groups per block as fit.  Only the
+// row maxima (int16 [P][Tpad], one write per row) and the two output rows
+// go to global memory.  Groups per block are chosen per launch so that a
+// small batch still spreads over every SM (ceil(P / (SMs x 8)), at most 128
+// threads); DeviceKswv orders each class's problems by descending (tlen,
+// qlen), so that a warp's two u8 groups, and neighbouring warps, run rows of
+// similar count.  What still holds it back: each lane walks its slen
+// segments one after another (a row is slen dependent steps, plus at least
+// one lazy-F segment with its vote), the groups of a warp serialise when
+// their problems' row counts or lazy-F sweeps differ, the leader lane scans
+// the row maxima alone after each phase, and a batch of a few hundred long
+// queries puts one partial warp on each SM, where the segment chain's
+// latency is exposed.
 //
 // What bounds it: integer DP.  The bound counts the least int32 operations
 // the recurrence needs per striped cell, not this kernel's instruction mix:
@@ -62,56 +73,95 @@
 
 #include <cuda_runtime.h>
 
-#include "kswv_dp.cuh"
+#include "kswv_group.cuh"
 
 namespace {
 
-template <int NL, bool U8>
-__global__ void __launch_bounds__(64)
-kswv_kernel(const int8_t *__restrict__ enc, int64_t n_enc,
-            const uint8_t *__restrict__ ref, int64_t n_ref, int ref_packed,
-            const int *__restrict__ qoff, const int *__restrict__ qdir,
-            const uint8_t *__restrict__ qcomp, const int *__restrict__ qlen,
-            const int64_t *__restrict__ toff, const int *__restrict__ tlen,
-            int P, int Qmax, int Tmax, int minsc, KswvParams sp,
-            int *__restrict__ scratch, int16_t *__restrict__ rowmax,
-            int *__restrict__ out) {
-    const int p = blockIdx.x * blockDim.x + threadIdx.x;
-    if (p >= P) return;
-    const int64_t plane = (int64_t)Qmax * P;
-    KswvScratch s{scratch + p, scratch + plane + p, scratch + 2 * plane + p,
-                  scratch + 3 * plane + p, rowmax + p, P};
-    kswv_problem<NL, U8>(enc, n_enc, ref, n_ref, ref_packed, qoff[p], qdir[p],
-                         qcomp[p], qlen[p], toff[p], tlen[p], minsc, sp,
-                         Qmax, Tmax, s, out + (int64_t)p * 6,
-                         out + ((int64_t)P + p) * 6);
+template <bool U8, int SMAX>
+__global__ void __launch_bounds__(KSWV_MAX_THREADS)
+kswv_kernel(const KswvBatch b) {
+    constexpr int NL = U8 ? 16 : 8;
+    extern __shared__ __align__(16) unsigned char kswv_smem[];
+    const int gpb = blockDim.x / NL, gi = threadIdx.x / NL;
+    const int p = blockIdx.x * gpb + gi;
+    if (p >= b.P) return;          // the whole group returns
+    const KswvGroup<NL> g;
+    kswv_run<U8, SMAX>(g, b, p, kswv_smem + gi * kswv_group_bytes(b.Qmax));
 }
+
+// Target blocks per SM when groups per block are chosen for a small batch.
+constexpr int KSWV_BLOCKS_PER_SM = 8;
 
 }  // namespace
 
-// Launch on `stream` (PyTorch's current stream); returns cudaGetLastError()
-// so the wrapper can raise on a refused launch.  u8 selects the class.
-// scratch: int32[4, Qmax, P]; rowmax: int16[Tmax, P]; out: int32[2, P, 6].
+// The launch's shape for P problems of the class with the longest query
+// Qmax: plan[0] the register bucket (0: shared-memory stripes), plan[1]
+// groups per block, plan[2] dynamic shared memory bytes per block.  Returns
+// a CUDA error code (cudaErrorInvalidValue when one group's stripes exceed
+// the card's shared memory per block).
+extern "C" int kswv_plan(int u8, int Qmax, int P, int *plan) {
+    int dev = 0, nsm = 0, optin = 0;
+    cudaError_t err = cudaGetDevice(&dev);
+    if (!err)
+        err = cudaDeviceGetAttribute(&nsm, cudaDevAttrMultiProcessorCount,
+                                     dev);
+    if (!err)
+        err = cudaDeviceGetAttribute(
+            &optin, cudaDevAttrMaxSharedMemoryPerBlockOptin, dev);
+    if (err) return (int)err;
+    const int nl = u8 ? 16 : 8, smax = kswv_bucket(u8, Qmax);
+    const int64_t spread = (int64_t)nsm * KSWV_BLOCKS_PER_SM;
+    int gpb = (int)((P + spread - 1) / spread);
+    gpb = gpb < 1 ? 1 : (gpb > KSWV_MAX_THREADS / nl ? KSWV_MAX_THREADS / nl
+                                                     : gpb);
+    int64_t bytes = 0;
+    if (!smax) {
+        const int64_t per = kswv_group_bytes(Qmax);
+        if (per > optin) return (int)cudaErrorInvalidValue;
+        if (gpb > optin / per) gpb = (int)(optin / per);
+        bytes = gpb * per;
+    }
+    plan[0] = smax;
+    plan[1] = gpb;
+    plan[2] = (int)bytes;
+    return 0;
+}
+
+// Launch on `stream` (PyTorch's current stream); returns a CUDA error code
+// (the plan's, or cudaGetLastError() of the launch) so the wrapper can
+// raise on a refused launch.  u8 selects the class.  rowmax: int16[P, Tpad]
+// (Tpad a multiple of 8, >= Tmax); out: int32[2, P, 6].
 extern "C" int kswv_launch(const int8_t *enc, int64_t n_enc,
                            const uint8_t *ref, int64_t n_ref, int ref_packed,
                            const int *qoff, const int *qdir,
                            const uint8_t *qcomp, const int *qlen,
                            const int64_t *toff, const int *tlen, int P,
-                           int Qmax, int Tmax, int u8, int minsc, int a,
-                           int b, int o_del, int e_del, int o_ins, int e_ins,
-                           int *scratch, int16_t *rowmax, int *out,
+                           int Qmax, int Tmax, int Tpad, int u8, int minsc,
+                           int a, int b, int o_del, int e_del, int o_ins,
+                           int e_ins, int16_t *rowmax, int *out,
                            void *stream) {
-    const KswvParams sp{a, b, o_del, e_del, o_ins, e_ins};
-    const int threads = 64;
-    const int blocks = (P + threads - 1) / threads;
+    int plan[3];
+    const int err = kswv_plan(u8, Qmax, P, plan);
+    if (err) return err;
+    const KswvBatch batch{enc,   n_enc, ref,   n_ref, ref_packed,
+                          qoff,  qdir,  qcomp, qlen,  toff,
+                          tlen,  P,     Qmax,  Tmax,  Tpad,
+                          minsc, {a, b, o_del, e_del, o_ins, e_ins},
+                          rowmax, out};
+    const int nl = u8 ? 16 : 8, gpb = plan[1], smem = plan[2];
+    const int blocks = (P + gpb - 1) / gpb;
     cudaStream_t st = (cudaStream_t)stream;
-    if (u8)
-        kswv_kernel<16, true><<<blocks, threads, 0, st>>>(
-            enc, n_enc, ref, n_ref, ref_packed, qoff, qdir, qcomp, qlen, toff,
-            tlen, P, Qmax, Tmax, minsc, sp, scratch, rowmax, out);
-    else
-        kswv_kernel<8, false><<<blocks, threads, 0, st>>>(
-            enc, n_enc, ref, n_ref, ref_packed, qoff, qdir, qcomp, qlen, toff,
-            tlen, P, Qmax, Tmax, minsc, sp, scratch, rowmax, out);
+#define KSWV_LAUNCH(U, S)                                                  \
+    if (!!u8 == U && plan[0] == S) {                                       \
+        if (smem > 48 * 1024) {                                            \
+            const cudaError_t e = cudaFuncSetAttribute(                    \
+                kswv_kernel<U, S>,                                         \
+                cudaFuncAttributeMaxDynamicSharedMemorySize, smem);        \
+            if (e) return (int)e;                                          \
+        }                                                                  \
+        kswv_kernel<U, S><<<blocks, gpb * nl, smem, st>>>(batch);          \
+    }
+    KSWV_BUCKETS(KSWV_LAUNCH)
+#undef KSWV_LAUNCH
     return (int)cudaGetLastError();
 }

@@ -1,0 +1,573 @@
+// Two-phase striped local Smith-Waterman for one mate-rescue problem, run by
+// one lane group: the body of the kswv CUDA kernel (kswv.cu).
+//
+// Behavioral spec: ksw_align with KSW_XSUBO | KSW_XSTART (ksw.cpp:347-381),
+// as the port's scalar host kernel emulates it lane for lane
+// (native/core.cpp: ksw_run_u8 :397-505, ksw_run_i16 :507-612, ksw_align
+// :631-655): NL = 16 u8 lanes (biased by shift = max(b, 1), adds saturating
+// at 255, subtracts at 0) or NL = 8 i16 lanes (raw signed adds), slen =
+// ceil(qlen/NL) segments, the main pass with intra-stripe F, up to 16 lazy-F
+// sweeps, the row maximum taken before the fixup and Hmax copied after it.
+// Three differences keep it identical to bwamem2_tpu/ops/kswv.py:
+// kswv_two_phase and to ops/kswv.py:kswv_two_phase_ref, the outputs it is
+// held against:
+//   * q and t are gathered from descriptors (read grid `enc`, doubled genome
+//     `ref` through bsw_ref_at): pad columns score 0, ambiguous bases -1,
+//     else a / -b;
+//   * each phase writes (score, te, qe, score2, te2, saturated); qe, score2
+//     and te2 are also computed for saturated u8 lanes (the caller masks
+//     them), and qe is -1 when no row scored;
+//   * phase 1 walks the reversed prefixes of exactly te+1 target bases.
+//
+// The lane group.  Lane l of the group is SIMD lane l of the striped
+// register: it owns stripe column l, the cells c = j*NL + l for j < slen,
+// which are query columns l*slen + j.  Each lane runs the segment loops over
+// its own cells; what crosses lanes goes through the group interface:
+//   lane()              this lane's index
+//   shfl_up0(x)         lane l-1's x, 0 in lane 0 (the striped lane shift)
+//   all(p)              p holds in every lane (the lazy-F exit vote)
+//   reduce_max/min(x)   over the lanes (the row maximum, the qe argmax)
+//   broadcast(x, s)     lane s's x (the row's target base)
+//   select(m, a, b)     per lane
+//   map(f)              f(lane) per lane (the profile and target loads)
+//   leader()            lane 0: the scalar b-array scan and the writes
+// It has two implementations: on the card (__CUDACC__) one int per thread
+// and the warp intrinsics over the group's lanes only; in host C++ the NL
+// lanes as an int[NL] lane vector stepped in lockstep (leader() is always
+// true there, scalar code runs once).  The kernel and the host tests compile
+// this one source.  Every branch that ends a loop is decided from values the
+// whole group shares: a reduction, a vote or a broadcast.
+//
+// Stripes.  H is updated in place (one temporary carries the old H[j] as the
+// next segment's diagonal), beside E, Hmax and the profile.  With slen <=
+// SMAX, a compile-time bucket, they are registers (KswvRegStripes: every
+// segment loop runs SMAX times, fully unrolled, its body guarded by j <
+// slen, and H's last segment is a register of its own, so no array is
+// indexed at run time); with SMAX = 0 they are int16 / uint8 arrays laid
+// out [segment][lane] (KswvPtrStripes: dynamic shared memory on the card,
+// sized per launch from Qmax).  The row maxima go to the problem's int16
+// row of `rowmax`, one write per row by the leader, which scans them for
+// the second best after each phase.
+//
+// Profile.  Each lane loads its slen query codes once per phase (0-3 bases
+// with the complement applied, 4 ambiguous, 5 pad column) and keeps each as
+// a __byte_perm selector.  Each row builds from its target base an 8-byte
+// table of biased scores (shift + score, by query code), so a cell's score
+// is one byte permute: ksw_align's 5-scores-per-column profile, indexed from
+// the row's side.  The table needs every biased score in 0..255 (the
+// wrapper checks a + shift <= 255).
+
+#pragma once
+
+#include <limits.h>
+
+#include "bsw_extend_dp.cuh"
+
+#ifdef __CUDACC__
+#define KSWV_D __device__ __forceinline__
+#define KSWV_HD __host__ __device__ __forceinline__
+#define KSWV_UNROLL _Pragma("unroll")
+#define KSWV_NO_UNROLL _Pragma("unroll 1")
+#else
+#define KSWV_D inline
+#define KSWV_HD inline
+#define KSWV_UNROLL
+#define KSWV_NO_UNROLL
+#endif
+
+#define KSWV_NO_LIMIT 0x10000   // endsc / minsc meaning "none"
+#define KSWV_SWEEPS 16          // lazy-F sweeps at most per row
+#define KSWV_MAX_THREADS 128    // threads per block at most
+
+// Called after each row's lazy-F with the number of sweeps it ran (the host
+// tests count them).
+#ifndef KSWV_SWEEP_HOOK
+#define KSWV_SWEEP_HOOK(k)
+#endif
+
+struct KswvParams {
+    int a, b, o_del, e_del, o_ins, e_ins;
+};
+
+// One launch: P problems of one precision class.  Problem p's row maxima
+// live at rowmax[p * Tpad ...] (Tpad a multiple of 8), its phase rows at
+// out[p * 6] and out[(P + p) * 6].
+struct KswvBatch {
+    const int8_t *enc;
+    int64_t n_enc;
+    const uint8_t *ref;
+    int64_t n_ref;
+    int packed;
+    const int *qoff, *qdir;
+    const uint8_t *qcomp;
+    const int *qlen;
+    const int64_t *toff;
+    const int *tlen;
+    int P, Qmax, Tmax, Tpad, minsc;
+    KswvParams sp;
+    int16_t *rowmax;
+    int *out;
+};
+
+// One phase's problem: the query walk in the read grid, the target walk in
+// the doubled genome, the stop score, the b-array floor and whether to run.
+struct KswvDesc {
+    int64_t qoff;
+    int qdir, qcomp, qlen;
+    int64_t toff;
+    int tdir, tlen, endsc, minsc, live;
+};
+
+// What phase 1 needs of phase 0 (group-uniform).
+struct KswvEnd {
+    int score, te, qe, sat;
+};
+
+KSWV_D int kswv_max(int x, int y) { return x > y ? x : y; }
+KSWV_D int kswv_min(int x, int y) { return x < y ? x : y; }
+KSWV_D int kswv_max3(int x, int y, int z) {
+#ifdef __CUDA_ARCH__
+    return __vimax3_s32(x, y, z);   // one DPX instruction on sm_90
+#else
+    return kswv_max(kswv_max(x, y), z);
+#endif
+}
+// __byte_perm: byte n of the result is byte (sel >> 4n) & 7 of hi:lo.
+KSWV_D int kswv_prmt(unsigned lo, unsigned hi, int sel) {
+#ifdef __CUDA_ARCH__
+    return (int)__byte_perm(lo, hi, (unsigned)sel);
+#else
+    unsigned r = 0;
+    for (int n = 0; n < 4; ++n) {
+        const int k = (sel >> (4 * n)) & 7;
+        r |= ((k < 4 ? lo >> (8 * k) : hi >> (8 * (k - 4))) & 0xffu)
+             << (8 * n);
+    }
+    return (int)r;
+#endif
+}
+
+#ifdef __CUDACC__
+
+// The card's group: NL consecutive lanes of a warp, one int per thread.
+template <int N>
+struct KswvGroup {
+    static constexpr int NL = N;
+    using V = int;
+    unsigned mask;
+    int l;
+    __device__ KswvGroup() {
+        const int wl = threadIdx.x & 31;
+        l = wl & (NL - 1);
+        mask = ((NL == 32) ? 0xffffffffu : ((1u << NL) - 1u))
+               << (wl & ~(NL - 1));
+    }
+    KSWV_D int lane() const { return l; }
+    KSWV_D bool leader() const { return l == 0; }
+    KSWV_D int shfl_up0(int x) const {
+        const int y = __shfl_up_sync(mask, x, 1, NL);
+        return l ? y : 0;
+    }
+    KSWV_D bool all(bool p) const { return __all_sync(mask, p); }
+    KSWV_D int reduce_max(int x) const { return __reduce_max_sync(mask, x); }
+    KSWV_D int reduce_min(int x) const { return __reduce_min_sync(mask, x); }
+    KSWV_D int broadcast(int x, int s) const {
+        return __shfl_sync(mask, x, s, NL);
+    }
+    KSWV_D int select(bool m, int a, int b) const { return m ? a : b; }
+    template <class F>
+    KSWV_D int map(F f) const { return f(l); }
+    KSWV_D int ld16(const int16_t *p) const { return p[l]; }
+    KSWV_D void st16(int16_t *p, int x) const { p[l] = (int16_t)x; }
+    KSWV_D int ld8(const uint8_t *p) const { return p[l]; }
+    KSWV_D void st8(uint8_t *p, int x) const { p[l] = (uint8_t)x; }
+    KSWV_D int prmt(unsigned lo, unsigned hi, int s) const {
+        return kswv_prmt(lo, hi, s);
+    }
+};
+
+#else
+
+// The host's lane vector: one int per lane, every operation lane by lane.
+template <int NL>
+struct KswvLanes {
+    int v[NL];
+    KswvLanes() {}
+    KswvLanes(int x) {   // a scalar is the same value in every lane
+        for (int l = 0; l < NL; ++l) v[l] = x;
+    }
+    template <class F>
+    static KswvLanes apply(F f) {
+        KswvLanes r;
+        for (int l = 0; l < NL; ++l) r.v[l] = f(l);
+        return r;
+    }
+#define KSWV_LANE_OP(op)                                                  \
+    friend KswvLanes operator op(const KswvLanes &x, const KswvLanes &y) { \
+        return apply([&](int l) { return int(x.v[l] op y.v[l]); });        \
+    }
+    KSWV_LANE_OP(+)
+    KSWV_LANE_OP(-)
+    KSWV_LANE_OP(*)
+    KSWV_LANE_OP(|)
+    KSWV_LANE_OP(>)
+    KSWV_LANE_OP(<=)
+    KSWV_LANE_OP(==)
+#undef KSWV_LANE_OP
+    friend KswvLanes kswv_max(const KswvLanes &x, const KswvLanes &y) {
+        return apply([&](int l) { return kswv_max(x.v[l], y.v[l]); });
+    }
+    friend KswvLanes kswv_min(const KswvLanes &x, const KswvLanes &y) {
+        return apply([&](int l) { return kswv_min(x.v[l], y.v[l]); });
+    }
+    friend KswvLanes kswv_max3(const KswvLanes &x, const KswvLanes &y,
+                               const KswvLanes &z) {
+        return apply(
+            [&](int l) { return kswv_max3(x.v[l], y.v[l], z.v[l]); });
+    }
+};
+
+// The host's group: the NL lanes stepped in lockstep.
+template <int N>
+struct KswvGroup {
+    static constexpr int NL = N;
+    using V = KswvLanes<NL>;
+    V lane() const { return V::apply([](int l) { return l; }); }
+    bool leader() const { return true; }
+    V shfl_up0(const V &x) const {
+        return V::apply([&](int l) { return l ? x.v[l - 1] : 0; });
+    }
+    bool all(const V &p) const {
+        for (int l = 0; l < NL; ++l)
+            if (!p.v[l]) return false;
+        return true;
+    }
+    int reduce_max(const V &x) const {
+        int r = x.v[0];
+        for (int l = 1; l < NL; ++l) r = kswv_max(r, x.v[l]);
+        return r;
+    }
+    int reduce_min(const V &x) const {
+        int r = x.v[0];
+        for (int l = 1; l < NL; ++l) r = kswv_min(r, x.v[l]);
+        return r;
+    }
+    int broadcast(const V &x, int s) const { return x.v[s]; }
+    V select(const V &m, const V &a, const V &b) const {
+        return V::apply([&](int l) { return m.v[l] ? a.v[l] : b.v[l]; });
+    }
+    template <class F>
+    V map(F f) const { return V::apply(f); }
+    V ld16(const int16_t *p) const {
+        return V::apply([&](int l) { return (int)p[l]; });
+    }
+    void st16(int16_t *p, const V &x) const {
+        for (int l = 0; l < NL; ++l) p[l] = (int16_t)x.v[l];
+    }
+    V ld8(const uint8_t *p) const {
+        return V::apply([&](int l) { return (int)p[l]; });
+    }
+    void st8(uint8_t *p, const V &x) const {
+        for (int l = 0; l < NL; ++l) p[l] = (uint8_t)x.v[l];
+    }
+    V prmt(unsigned lo, unsigned hi, const V &s) const {
+        return V::apply([&](int l) { return kswv_prmt(lo, hi, s.v[l]); });
+    }
+};
+
+#endif
+
+#define KSWV_SEL(code) ((code) | 0x7770)   // byte `code`, zeros above
+
+// Stripes in registers: SMAX segments per lane, indexed only by the
+// unrolled loops' constants.
+template <class G, int SMAX>
+struct KswvRegStripes {
+    using V = typename G::V;
+    V h[SMAX], e[SMAX], m[SMAX], s[SMAX];
+    KSWV_D V H(int j) const { return h[j]; }
+    KSWV_D void setH(int j, const V &x) { h[j] = x; }
+    KSWV_D V E(int j) const { return e[j]; }
+    KSWV_D void setE(int j, const V &x) { e[j] = x; }
+    KSWV_D V M(int j) const { return m[j]; }
+    KSWV_D V sel(int j) const { return s[j]; }
+    KSWV_D void set_code(int j, const V &code) { s[j] = KSWV_SEL(code); }
+    KSWV_D void init(int) {
+        KSWV_UNROLL
+        for (int j = 0; j < SMAX; ++j) h[j] = e[j] = 0;
+    }
+    KSWV_D void keep(int) {   // Hmax = H
+        KSWV_UNROLL
+        for (int j = 0; j < SMAX; ++j) m[j] = h[j];
+    }
+};
+
+// Stripes behind a pointer (shared memory on the card): int16 H, E and Hmax
+// and uint8 query codes, each [smax segments][NL lanes].
+template <class G>
+struct KswvPtrStripes {
+    using V = typename G::V;
+    static constexpr int NL = G::NL;
+    G g;
+    int16_t *h, *e, *m;
+    uint8_t *s;
+    KSWV_D KswvPtrStripes(const G &g_, void *base, int smax) : g(g_) {
+        h = (int16_t *)base;
+        e = h + smax * NL;
+        m = e + smax * NL;
+        s = (uint8_t *)(m + smax * NL);
+    }
+    KSWV_D V H(int j) const { return g.ld16(h + j * NL); }
+    KSWV_D void setH(int j, const V &x) { g.st16(h + j * NL, x); }
+    KSWV_D V E(int j) const { return g.ld16(e + j * NL); }
+    KSWV_D void setE(int j, const V &x) { g.st16(e + j * NL, x); }
+    KSWV_D V M(int j) const { return g.ld16(m + j * NL); }
+    KSWV_D V sel(int j) const { return KSWV_SEL(g.ld8(s + j * NL)); }
+    KSWV_D void set_code(int j, const V &code) { g.st8(s + j * NL, code); }
+    KSWV_D void init(int slen) {
+        for (int j = 0; j < slen; ++j) {
+            setH(j, 0);
+            setE(j, 0);
+        }
+    }
+    KSWV_D void keep(int slen) {
+        for (int j = 0; j < slen; ++j) g.st16(m + j * NL, H(j));
+    }
+};
+
+// Bytes of pointer stripes per group for queries up to Qmax columns.
+KSWV_HD int64_t kswv_group_bytes(int Qmax) { return (int64_t)7 * Qmax; }
+
+// The register bucket of a launch whose longest query is Qmax (a multiple
+// of 16): the least SMAX >= Qmax / nl that is instantiated, or 0 (pointer
+// stripes).  KSWV_BUCKETS lists every instantiation.
+#define KSWV_BUCKETS(X) \
+    X(true, 8) X(true, 12) X(true, 16) X(true, 0) X(false, 16) X(false, 0)
+inline int kswv_bucket(int u8, int Qmax) {
+    const int s = Qmax / (u8 ? 16 : 8);
+    if (u8) return s <= 8 ? 8 : s <= 12 ? 12 : s <= 16 ? 16 : 0;
+    return s <= 16 ? 16 : 0;
+}
+
+// Row maxima are read eight at a time by the b-array scan.
+struct alignas(16) KswvRow8 {
+    int16_t v[8];
+};
+
+// One phase of one problem in group g with stripes st; qcap/tcap bound
+// qlen/tlen to the stripes and to the row array rm.  The leader writes out
+// (score te qe score2 te2 saturated).
+template <int SMAX, bool U8, class G, class S>
+KSWV_D KswvEnd kswv_phase(const G &g, S &st, const KswvBatch &b,
+                          const KswvDesc &d, int qcap, int tcap, int16_t *rm,
+                          int *out) {
+    using V = typename G::V;
+    constexpr int NL = G::NL;
+    const KswvParams &sp = b.sp;
+    const int shift = sp.b > 1 ? sp.b : 1;
+    const int maxsc = sp.a > 1 ? sp.a : 1;
+    const int oe_del = sp.o_del + sp.e_del, oe_ins = sp.o_ins + sp.e_ins;
+    const int qlen = d.qlen < qcap ? d.qlen : qcap;
+    const int tlen = d.tlen < tcap ? d.tlen : tcap;
+    const int slen = (qlen + NL - 1) / NL;
+    const int JN = SMAX ? SMAX : slen;
+
+    // the profile: each lane's query codes, once per phase
+    KSWV_UNROLL
+    for (int j = 0; j < JN; ++j) {
+        if (j < slen)
+            st.set_code(j, g.map([&](int l) {
+                const int c = l * slen + j;
+                if (c >= qlen) return 5;                  // pad column
+                int64_t qp = d.qoff + (int64_t)d.qdir * c;
+                qp = qp < 0 ? 0 : (qp > b.n_enc - 1 ? b.n_enc - 1 : qp);
+                int qc = b.enc[qp];
+                if (d.qcomp && qc < 4) qc = 3 - qc;
+                return (unsigned)qc < 4u ? qc : 4;
+            }));
+    }
+    // the row tables: bytes 0-3 the bases, 4 ambiguous, 5 pad; biased
+    const unsigned ap = (unsigned)(sp.a + shift);
+    const unsigned t_mis = (unsigned)(shift - sp.b) * 0x01010101u;
+    const unsigned t_amb = (unsigned)(shift - 1) * 0x01010101u;
+    const unsigned thi = (unsigned)(shift - 1) | ((unsigned)shift << 8);
+
+    st.init(slen);
+    // H's last segment, kept apart: selected where it is written, never
+    // loaded by a run-time index (which would pin register stripes in
+    // local memory)
+    V last = 0;
+    int gmax = 0, te = -1, rowstop = d.live ? tlen : 0;
+    // target bases NL rows at a time, one row per lane, the next block
+    // loaded while this one is used
+    auto tload = [&](int i0) {
+        return g.map([&](int l) {
+            return bsw_ref_at(b.ref, b.n_ref, b.packed,
+                              d.toff + (int64_t)d.tdir * (i0 + l));
+        });
+    };
+    V tcur = 0, tnxt = 0;
+    if (d.live && tlen > 0) {
+        tcur = tload(0);
+        tnxt = tload(NL);
+    }
+    for (int i = 0; d.live && i < tlen; ++i) {
+        const int r = i & (NL - 1);
+        const int ti = g.broadcast(tcur, r);
+        if (r == NL - 1) {
+            tcur = tnxt;
+            tnxt = tload(i + 1 + NL);
+        }
+        const unsigned tlo =
+            ti < 4 ? (t_mis & ~(0xffu << (8 * ti))) | (ap << (8 * ti))
+                   : t_amb;
+        // main pass: h = the previous row's last segment shifted up a lane
+        V h = g.shfl_up0(last);
+        V f = 0, mx = 0;
+        KSWV_UNROLL
+        for (int j = 0; j < JN; ++j) {
+            if (j >= slen) continue;
+            V hh = h + g.prmt(tlo, thi, st.sel(j));
+            if (U8)     // subsu8(addsu8(h, sc + shift), shift), floored below
+                hh = kswv_min(hh, 255) - shift;
+            else
+                hh = hh - shift;
+            const V ee = st.E(j);
+            hh = kswv_max3(hh, ee, f);   // E, F >= 0: the u8 floor at 0
+            mx = kswv_max(mx, hh);
+            h = st.H(j);                 // the old H[j]: next diagonal
+            st.setH(j, hh);
+            last = j == slen - 1 ? hh : last;
+            st.setE(j, kswv_max3(ee - sp.e_del, hh - oe_del, 0));
+            f = kswv_max3(f - sp.e_ins, hh - oe_ins, 0);
+        }
+        // lazy-F: carry F across the stripe boundaries, one lane a sweep;
+        // the segment loops keep one exit (the guard skips the segments
+        // after the vote) so that they unroll fully
+        bool go = true;
+        int k = 0;
+        for (; go && k < KSWV_SWEEPS; ++k) {
+            f = g.shfl_up0(f);
+            KSWV_UNROLL
+            for (int j = 0; j < JN; ++j) {
+                if (!go || j >= slen) continue;
+                const V hh = kswv_max(st.H(j), f);
+                st.setH(j, hh);
+                last = j == slen - 1 ? hh : last;
+                f = kswv_max(f - sp.e_ins, 0);
+                go = !g.all(f <= kswv_max(hh - oe_ins, 0));
+            }
+        }
+        KSWV_SWEEP_HOOK(k);
+        const int imax = g.reduce_max(mx);
+        if (g.leader()) rm[i] = (int16_t)imax;
+        if (imax > gmax) {
+            gmax = imax;
+            te = i;
+            st.keep(slen);
+            if ((U8 && gmax + shift >= 255) || gmax >= d.endsc) {
+                rowstop = i + 1;
+                break;
+            }
+        }
+    }
+
+    const int sat = U8 && d.live && gmax + shift >= 255;
+    const int score = sat ? 255 : gmax;
+    // qe: the least query column among the Hmax maxima, pad columns
+    // included (each lane's columns l*slen + j rise with j)
+    int qe = -1;
+    if (d.live && te >= 0) {
+        const V col0 = g.lane() * slen;
+        V bv = -1, bp = INT_MAX;
+        KSWV_UNROLL
+        for (int j = 0; j < JN; ++j) {
+            if (j >= slen) continue;
+            const V v = st.M(j);
+            const auto up = v > bv;
+            bp = g.select(up, col0 + j, bp);
+            bv = g.select(up, v, bv);
+        }
+        const int mv = g.reduce_max(bv);
+        qe = g.reduce_min(g.select(bv == mv, bp, V(INT_MAX)));
+    }
+    if (g.leader()) {
+        // second best from the b-array: an entry merges only into the entry
+        // of the immediately preceding row; the first best outside te +-
+        // ceil(score / maxsc) wins
+        int best2 = -1, te2 = -1;
+        if (d.minsc <= 0xFFFF && d.live) {
+            const int i2 = (score + maxsc - 1) / maxsc;
+            const int low = te - i2, high = te + i2;
+            bool have = false;
+            int val = 0, row = -2;
+            for (int i0 = 0; i0 < rowstop; i0 += 8) {
+                const KswvRow8 r8 = *(const KswvRow8 *)(rm + i0);
+                KSWV_UNROLL
+                for (int u = 0; u < 8; ++u) {
+                    const int i = i0 + u, v = r8.v[u];
+                    if (i >= rowstop || v < d.minsc) continue;
+                    if (have && row + 1 == i) {
+                        if (v > val) val = v, row = i;
+                        continue;
+                    }
+                    if (have && (row < low || row > high) && val > best2)
+                        best2 = val, te2 = row;
+                    val = v, row = i, have = true;
+                }
+            }
+            if (have && (row < low || row > high) && val > best2)
+                best2 = val, te2 = row;
+        }
+        out[0] = score;
+        out[1] = te;
+        out[2] = qe;
+        out[3] = best2;
+        out[4] = te2;
+        out[5] = sat;
+    }
+    return KswvEnd{score, te, qe, sat};
+}
+
+// Both phases of problem p: phase 0 forward with the b-array floor minsc,
+// then phase 1 on the reversed prefixes that end at the phase-0 end,
+// stopping at the phase-0 score, when phase 0 found a score >= minsc that
+// did not saturate.  Phase 1's descriptors never leave the group.
+template <int SMAX, bool U8, class G, class S>
+KSWV_D void kswv_both(const G &g, S &st, const KswvBatch &b, int p,
+                      int qcap) {
+    const int64_t qoff = b.qoff[p], toff = b.toff[p];
+    const int qdir = b.qdir[p], qcomp = b.qcomp[p];
+    int16_t *rm = b.rowmax + (int64_t)p * b.Tpad;
+    int *out = b.out + (int64_t)p * 6;
+    KswvDesc d{qoff, qdir,       qcomp,         b.qlen[p], toff,
+               1,    b.tlen[p], KSWV_NO_LIMIT, b.minsc,   1};
+    KSWV_NO_UNROLL
+    for (int ph = 0; ph < 2; ++ph) {
+        const KswvEnd r =
+            kswv_phase<SMAX, U8>(g, st, b, d, qcap, b.Tmax, rm, out);
+        const int want =
+            !r.sat && r.score >= b.minsc && r.te >= 0 && r.qe >= 0;
+        d = KswvDesc{qoff + (int64_t)qdir * r.qe, -qdir, qcomp,
+                     want ? r.qe + 1 : 0,         toff + r.te,
+                     -1,                          want ? r.te + 1 : 0,
+                     r.score,                     KSWV_NO_LIMIT,
+                     want};
+        out += (int64_t)b.P * 6;
+    }
+}
+
+// Problem p in group g, its stripes in registers (SMAX > 0) or in
+// `stripes`, the group's kswv_group_bytes(Qmax) bytes (SMAX = 0).
+template <bool U8, int SMAX, class G>
+KSWV_D void kswv_run(const G &g, const KswvBatch &b, int p, void *stripes) {
+    constexpr int NL = G::NL;
+    if constexpr (SMAX > 0) {
+        KswvRegStripes<G, SMAX> st;
+        kswv_both<SMAX, U8>(g, st, b, p,
+                            b.Qmax < SMAX * NL ? b.Qmax : SMAX * NL);
+    } else {
+        KswvPtrStripes<G> st(g, stripes, b.Qmax / NL);
+        kswv_both<0, U8>(g, st, b, p, b.Qmax);
+    }
+}

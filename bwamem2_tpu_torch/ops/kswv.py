@@ -26,12 +26,13 @@ the pre-fixup F is a cummax segmented by stripe, the true F a plain cummax.
 `kswv_two_phase_ref` runs phase 0 (score, end) and phase 1 (the start, on
 reversed prefixes that end at the phase-0 end, stopping at the phase-0
 score) with phase 1's descriptors computed from phase 0's result.  The CUDA
-kernel (csrc/kswv.cu, csrc/kswv_dp.cuh) computes the same two rows of 6.
+kernel (csrc/kswv.cu, csrc/kswv_group.cuh) computes the same two rows of 6.
 
 `DeviceKswv.align_batch` is the dispatch that TorchBackend.rescue_batch
 calls: both precision classes go to `kswv_cuda.kswv` — the kernel for a
-read grid on the GPU, this reference for one on the CPU — and are enqueued
-before one fetch; the result is the native ksw_align 7-tuple per problem.
+read grid on the GPU, this reference for one on the CPU — each in
+descending (tlen, qlen) order, and are enqueued before one fetch; the
+result is the native ksw_align 7-tuple per problem, in descriptor order.
 """
 
 from __future__ import annotations
@@ -230,21 +231,35 @@ class DeviceKswv:
     and the doubled genome and returns the native ksw_align 7-tuple
     (score te qe score2 te2 tb qb) per problem, identical to the scalar
     path.  Every problem runs in the kernel, in its precision class (u8 =
-    kswv512_u8, i16 = kswv512_16 analogs), whatever its length: the grids
-    are sized per class from the batch's own longest query and window.
-    u8-saturated lanes keep the native saturated shape."""
+    kswv512_u8, i16 = kswv512_16 analogs), whatever its length: one launch
+    per class, one lane group per problem, the stripes sized from the
+    class's own longest query.  Each class is launched longest first, by
+    descending (tlen, qlen), so that neighbouring lane groups run rows of
+    similar count; the results go back to descriptor order.  u8-saturated
+    lanes keep the native saturated shape."""
 
     def __init__(self, dfm, opt):
         self.dfm = dfm
         self.opt = opt
         self.minsc = opt.min_seed_len * opt.a
 
-    def _dispatch(self, encj, desc, idx, u8: bool):
-        """Enqueue both phases for the problems `idx` of one precision
-        class; returns the in-flight (r0, r1) — no host sync.  The grids
-        are sized by this batch's own maxima (Qmax a multiple of 16, so
-        the pad columns of both classes fit)."""
-        from .kswv_cuda import kswv
+    @staticmethod
+    def launch_order(desc: dict) -> list:
+        """[(u8, idx)] per precision class present: the class's problems by
+        descending (tlen, qlen), ties in descriptor order."""
+        out = []
+        for u8 in (True, False):
+            idx = np.nonzero(desc["u8"] == u8)[0]
+            if len(idx):
+                out.append((u8, idx[np.lexsort((-desc["qlen"][idx],
+                                                -desc["tlen"][idx]))]))
+        return out
+
+    def kswv_args(self, encj, desc: dict, idx, u8: bool) -> tuple:
+        """The kswv arguments for the problems `idx` of one precision class,
+        uploaded to the read grid's device; Qmax (a multiple of 16, so the
+        pad columns of both classes fit) and Tmax are this batch's own
+        maxima."""
         opt = self.opt
         dev = encj.device
         Qmax = round_up(int(desc["qlen"][idx].max()), 16)
@@ -253,12 +268,12 @@ class DeviceKswv:
         def put(a, dt):
             return torch.from_numpy(np.ascontiguousarray(a[idx], dt)).to(dev)
 
-        return kswv(self.dfm.ref, encj, put(desc["qoff"], np.int32),
-                    put(desc["qdir"], np.int32), put(desc["qcomp"], bool),
-                    put(desc["qlen"], np.int32), put(desc["toff"], np.int64),
-                    put(desc["tlen"], np.int32), Qmax, Tmax, self.minsc,
-                    opt.a, opt.b, opt.o_del, opt.e_del, opt.o_ins, opt.e_ins,
-                    self.dfm.ref_packed, u8)
+        return (self.dfm.ref, encj, put(desc["qoff"], np.int32),
+                put(desc["qdir"], np.int32), put(desc["qcomp"], bool),
+                put(desc["qlen"], np.int32), put(desc["toff"], np.int64),
+                put(desc["tlen"], np.int32), Qmax, Tmax, self.minsc, opt.a,
+                opt.b, opt.o_del, opt.e_del, opt.o_ins, opt.e_ins,
+                self.dfm.ref_packed, u8)
 
     def _finish(self, r0h, r1h) -> np.ndarray:
         """The native ksw_align 7-tuples from the fetched phase results."""
@@ -281,13 +296,11 @@ class DeviceKswv:
         qcomp, qlen, toff (absolute), tlen, u8 (the XBYTE class).  Returns
         int32[n, 7].  Both precision classes are enqueued before the one
         fetch."""
+        from .kswv_cuda import kswv
         n = len(desc["qoff"])
         out = np.zeros((n, 7), np.int32)
-        flights = []
-        for u8 in (True, False):
-            idx = np.nonzero(desc["u8"] == u8)[0]
-            if len(idx):
-                flights.append((idx, self._dispatch(encj, desc, idx, u8)))
+        flights = [(idx, kswv(*self.kswv_args(encj, desc, idx, u8)))
+                   for u8, idx in self.launch_order(desc)]
         if flights:
             fetched = torch.cat([torch.cat(r, 1) for _, r in flights]) \
                 .cpu().numpy()                                   # 1 fetch

@@ -4,9 +4,17 @@ Built by ops/cuda_build.py.  `kswv(...)` is the wrapper: for tensors on the
 CPU it runs the plain version (ops/kswv.py:kswv_two_phase_ref); for CUDA
 tensors it launches the kernel or raises — it never falls back.
 `kswv.launches` counts kernel launches, `kswv.plain_calls` the CPU calls.
+
+The kernel runs one lane group per problem (16 lanes u8, 8 lanes i16) and
+keeps the striped H, E and Hmax in registers or shared memory, so a launch
+allocates only its output and the int16 row maxima, [P, Tmax rounded up to
+8].  `kswv.plan` reports the launch's shape: the register bucket (0 for
+shared-memory stripes), groups per block and shared memory per block.
 """
 
 from __future__ import annotations
+
+import ctypes
 
 import torch
 
@@ -21,10 +29,10 @@ class Kswv(CudaKernel):
     kswv_two_phase_ref for the arguments)."""
 
     NAME = "kswv"
-    SOURCES = ("kswv.cu", "kswv_dp.cuh", "bsw_extend_dp.cuh")
+    SOURCES = ("kswv.cu", "kswv_group.cuh", "bsw_extend_dp.cuh")
     SIGNATURE = ("kswv_launch",
-                 [VP, I64, VP, I64, I32] + [VP] * 6 + [I32] * 11
-                 + [VP] * 4)
+                 [VP, I64, VP, I64, I32] + [VP] * 6 + [I32] * 12
+                 + [VP] * 3)
 
     def __call__(self, ref, enc, qoff, qdir, qcomp, qlen, toff, tlen,
                  Qmax: int, Tmax: int, minsc: int, mat_a: int, mat_b: int,
@@ -37,6 +45,21 @@ class Kswv(CudaKernel):
             self._plain()
             return kswv_two_phase_ref(*args)
         return self.launch(*args)
+
+    def plan(self, P: int, Qmax: int, u8: bool) -> tuple[int, int, int]:
+        """(register bucket, 0 for shared-memory stripes; groups per block;
+        dynamic shared memory bytes per block) of a launch on the current
+        device."""
+        fn = self.lib().kswv_plan
+        fn.restype, fn.argtypes = I32, [I32, I32, I32, VP]
+        plan = (ctypes.c_int * 3)()
+        err = fn(int(bool(u8)), Qmax, P, ctypes.addressof(plan))
+        if err:
+            raise ValueError(
+                f"kswv: no launch for Qmax={Qmax} in the "
+                f"{'u8' if u8 else 'i16'} class (CUDA error {err}): one "
+                f"problem's stripes need {7 * Qmax} bytes of shared memory")
+        return tuple(plan)
 
     def launch(self, ref, enc, qoff, qdir, qcomp, qlen, toff, tlen, Qmax,
                Tmax, minsc, mat_a, mat_b, o_del, e_del, o_ins, e_ins,
@@ -62,22 +85,30 @@ class Kswv(CudaKernel):
         if Tmax <= 0:
             raise ValueError(f"kswv: Tmax={Tmax} out of range")
         if not u8 and Qmax * max(mat_a, 1) > 32767:
-            # row maxima are kept as int16, the i16 class's own width (the
-            # native kernel saturates there, the int32 emulation does not)
+            # row maxima and stripes are kept as int16, the i16 class's own
+            # width (the native kernel saturates there, the int32 emulation
+            # does not)
             raise ValueError(f"kswv: i16 scores of Qmax={Qmax} x a={mat_a} "
                              "overflow 16 bits")
+        shift = max(mat_b, 1)
+        if not (0 <= mat_a + shift <= 255 and shift - mat_b <= 255):
+            # the per-row score table holds shift + score in one byte
+            raise ValueError(f"kswv: scores a={mat_a} b={mat_b} do not fit "
+                             "the biased byte profile")
         out = torch.empty((2, P, 6), dtype=torch.int32, device=dev)
         if P == 0:
             return out[0], out[1]
-        scratch = torch.empty((4, Qmax, P), dtype=torch.int32, device=dev)
-        rowmax = torch.empty((Tmax, P), dtype=torch.int16, device=dev)
+        with torch.cuda.device(dev):
+            self.plan(P, Qmax, u8)          # raises on a refused shape
+        Tpad = -(-Tmax // 8) * 8
+        rowmax = torch.empty((P, Tpad), dtype=torch.int16, device=dev)
         self._launch(
             dev, enc.data_ptr(), enc.numel(), ref.data_ptr(), ref.numel(),
             int(bool(ref_packed)), qoff.data_ptr(), qdir.data_ptr(),
             qcomp.data_ptr(), qlen.data_ptr(), toff.data_ptr(),
-            tlen.data_ptr(), P, Qmax, Tmax, int(bool(u8)), minsc, mat_a,
-            mat_b, o_del, e_del, o_ins, e_ins, scratch.data_ptr(),
-            rowmax.data_ptr(), out.data_ptr())
+            tlen.data_ptr(), P, Qmax, Tmax, Tpad, int(bool(u8)), minsc,
+            mat_a, mat_b, o_del, e_del, o_ins, e_ins, rowmax.data_ptr(),
+            out.data_ptr())
         return out[0], out[1]
 
 

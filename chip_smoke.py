@@ -10,7 +10,9 @@ Phases, each of which fails the run (non-zero exit, no result line):
   1. the card's name and power limit (nvidia-smi);
   2. build: the five CUDA kernels (one nvcc per csrc/*.cu: bsw_extend,
      smem_collect, sa_resolve, kswv, row_gather) and the native host
-     runtime (g++) from the checkout's sources, all started together;
+     runtime (g++) from the checkout's sources, all started together; the
+     registers and spills of each kswv instantiation (u8/i16 x register
+     bucket or shared-memory stripes);
   3. data: a synthetic 11.7 Mbp genome (scale 0.25 of the chr21 class, the
      size of a yeast genome) with repeat families and N runs, its index and
      10,000 2x150 bp pairs, made once from fixed seeds under .tmp/;
@@ -27,7 +29,10 @@ Phases, each of which fails the run (non-zero exit, no result line):
      is 0);
   5. kernel vs plain, exact equality, with times and bounds:
      a. bsw_extend against bsw_desc_ref at every production rung (Q in
-        127/255/383 x T in 96..608) with P = 4096 real-length descriptors;
+        127/255/383 x T in 96..608) with P = 4096 real-length descriptors,
+        then on the main path's own launches of run (b)'s first chunk
+        (captured as the pipeline makes them; their summed time and bound
+        are the kernel's line);
      b. the smem_collect and sa_resolve wrappers against smem_collect_ref
         and sa_resolve_ref on 2,048 reads of the smoke FASTQ and on the
         first chunk of each main-path run (15,000 and 66,668 reads), with
@@ -38,8 +43,11 @@ Phases, each of which fails the run (non-zero exit, no result line):
         them to TorchBackend.rescue_batch), on a synthetic i16-class batch
         (qlen 250-512, windows up to 2,048) and on a batch of longer
         problems (qlen 513-1,500 in the i16 class, windows up to 4,000 in
-        the u8 class); DeviceKswv.align_batch against the native ksw_align
-        on the same problems, whose host seconds are timed;
+        the u8 class), each class in DeviceKswv's launch order with the
+        launch's stripe placement, groups per block and ptxas numbers, and
+        the earlier one-thread design's time beside the kernel's;
+        DeviceKswv.align_batch against the native ksw_align on the same
+        problems, whose host seconds are timed;
   6. the gather probe (bwamem2_tpu_torch/tools/gather_scale_probe.py) on
      cuda, its path's launch counter set to 0 before and read after; then
      row_gather against tab[idx] and torch.index_select at the probe's
@@ -90,6 +98,14 @@ DESC_BYTES, OUT_BYTES = 36, 24
 KSWV_OPS_PER_CELL = {True: 10, False: 8}      # u8, i16
 KSWV_LAZY_OPS = 4
 KSWV_DESC_BYTES, KSWV_OUT_BYTES = 25, 48
+# kswv times (ms) of the earlier one-thread-per-problem design (stripes in
+# global scratch), measured by this script's phase 5c on an NVIDIA H100
+# 80GB HBM3 at 700.00 W, printed beside the lane-group kernel's times
+ONE_THREAD_KSWV_MS = {("chunk (a)", "u8"): 60.8931,
+                      ("chunk (b)", "u8"): 267.5940,
+                      ("i16 batch", "i16"): 392.8213,
+                      ("long batch", "u8"): 89.8636,
+                      ("long batch", "i16"): 3201.2744}
 N_I16 = 1024             # problems in the synthetic i16-class batch
 N_LONG = 256             # problems per class in the long-problem batch
 N_SEED = 2048            # reads in the seeding kernel-vs-plain sample
@@ -127,6 +143,40 @@ def kernels():
                 sa_resolve=sa_resolve, kswv=kswv, row_gather=row_gather)
 
 
+def ptxas_table(text: str) -> dict:
+    """{entry function: registers, spill bytes (stores + loads), stack
+    frame bytes} from nvcc -Xptxas -v output."""
+    import re
+    out, cur = {}, None
+    for ln in text.splitlines():
+        m = re.search(r"(?:Compiling entry function|Function properties "
+                      r"for) '?(\w+)'?", ln)
+        if m:
+            cur = out.setdefault(m.group(1), {})
+            continue
+        m = re.search(r"(\d+) bytes stack frame, (\d+) bytes spill stores, "
+                      r"(\d+) bytes spill loads", ln)
+        if m and cur is not None:
+            cur.update(stack=int(m[1]), spill=int(m[2]) + int(m[3]))
+        m = re.search(r"Used (\d+) registers", ln)
+        if m and cur is not None:
+            cur["registers"] = int(m[1])
+    return out
+
+
+def kswv_instances(text: str) -> dict:
+    """{(u8, register bucket): ptxas numbers} of the kswv kernel's
+    instantiations (kswv_kernel<U8, SMAX>; bucket 0 = shared-memory
+    stripes)."""
+    import re
+    out = {}
+    for name, v in ptxas_table(text).items():
+        m = re.search(r"kswv_kernelILb([01])ELi(\d+)E", name)
+        if m:
+            out[(m[1] == "1", int(m[2]))] = v
+    return out
+
+
 def build_all() -> dict:
     """One nvcc per kernel source and g++, all started together; returns
     seconds per build."""
@@ -151,6 +201,12 @@ def build_all() -> dict:
     if errs:
         fail("build failed:\n" + "\n".join(errs))
     for name, k in kernels().items():
+        if name == "kswv":       # one line per instantiation
+            for (u8, smax), v in sorted(kswv_instances(k.build_log).items()):
+                log(f"  ptxas kswv<{'u8' if u8 else 'i16'}, SMAX={smax}>: "
+                    f"{v.get('registers')} registers, {v.get('spill')} B "
+                    f"spilled, {v.get('stack')} B stack frame")
+            continue
         for ln in k.build_log.splitlines():
             if "registers" in ln or "spill" in ln or "error" in ln.lower():
                 log(f"  ptxas {name}: {ln.strip()}")
@@ -251,6 +307,46 @@ def kernel_vs_plain(torch, fm, opt) -> dict:
     if tot["mismatches"]:
         fail(f"bsw_extend disagrees with bsw_desc_ref on "
              f"{tot['mismatches']} pairs (max abs err {tot['err']})")
+    return tot
+
+
+def bsw_main_path(torch, calls) -> dict:
+    """bsw_extend on the main path's own launches (the arguments the
+    pipeline gave it on one chunk, one launch per rung group), each against
+    bsw_desc_ref (exact) and timed with CUDA events; sums over the
+    launches."""
+    from bwamem2_tpu_torch.ops.bsw import bsw_desc_ref
+    from bwamem2_tpu_torch.ops.bsw_cuda import bsw_extend
+    tot = dict(launches=len(calls), pairs=0, ms=0.0, plain_ms=0.0,
+               bound_ms=0.0, ops_ms=0.0, mem_ms=0.0, cells=0, err=0)
+    ev = lambda: torch.cuda.Event(enable_timing=True)  # noqa: E731
+    log(f"  {'Q':>4} {'T':>4} {'pairs':>7} {'cells':>11} {'kernel_ms':>10} "
+        f"{'plain_ms':>10} {'bound_ms':>9}")
+    for args in calls:
+        got = bsw_extend.launch(*args)
+        cells: list = []
+        e0, e1 = ev(), ev()
+        e0.record()
+        want = bsw_desc_ref(*args[:-1], ref_packed=args[-1], cells=cells)
+        e1.record()
+        torch.cuda.synchronize()
+        p_ms = e0.elapsed_time(e1)
+        if not torch.equal(got, want):
+            bad = int((got != want).any(1).sum())
+            fail(f"bsw_extend disagrees with bsw_desc_ref on {bad} main-path "
+                 f"pairs (Q={args[10]}, T={args[11]})")
+        k_ms = cuda_ms(torch, lambda: bsw_extend.launch(*args), 5)
+        P = args[2].shape[0]
+        nbytes = (P * (DESC_BYTES + OUT_BYTES) + int(args[4].sum())
+                  + int(args[7].sum()))
+        ops_ms = cells[0] * OPS_PER_CELL / INT32_OPS_PER_S * 1e3
+        mem_ms = nbytes / HBM_BYTES_PER_S * 1e3
+        log(f"  {args[10]:>4} {args[11]:>4} {P:>7} {cells[0]:>11} "
+            f"{k_ms:>10.4f} {p_ms:>10.3f} {max(ops_ms, mem_ms):>9.5f}")
+        for key, v in (("pairs", P), ("ms", k_ms), ("plain_ms", p_ms),
+                       ("bound_ms", max(ops_ms, mem_ms)), ("ops_ms", ops_ms),
+                       ("mem_ms", mem_ms), ("cells", cells[0])):
+            tot[key] += v
     return tot
 
 
@@ -396,18 +492,21 @@ def synthetic_rescue(torch, genome, tag: str, seed: int, parts) -> tuple:
 def rescue_vs_plain(torch, fm, opt, batches) -> dict:
     """Phase 5c.  batches: [(tag, read grid on the card, descriptors)].
     For each: DeviceKswv.align_batch against the native ksw_align
-    7-tuples (exact; the native oracle timed on the host), then
-    per precision class the kswv wrapper against kswv_two_phase_ref on the
-    card (exact), with the kernel's CUDA-event ms, the plain version's ms
-    and the bound of the cells these problems ran."""
+    7-tuples (exact; the native oracle timed on the host), then per
+    precision class, in DeviceKswv's launch order and with its arguments,
+    the kswv wrapper against kswv_two_phase_ref on the card (exact), with
+    the kernel's CUDA-event ms beside the one-thread design's, the plain
+    version's ms, the bound of the cells these problems ran, and the
+    launch's shape (register bucket or shared-memory stripes, groups per
+    block, shared memory, the instantiation's ptxas registers and spills)."""
     import numpy as np
     from bwamem2_tpu_torch.native import ksw_align_desc
-    from bwamem2_tpu_torch.ops import round_up
     from bwamem2_tpu_torch.ops.device_index import DeviceFMIndex
     from bwamem2_tpu_torch.ops.kswv import DeviceKswv, kswv_two_phase_ref
     from bwamem2_tpu_torch.ops.kswv_cuda import kswv
     dfm = DeviceFMIndex.from_genome(fm.ref_string, "cuda")
     dk = DeviceKswv(dfm, opt)
+    ptx = kswv_instances(kswv.build_log)
     ev = lambda: torch.cuda.Event(enable_timing=True)  # noqa: E731
     out = {}
     for tag, encj, desc in batches:
@@ -423,20 +522,9 @@ def rescue_vs_plain(torch, fm, opt, batches) -> dict:
                  f"on {bad} of {n} problems")
         r = dict(problems=n, u8=int(desc["u8"].sum()), native_host_s=host_s,
                  classes={})
-        for u8 in (True, False):
-            idx = np.nonzero(desc["u8"] == u8)[0]
-            if not len(idx):
-                continue
-            put = lambda a, dt: torch.from_numpy(  # noqa: E731
-                np.ascontiguousarray(a[idx], dt)).cuda()
-            Qmax = round_up(int(desc["qlen"][idx].max()), 16)
-            Tmax = int(desc["tlen"][idx].max())
-            args = (dfm.ref, encj, put(desc["qoff"], np.int32),
-                    put(desc["qdir"], np.int32), put(desc["qcomp"], bool),
-                    put(desc["qlen"], np.int32), put(desc["toff"], np.int64),
-                    put(desc["tlen"], np.int32), Qmax, Tmax, dk.minsc, opt.a,
-                    opt.b, opt.o_del, opt.e_del, opt.o_ins, opt.e_ins,
-                    dfm.ref_packed, u8)
+        for u8, idx in dk.launch_order(desc):
+            args = dk.kswv_args(encj, desc, idx, u8)
+            Qmax, Tmax = args[8], args[9]
             got = kswv.launch(*args)
             work: list = []
             e0, e1 = ev(), ev()
@@ -462,18 +550,31 @@ def rescue_vs_plain(torch, fm, opt, batches) -> dict:
                       + int(desc["tlen"][idx].sum()))
             mem_ms = nbytes / HBM_BYTES_PER_S * 1e3
             cls = "u8" if u8 else "i16"
+            smax, gpb, smem = kswv.plan(len(idx), Qmax, u8)
+            inst = ptx.get((u8, smax), {})
+            old = ONE_THREAD_KSWV_MS.get((tag, cls))
             r["classes"][cls] = dict(
                 P=len(idx), Qmax=Qmax, Tmax=Tmax, cells=cells, rows=rows,
-                ms=k_ms, plain_ms=p_ms, bound_ms=max(ops_ms, mem_ms),
+                ms=k_ms, one_thread_ms=old, plain_ms=p_ms,
+                bound_ms=max(ops_ms, mem_ms),
                 bound_by="operations" if ops_ms >= mem_ms else "bytes",
-                err=err)
+                err=err, register_bucket=smax, groups_per_block=gpb,
+                shared_bytes=smem, registers=inst.get("registers"),
+                spill_bytes=inst.get("spill"), stack_bytes=inst.get("stack"))
+            place = (f"registers SMAX={smax}" if smax
+                     else f"shared memory {smem} B/block")
             log(f"  {tag} {cls}: P={len(idx)} Qmax={Qmax} Tmax={Tmax}, "
-                f"{cells} cells in {rows} rows: kernel {k_ms:.4f} ms, "
-                f"plain {p_ms:.1f} ms, bound {max(ops_ms, mem_ms):.5f} ms, "
-                f"identical")
+                f"{cells} cells in {rows} rows: kernel {k_ms:.4f} ms "
+                f"(one-thread design {old} ms), plain {p_ms:.1f} ms, bound "
+                f"{max(ops_ms, mem_ms):.5f} ms, identical; stripes in "
+                f"{place}, {gpb} groups/block, {inst.get('registers')} "
+                f"registers, {inst.get('spill')} B spilled, "
+                f"{inst.get('stack')} B stack frame")
         out[tag] = r
         log(f"  {tag}: {n} problems ({r['u8']} u8): DeviceKswv == native "
-            f"ksw_align; native ksw_align {host_s:.4f} s on the host")
+            f"ksw_align; native ksw_align {host_s:.4f} s on the host; kswv "
+            f"{sum(c['ms'] for c in r['classes'].values()) / 1e3:.4f} s "
+            f"on the card")
     return out
 
 
@@ -588,30 +689,40 @@ def drive_main(torch, card: str, tag: str, cli_args: list, fq1: str,
     problems, no plain version ran, every read took the device seeding
     route, at most MAX_OVERFLOW of them overflowed and no rescue SW missed
     its chunk's kswv batch.  The first chunk's rescue problems and read grid
-    are returned under "_capture" for phase 5c."""
+    are returned under "_capture" for phase 5c, and the arguments of its
+    bsw_extend launches under "_bsw" for phase 5a."""
     from bwamem2_tpu_torch import cli
     from bwamem2_tpu_torch.ops.backend import TorchBackend
+    from bwamem2_tpu_torch.ops.bsw_cuda import BswExtend
     from bwamem2_tpu_torch.utils.profiling import PROF
     K = kernels()
     rescues = []     # (read grid, descriptors, result is None) per batch
+    bsw_calls = []   # bsw_extend launch arguments, every chunk
     orig = TorchBackend.rescue_batch
+    orig_bsw = BswExtend.launch
 
     def spy(self, desc):
         res = orig(self, desc)
         rescues.append((self._bsw.encj, desc, res is None))
         return res
 
+    def bsw_spy(self, *args):
+        bsw_calls.append(args)
+        return orig_bsw(self, *args)
+
     for d in (PROF.t, PROF.n, PROF.c, PROF.ctot):
         d.clear()
     for k in K.values():
         k.reset()
     TorchBackend.rescue_batch = spy
+    BswExtend.launch = bsw_spy
     t0 = time.perf_counter()
     try:
         rc = cli.main(["mem", *cli_args])
         torch.cuda.synchronize()
     finally:
         TorchBackend.rescue_batch = orig
+        BswExtend.launch = orig_bsw
     wall = time.perf_counter() - t0
     launches = {n: k.launches for n, k in K.items()}
     plain = {n: k.plain_calls for n, k in K.items()}
@@ -665,7 +776,8 @@ def drive_main(torch, card: str, tag: str, cli_args: list, fq1: str,
                 reads_per_s=round(n_reads / wall, 1), launches=launches,
                 overflow_fused_read=overflow, rescue_problems=problems,
                 rescue_u8=n_u8, phases_s=phases,
-                _capture=rescues[0][:2])
+                _capture=rescues[0][:2],
+                _bsw=[a for a in bsw_calls if a[1] is rescues[0][0]])
 
 
 def goldens() -> None:
@@ -755,6 +867,8 @@ def main() -> None:
     launches = {n: run_a["launches"][n] + run_b["launches"][n]
                 for n in run_a["launches"]}
     cap_a, cap_b = run_a.pop("_capture"), run_b.pop("_capture")
+    bsw_b = run_b.pop("_bsw")
+    run_a.pop("_bsw")
 
     # the host-native oracle (one process per chunk) runs while the kernels
     # are held against their plain versions and the goldens run
@@ -771,6 +885,14 @@ def main() -> None:
         log(f"  all rungs identical; kernel {tot['ms']:.3f} ms, plain "
             f"{tot['plain_ms']:.1f} ms, bound {tot['bound_ms']:.4f} ms "
             f"({tot['cells']} cells) [{card}]")
+        log(f"[5a] bsw_extend vs plain on the main path's {len(bsw_b)} "
+            f"launches of run (b)'s first chunk [{card}]:")
+        bm = bsw_main_path(torch, bsw_b)
+        del bsw_b
+        log(f"  all identical; kernel {bm['ms']:.4f} ms over "
+            f"{bm['launches']} launches ({bm['pairs']} pairs, {bm['cells']} "
+            f"cells), plain {bm['plain_ms']:.1f} ms, bound "
+            f"{bm['bound_ms']:.5f} ms [{card}]")
         log(f"[5b] smem_collect / sa_resolve vs plain on {name} [{card}]:")
         sd = seeding_vs_plain(torch, fm, (
             ("sample", fq1, fq2, TASK_BASES, N_SEED),
@@ -811,17 +933,18 @@ def main() -> None:
     # largest batch the main path gave it; errors over every batch
     rb = rs["chunk (b)"]["classes"]
     ks_err = max(c["err"] for r in rs.values() for c in r["classes"].values())
+    # bsw_extend's time and bound: its launches on run (b)'s first chunk
     kern = [
         dict(name="bsw_extend", route="cuda",
              source="bwamem2_tpu_torch/csrc/bsw_extend.cu",
              replaces="bwamem2_tpu/ops/bsw_pallas.py:69",
              launches=launches["bsw_extend"], max_abs_err=tot["err"],
-             ms=round(tot["ms"], 4), plain_ms=round(tot["plain_ms"], 3),
-             bound_ms=round(tot["bound_ms"], 5),
-             bound_by=by(tot["ops_ms"], tot["mem_ms"]), library_ms=None,
+             ms=round(bm["ms"], 4), plain_ms=round(bm["plain_ms"], 3),
+             bound_ms=round(bm["bound_ms"], 5),
+             bound_by=by(bm["ops_ms"], bm["mem_ms"]), library_ms=None,
              library_note="no PyTorch call computes banded SW",
-             shape=f"sum over {len(Q_RUNGS) * len(T_RUNGS)} rungs (Q x T), "
-                   f"P={P_KERNEL} each"),
+             shape=f"sum over the {bm['launches']} launches of run (b)'s "
+                   f"first chunk, {bm['pairs']} pairs"),
         dict(name="smem_collect", route="cuda",
              source="bwamem2_tpu_torch/csrc/smem_collect.cu",
              replaces="bwamem2_tpu/ops/seedall.py:93",
@@ -869,6 +992,7 @@ def main() -> None:
     result = dict(kernels=kern, card=card, main_a=run_a, main_b=run_b,
                   launches=launches,
                   build_s={k: round(v, 1) for k, v in secs.items()},
+                  bsw_main=bm, bsw_rungs=tot,
                   seeding=sd, rescue=rs, gather=gt,
                   total_s=round(time.perf_counter() - t_start, 1))
     with open(os.path.join(WORK, "chip_smoke.json"), "w") as f:

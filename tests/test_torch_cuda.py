@@ -130,7 +130,8 @@ def test_row_gather_kernel_matches_ref_on_card(card):
 def test_kswv_kernel_matches_ref_on_card(card):
     """kswv, both precision classes (u8 on 2x150-like problems, i16 on
     qlen 250-512 with windows up to 2,048), against kswv_two_phase_ref on
-    the card, both phases."""
+    the card, both phases; then mixed-length batches through both classes
+    and both stripe placements."""
     fm = FMIndex.load(PREFIX)
     dfm = DeviceFMIndex.from_host(fm, card)
     opt = MemOptions().finalize()
@@ -151,6 +152,31 @@ def test_kswv_kernel_matches_ref_on_card(card):
         for g, x in zip(got, want):
             assert torch.equal(g, x)
         assert int((want[1][:, 0] > 0).sum()) > 0     # phase 1 ran
+    # mixed-length batches of a prime count of problems, so that P is no
+    # multiple of the groups per block: per class the short part alone
+    # (stripes in registers) and short and long together (shared memory),
+    # in DeviceKswv's launch order
+    dk = DeviceKswv(dfm, opt)
+    for u8, short, long_ in (
+            (True, dict(n=2203, qr=(20, 257), tr=(40, 900)),
+             dict(n=300, qr=(257, 400), tr=(300, 900))),
+            (False, dict(n=1103, qr=(40, 129), tr=(60, 1500)),
+             dict(n=200, qr=(129, 700), tr=(300, 1500)))):
+        enc, desc = rescue_batch(fm.ref_string, [
+            dict(seed=13, nmut=4, n_every=5, plant=7, u8=u8, **short),
+            dict(seed=17, nmut=9, n_every=5, plant=7, u8=u8, **long_)])
+        encj = torch.from_numpy(enc).to(card)
+        (_, idx), = dk.launch_order(desc)
+        for part, placement in ((idx[idx < short["n"]], "registers"),
+                                (idx, "shared")):
+            args = dk.kswv_args(encj, desc, part, u8)
+            smax, gpb, _ = kswv.plan(len(part), args[8], u8)
+            assert (smax > 0) == (placement == "registers")
+            assert gpb > 1 and len(part) % gpb
+            got = kswv(*args)
+            want = kswv_two_phase_ref(*args)
+            for g, x in zip(got, want):
+                assert torch.equal(g, x), (u8, placement)
 
 
 @pytest.mark.cuda

@@ -10,9 +10,14 @@ is integer):
   * DeviceKswv.align_batch on the CPU vs the port's native ksw_align per
     problem, both classes, also on problems longer than the JAX package's
     device caps (qlen > 512, tlen > 2048);
-  * the CUDA kernel's own per-problem body (csrc/kswv_dp.cuh) compiled as
-    host C++ — the exact code the card runs, minus the launch — vs the
-    plain version, both classes and the 2-bit packed genome;
+  * the CUDA kernel's own lane-group body (csrc/kswv_group.cuh) compiled
+    as host C++, each group an int[NL] lane vector stepped in lockstep —
+    the exact source the card runs, minus the launch and the warp
+    intrinsics — vs the plain version: both classes, every register bucket
+    and the shared-memory stripes, saturating lanes, rows that need several
+    lazy-F sweeps, qe decided by its tie rule (tie_windows) and the 2-bit
+    packed genome;
+  * DeviceKswv's length-sorted launch order against descriptor order;
   * the real rescue descriptors of the reads_r1/r2.fq chunk, from
     hostrt.rescue_pre_batch, through the port's and JAX's DeviceKswv.
 Inputs are made with numpy from fixed seeds.
@@ -69,6 +74,18 @@ WINDOWS = {
                 n_every=7, plant=5), 128, 608),
     "i16": (dict(seed=31, n=40, L=512, qr=(250, 513), tr=(300, 2049),
                  nmut=12, n_every=5, plant=11), 512, 2048),
+    # the kernel's other stripe buckets: the main path's 2x150 rescues
+    # (u8, slen <= 10), u8 queries to 256 columns, i16 ones to 128, and
+    # short queries (slen 1-3) whose F must cross many stripe boundaries
+    "main": (dict(seed=51, n=24, L=160, qr=(100, 161), tr=(150, 700),
+                  nmut=3, n_every=5, plant=7), 160, 700),
+    "long": (dict(seed=53, n=24, L=256, qr=(193, 257), tr=(200, 600),
+                  nmut=4, n_every=5, plant=7), 256, 600),
+    "short": (dict(seed=57, n=48, L=128, qr=(40, 129), tr=(60, 400),
+                   nmut=2, n_every=5, plant=5), 128, 400),
+    "tiny": (dict(seed=59, n=48, L=48, qr=(6, 48), tr=(20, 200), nmut=1,
+                  n_every=7, plant=3), 48, 200),
+    "ties": (None, 64, 160),        # tie_windows()
 }
 CASES = {   # name: (windows, u8 class, scoring)
     "u8_default": ("u8", True, DEFAULT),
@@ -78,13 +95,61 @@ CASES = {   # name: (windows, u8 class, scoring)
     "i16_O5_4_E2_1": ("i16", False, GAPS),
     "i16_B2": ("i16", False, B2),
     "u8_saturating": ("i16", True, DEFAULT),
+    "u8_main": ("main", True, DEFAULT),
+    "u8_long": ("long", True, B2),
+    "i16_short": ("short", False, GAPS),
+    "u8_short_gaps": ("tiny", True, GAPS),
+    "u8_ties": ("ties", True, DEFAULT),
+    "i16_ties": ("ties", False, DEFAULT),
 }
 
 
 @functools.lru_cache(maxsize=None)
 def windows(name):
-    """The windows of tests/test_device_kernels.py (same numpy draws)."""
+    """The windows of tests/test_device_kernels.py (same numpy draws), or
+    tie_windows()."""
+    if name == "ties":
+        return tie_windows()
     return rescue_windows(genome(), **WINDOWS[name][0])
+
+
+def tie_windows(n: int = 24, L: int = 64):
+    """Queries whose best row reaches its maximum at several columns, so
+    the qe tie rule (least column) decides qe: homopolymers (20-63 bases)
+    against windows around the genome's longest single-base runs (ties in
+    neighbouring columns, within one lane's), and a genome slice X of
+    20-31 bases doubled, X+X, against a window holding X (ties a slice
+    apart, in two lanes; these score over minsc, so phase 1 runs).  Every
+    other problem is reverse-complemented."""
+    g = genome()[:len(genome()) // 2]
+    starts = np.r_[0, np.flatnonzero(np.diff(g) != 0) + 1]
+    lens = np.diff(np.r_[starts, len(g)]) * (g[starts] < 4)
+    top = np.argsort(-lens, kind="stable")[:8]
+    rng = np.random.default_rng(71)
+    enc = np.full((n, L), 4, np.int8)
+    qoff, qdir, qlen, tlen = (np.zeros(n, np.int32) for _ in range(4))
+    qcomp = np.zeros(n, bool)
+    toff = np.zeros(n, np.int64)
+    for i in range(n):
+        if i % 4 < 2:
+            r = top[i // 4 % len(top)]
+            q = np.full(int(rng.integers(20, L)), g[starts[r]], np.int8)
+            t0, tl = starts[r] - int(rng.integers(0, 40)), int(lens[r])
+        else:
+            x = int(rng.integers(20, L // 2))
+            t0 = int(rng.integers(1000, len(g) - 1000))
+            q = np.tile(g[t0:t0 + x].astype(np.int8), 2)
+            tl = x
+            t0 -= int(rng.integers(0, 40))
+        rev = i % 2 == 1
+        enc[i, :len(q)] = (3 - q)[::-1] if rev else q
+        qoff[i] = i * L + (len(q) - 1 if rev else 0)
+        qdir[i] = -1 if rev else 1
+        qcomp[i] = rev
+        qlen[i] = len(q)
+        toff[i] = t0
+        tlen[i] = min(tl + 40 + int(rng.integers(10, 60)), 160)
+    return enc, qoff, qdir, qcomp, qlen, toff, tlen
 
 
 @functools.lru_cache(maxsize=None)
@@ -150,45 +215,84 @@ def test_device_kswv_matches_native():
                                                       opt))
 
 
+def test_device_kswv_launch_order_keeps_output():
+    """align_batch launches each class longest first, by descending (tlen,
+    qlen); its output equals the plain version run on each class in
+    descriptor order, and the native ksw_align."""
+    enc, desc = rescue_batch(genome(), [
+        dict(seed=61, n=24, qr=(60, 152), tr=(100, 700), nmut=3, n_every=5,
+             plant=7, u8=True),
+        dict(seed=67, n=8, qr=(250, 300), tr=(300, 600), nmut=8, n_every=3,
+             plant=7, u8=False)])
+    opt = MemOptions().finalize()
+    dk = DeviceKswv(DeviceFMIndex.from_genome(genome(), "cpu"), opt)
+    encj = torch.from_numpy(enc)
+    order = dk.launch_order(desc)
+    assert [u8 for u8, _ in order] == [True, False]
+    for u8, idx in order:
+        assert (desc["u8"][idx] == u8).all()
+        assert sorted(idx) == list(np.nonzero(desc["u8"] == u8)[0])
+        key = list(zip(desc["tlen"][idx], desc["qlen"][idx]))
+        assert key == sorted(key, reverse=True)
+        assert (np.diff(idx) < 0).any()         # really reordered
+    got = dk.align_batch(encj, desc)
+    want = np.zeros_like(got)
+    for u8 in (True, False):
+        idx = np.nonzero(desc["u8"] == u8)[0]
+        r0, r1 = kswv_two_phase_ref(*dk.kswv_args(encj, desc, idx, u8))
+        want[idx] = dk._finish(r0.numpy(), r1.numpy())
+    np.testing.assert_array_equal(got, want)
+    np.testing.assert_array_equal(got, ksw_align_desc(enc, genome(), desc,
+                                                      opt))
+
+
 @pytest.fixture(scope="module")
 def host_dp(tmp_path_factory):
-    """csrc/kswv_dp.cuh built as host C++ with a per-problem loop in place
-    of the CUDA launch (same scratch layout and strides)."""
-    d = tmp_path_factory.mktemp("kswv_dp")
+    """csrc/kswv_group.cuh built as host C++: its lane groups are int[NL]
+    lane vectors stepped in lockstep, and a per-problem loop stands in for
+    the CUDA launch.  kswv_host picks the stripes as the launch does
+    (kswv_bucket: registers or pointer stripes), or pointer stripes when
+    force_ptr is set, and reports the bucket and the most lazy-F sweeps any
+    row ran."""
+    d = tmp_path_factory.mktemp("kswv_group")
     shim = d / "shim.cpp"
     shim.write_text(r'''
+#include <vector>
 #define BSW_HD static inline
-#include "kswv_dp.cuh"
+static int kswv_sweeps_max;
+#define KSWV_SWEEP_HOOK(k) \
+  (kswv_sweeps_max = (k) > kswv_sweeps_max ? (k) : kswv_sweeps_max)
+#include "kswv_group.cuh"
+template <bool U8, int SMAX> static void run_all(const KswvBatch &b) {
+  std::vector<int16_t> stripes(kswv_group_bytes(b.Qmax) / 2);
+  const KswvGroup<U8 ? 16 : 8> g;
+  for (int p = 0; p < b.P; ++p) kswv_run<U8, SMAX>(g, b, p, stripes.data());
+}
 extern "C" void kswv_host(const int8_t *enc, int64_t n_enc, const uint8_t *ref,
     int64_t n_ref, int packed, const int *qoff, const int *qdir,
     const uint8_t *qcomp, const int *qlen, const int64_t *toff,
-    const int *tlen, int P, int Qmax, int Tmax, int u8, int minsc,
-    const int *sc, int *scratch, int16_t *rowmax, int *out) {
-  const KswvParams sp{sc[0], sc[1], sc[2], sc[3], sc[4], sc[5]};
-  const int64_t plane = (int64_t)Qmax * P;
-  for (int p = 0; p < P; ++p) {
-    KswvScratch s{scratch + p, scratch + plane + p, scratch + 2 * plane + p,
-                  scratch + 3 * plane + p, rowmax + p, P};
-    int *o0 = out + 6 * p, *o1 = out + 6 * ((int64_t)P + p);
-    if (u8)
-      kswv_problem<16, true>(enc, n_enc, ref, n_ref, packed, qoff[p],
-          qdir[p], qcomp[p], qlen[p], toff[p], tlen[p], minsc, sp, Qmax,
-          Tmax, s, o0, o1);
-    else
-      kswv_problem<8, false>(enc, n_enc, ref, n_ref, packed, qoff[p],
-          qdir[p], qcomp[p], qlen[p], toff[p], tlen[p], minsc, sp, Qmax,
-          Tmax, s, o0, o1);
-  }
+    const int *tlen, int P, int Qmax, int Tmax, int Tpad, int u8, int minsc,
+    const int *sc, int force_ptr, int16_t *rowmax, int *out, int *info) {
+  const KswvBatch b{enc, n_enc, ref, n_ref, packed, qoff, qdir, qcomp, qlen,
+                    toff, tlen, P, Qmax, Tmax, Tpad, minsc,
+                    {sc[0], sc[1], sc[2], sc[3], sc[4], sc[5]}, rowmax, out};
+  const int smax = force_ptr ? 0 : kswv_bucket(u8, Qmax);
+  kswv_sweeps_max = 0;
+#define KSWV_HOST_CASE(U, S) if (!!u8 == U && smax == S) run_all<U, S>(b);
+  KSWV_BUCKETS(KSWV_HOST_CASE)
+  info[0] = smax;
+  info[1] = kswv_sweeps_max;
 }
 ''')
-    so = d / "kswv_dp.so"
+    so = d / "kswv_group.so"
     subprocess.run(["g++", "-O2", "-std=c++17", "-shared", "-fPIC",
                     "-I", CSRC, str(shim), "-o", str(so)],
                    check=True, capture_output=True)
     return ctypes.CDLL(str(so))
 
 
-def run_host_dp(lib, case, packed=False):
+def run_host_dp(lib, case, packed=False, force_ptr=False):
+    """(out int32[2, P, 6], stripe bucket, most lazy-F sweeps in a row)."""
     win, u8, sc = CASES[case]
     _, Qmax, Tmax = WINDOWS[win]
     enc, qoff, qdir, qcomp, qlen, toff, tlen = windows(win)
@@ -197,31 +301,59 @@ def run_host_dp(lib, case, packed=False):
     keep = [np.ascontiguousarray(x) for x in (
         enc, ref, qoff, qdir, qcomp.astype(np.uint8), qlen, toff, tlen,
         np.array(sc, np.int32))]
-    scratch = np.zeros(4 * Qmax * P, np.int32)
-    rowmax = np.zeros(Tmax * P, np.int16)
+    Tpad = -(-Tmax // 8) * 8
+    rowmax = np.zeros(Tpad * P, np.int16)
     out = np.zeros((2, P, 6), np.int32)
+    info = np.zeros(2, np.int32)
     ptr = lambda x: ctypes.c_void_p(x.ctypes.data)  # noqa: E731
     e, r, *rest, scv = keep
     lib.kswv_host(ptr(e), ctypes.c_int64(e.size), ptr(r),
                   ctypes.c_int64(r.size), ctypes.c_int(int(packed)),
                   *[ptr(x) for x in rest], ctypes.c_int(P),
-                  ctypes.c_int(Qmax), ctypes.c_int(Tmax), ctypes.c_int(u8),
-                  ctypes.c_int(MIN_SEED_LEN * sc[0]), ptr(scv),
-                  ptr(scratch), ptr(rowmax), ptr(out))
-    return out
+                  ctypes.c_int(Qmax), ctypes.c_int(Tmax), ctypes.c_int(Tpad),
+                  ctypes.c_int(u8), ctypes.c_int(MIN_SEED_LEN * sc[0]),
+                  ptr(scv), ctypes.c_int(int(force_ptr)), ptr(rowmax),
+                  ptr(out), ptr(info))
+    return out, int(info[0]), int(info[1])
 
 
-@pytest.mark.parametrize("case,packed", [
-    ("u8_default", False), ("i16_default", False), ("u8_saturating", False),
-    ("u8_default", True),
-], ids=["u8", "i16", "u8_saturating", "u8_packed_ref"])
-def test_cuda_dp_source_matches_ref(host_dp, case, packed):
-    got = run_host_dp(host_dp, case, packed)
+# (case, packed genome, force pointer stripes, expected stripe bucket)
+HOST_DP = {
+    "u8": ("u8_default", False, False, 8),
+    "i16": ("i16_default", False, False, 0),
+    "u8_saturating": ("u8_saturating", False, False, 0),
+    "u8_packed_ref": ("u8_default", True, False, 8),
+    "u8_main_shape": ("u8_main", False, False, 12),
+    "u8_bucket16": ("u8_long", False, False, 16),
+    "u8_shared": ("u8_long", False, True, 0),
+    "i16_registers": ("i16_short", False, False, 16),
+    "i16_shared": ("i16_short", False, True, 0),
+    "u8_lazy_f_sweeps": ("u8_short_gaps", False, False, 8),
+    "u8_lazy_f_sweeps_shared": ("u8_short_gaps", False, True, 0),
+    "u8_qe_ties": ("u8_ties", False, False, 8),
+    "i16_qe_ties": ("i16_ties", False, False, 16),
+    "i16_qe_ties_shared": ("i16_ties", False, True, 0),
+}
+
+
+@pytest.mark.parametrize("name", list(HOST_DP))
+def test_cuda_dp_source_matches_ref(host_dp, name):
+    """The kernel's group source, built with g++, equals the plain version
+    array for array: u8 and i16, registers and pointer stripes (the
+    launch's own choice, and pointer stripes forced), saturating u8 lanes,
+    the packed genome, rows that need several lazy-F sweeps and qe decided
+    by the tie rule."""
+    case, packed, force_ptr, bucket = HOST_DP[name]
+    got, smax, sweeps = run_host_dp(host_dp, case, packed, force_ptr)
+    assert smax == bucket
     want = plain(case, packed)
     np.testing.assert_array_equal(got[0], want[0])
     np.testing.assert_array_equal(got[1], want[1])
     if packed:      # the packed genome changes nothing
         np.testing.assert_array_equal(got[0], plain(case)[0])
+    if case == "u8_short_gaps":     # F crossed several stripe boundaries
+        assert sweeps >= 3
+    assert 1 <= sweeps <= 16
 
 
 def test_wrapper_dispatch():
