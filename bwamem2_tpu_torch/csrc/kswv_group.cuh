@@ -61,7 +61,7 @@
 
 #include <limits.h>
 
-#include "bsw_extend_dp.cuh"
+#include "bsw_common.cuh"
 
 #ifdef __CUDACC__
 #define KSWV_D __device__ __forceinline__

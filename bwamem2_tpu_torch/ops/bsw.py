@@ -16,9 +16,9 @@ the scalar kernel, the JAX kernels and the CUDA kernel (tested).
 
 `DeviceBSW.run_arrays` is the dispatch the native extension stage calls
 (hostrt.extension_batch): pairs split over the fixed (Q, T) shape ladder,
-every rung group goes to `bsw_cuda.bsw_extend` — the CUDA kernel for a
-read grid on the GPU, this reference for one on the CPU — and all groups
-are enqueued before one fetch.
+every rung group goes, longest pairs first, to `bsw_cuda.bsw_extend` — the
+CUDA kernel for a read grid on the GPU, this reference for one on the CPU
+— and all groups are enqueued before one fetch.
 """
 
 from __future__ import annotations
@@ -245,6 +245,18 @@ class DeviceBSW:
                 pos += r.shape[0]
         return out
 
+    @staticmethod
+    def launch_order(qls: np.ndarray, tls: np.ndarray) -> list:
+        """The rung groups of t_classes, each as (longest query, T, pair
+        indices by descending (tlen, qlen), ties in descriptor order): the
+        order the kernel runs them in, so that the lane groups of a warp
+        and neighbouring warps run rows of similar count."""
+        out = []
+        for _, T, idxs in t_classes(qls, tls, np.arange(len(qls))):
+            idxs = idxs[np.lexsort((-qls[idxs], -tls[idxs]))]
+            out.append((int(qls[idxs].max()), T, idxs))
+        return out
+
     def _enqueue_arrays(self, desc: dict, w: int, opt, end_bonus: int):
         from .bsw_cuda import bsw_extend
         encj = self.encj
@@ -256,7 +268,8 @@ class DeviceBSW:
         tls = desc["tlen"]
         qoff_flat = desc["seqid"].astype(np.int64) * L + desc["qoff"]
         flights = []   # all rung groups enqueued before ONE fetch
-        for Q, T, idxs in t_classes(qls, tls, np.arange(n)):
+        # Q, the group's longest query, sizes the kernel's lanes
+        for Q, T, idxs in self.launch_order(qls, tls):
             def put(a, dt):
                 return torch.from_numpy(
                     np.ascontiguousarray(a[idxs], dt)).to(dev)

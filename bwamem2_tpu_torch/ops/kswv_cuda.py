@@ -29,7 +29,7 @@ class Kswv(CudaKernel):
     kswv_two_phase_ref for the arguments)."""
 
     NAME = "kswv"
-    SOURCES = ("kswv.cu", "kswv_group.cuh", "bsw_extend_dp.cuh")
+    SOURCES = ("kswv.cu", "kswv_group.cuh", "bsw_common.cuh")
     SIGNATURE = ("kswv_launch",
                  [VP, I64, VP, I64, I32] + [VP] * 6 + [I32] * 12
                  + [VP] * 3)

@@ -11,8 +11,9 @@ Phases, each of which fails the run (non-zero exit, no result line):
   2. build: the five CUDA kernels (one nvcc per csrc/*.cu: bsw_extend,
      smem_collect, sa_resolve, kswv, row_gather) and the native host
      runtime (g++) from the checkout's sources, all started together; the
-     registers and spills of each kswv instantiation (u8/i16 x register
-     bucket or shared-memory stripes);
+     registers, spills and stack frame of each bsw_extend instantiation
+     (lanes x columns per lane) and each kswv instantiation (u8/i16 x
+     register bucket or shared-memory stripes);
   3. data: a synthetic 11.7 Mbp genome (scale 0.25 of the chr21 class, the
      size of a yeast genome) with repeat families and N runs, its index and
      10,000 2x150 bp pairs, made once from fixed seeds under .tmp/;
@@ -31,8 +32,11 @@ Phases, each of which fails the run (non-zero exit, no result line):
      a. bsw_extend against bsw_desc_ref at every production rung (Q in
         127/255/383 x T in 96..608) with P = 4096 real-length descriptors,
         then on the main path's own launches of run (b)'s first chunk
-        (captured as the pipeline makes them; their summed time and bound
-        are the kernel's line);
+        (captured as the pipeline makes them, longest pairs first; their
+        summed time and bound are the kernel's line), each launch with its
+        (lanes, columns) bucket, groups per block and the instantiation's
+        ptxas numbers, and the earlier one-thread design's times beside
+        the kernel's;
      b. the smem_collect and sa_resolve wrappers against smem_collect_ref
         and sa_resolve_ref on 2,048 reads of the smoke FASTQ and on the
         first chunk of each main-path run (15,000 and 66,668 reads), with
@@ -85,12 +89,20 @@ DEFAULT_TASK_BASES = 10_000_000   # options.chunk_size x 1 thread
 P_KERNEL = 4096
 Q_RUNGS = (127, 255, 383)
 T_RUNGS = (96, 160, 224, 320, 448, 608)
-# bound model (csrc/bsw_extend.cu header): int32 ops per band cell, the
-# card's INT32 issue rate and memory rate (H100 SXM data sheet, 700 W)
-OPS_PER_CELL = 24
+# bound model (csrc/bsw_extend.cu header): the least int32 operations per
+# band cell, the card's INT32 issue rate and memory rate (H100 SXM data
+# sheet, 700 W); OPS_PER_CELL_24 is the earlier model's unfused mix,
+# printed beside the bound so that the one-thread design's figures
+# stay comparable
+OPS_PER_CELL = 10
+OPS_PER_CELL_24 = 24
 INT32_OPS_PER_S = 132 * 64 * 1.98e9
 HBM_BYTES_PER_S = 3.35e12
 DESC_BYTES, OUT_BYTES = 36, 24
+# bsw_extend times (ms) of the earlier one-thread-per-pair design (H/E in
+# global scratch), measured by this script's phase 5a on an NVIDIA H100
+# 80GB HBM3 at 700.00 W, printed beside the lane-group kernel's times
+ONE_THREAD_BSW_MS = {"main path": 297.656, "synthetic rungs": 112.755}
 # kswv bound model (csrc/kswv.cu header): the least int32 operations per
 # striped cell of the main pass, by class, and per cell of the one lazy-F
 # segment every row runs at least; the bytes of a problem's descriptors in
@@ -164,16 +176,17 @@ def ptxas_table(text: str) -> dict:
     return out
 
 
-def kswv_instances(text: str) -> dict:
-    """{(u8, register bucket): ptxas numbers} of the kswv kernel's
-    instantiations (kswv_kernel<U8, SMAX>; bucket 0 = shared-memory
-    stripes)."""
+def instances(text: str, kernel: str) -> dict:
+    """{template arguments: ptxas numbers} of a kernel's instantiations:
+    (G, C) of bsw_extend_kernel<G, C>, (u8, SMAX) of kswv_kernel<U8, SMAX>
+    (SMAX 0 = shared-memory stripes)."""
     import re
     out = {}
     for name, v in ptxas_table(text).items():
-        m = re.search(r"kswv_kernelILb([01])ELi(\d+)E", name)
+        m = re.search(kernel + r"_kernelIL([ib])(\d+)EL([ib])(\d+)E", name)
         if m:
-            out[(m[1] == "1", int(m[2]))] = v
+            out[tuple(int(m[k + 1]) == 1 if m[k] == "b" else int(m[k + 1])
+                      for k in (1, 3))] = v
     return out
 
 
@@ -201,9 +214,16 @@ def build_all() -> dict:
     if errs:
         fail("build failed:\n" + "\n".join(errs))
     for name, k in kernels().items():
+        inst = sorted(instances(k.build_log, name).items())
         if name == "kswv":       # one line per instantiation
-            for (u8, smax), v in sorted(kswv_instances(k.build_log).items()):
+            for (u8, smax), v in inst:
                 log(f"  ptxas kswv<{'u8' if u8 else 'i16'}, SMAX={smax}>: "
+                    f"{v.get('registers')} registers, {v.get('spill')} B "
+                    f"spilled, {v.get('stack')} B stack frame")
+            continue
+        if name == "bsw_extend":
+            for (G, C), v in inst:
+                log(f"  ptxas bsw_extend<G={G}, C={C}>: "
                     f"{v.get('registers')} registers, {v.get('spill')} B "
                     f"spilled, {v.get('stack')} B stack frame")
             continue
@@ -253,10 +273,12 @@ def kernel_vs_plain(torch, fm, opt) -> dict:
     dfm = DeviceFMIndex.from_host(fm, "cuda")
     sc = (opt.a, opt.b, opt.o_del, opt.e_del, opt.o_ins, opt.e_ins,
           opt.zdrop, opt.pen_clip5, max(opt.a, 1))
-    tot = dict(ms=0.0, plain_ms=0.0, bound_ms=0.0, ops_ms=0.0, mem_ms=0.0,
-               cells=0, err=0, mismatches=0)
+    tot = dict(ms=0.0, plain_ms=0.0, bound_ms=0.0, bound24_ms=0.0,
+               ops_ms=0.0, mem_ms=0.0, cells=0, err=0, mismatches=0,
+               one_thread_ms=ONE_THREAD_BSW_MS["synthetic rungs"])
     log(f"  {'Q':>4} {'T':>4} {'cells':>11} {'kernel_ms':>10} "
-        f"{'plain_ms':>10} {'bound_ms':>9} {'bound_by':>10} mismatch")
+        f"{'plain_ms':>10} {'bound_ms':>9} {'bound_by':>10} mismatch "
+        f"bucket")
     ev = lambda: torch.cuda.Event(enable_timing=True)
     for Q in Q_RUNGS:
         for T in T_RUNGS:
@@ -293,12 +315,17 @@ def kernel_vs_plain(torch, fm, opt) -> dict:
             ops_ms = cells[0] * OPS_PER_CELL / INT32_OPS_PER_S * 1e3
             mem_ms = nbytes / HBM_BYTES_PER_S * 1e3
             b_ms = max(ops_ms, mem_ms)
+            b24_ms = max(cells[0] * OPS_PER_CELL_24 / INT32_OPS_PER_S * 1e3,
+                         mem_ms)
             by = "operations" if ops_ms >= mem_ms else "bytes"
+            G, C, gpb = bsw_extend.plan(P_KERNEL, Q)
             log(f"  {Q:>4} {T:>4} {cells[0]:>11} {k_ms:>10.4f} "
-                f"{p_ms:>10.3f} {b_ms:>9.5f} {by:>10} {bad}")
+                f"{p_ms:>10.3f} {b_ms:>9.5f} {by:>10} {bad:>8} "
+                f"{G}x{C}, {gpb} groups/block")
             tot["ms"] += k_ms
             tot["plain_ms"] += p_ms
             tot["bound_ms"] += b_ms
+            tot["bound24_ms"] += b24_ms
             tot["ops_ms"] += ops_ms
             tot["mem_ms"] += mem_ms
             tot["cells"] += cells[0]
@@ -312,16 +339,21 @@ def kernel_vs_plain(torch, fm, opt) -> dict:
 
 def bsw_main_path(torch, calls) -> dict:
     """bsw_extend on the main path's own launches (the arguments the
-    pipeline gave it on one chunk, one launch per rung group), each against
-    bsw_desc_ref (exact) and timed with CUDA events; sums over the
-    launches."""
+    pipeline gave it on one chunk, one launch per rung group, longest pairs
+    first), each against bsw_desc_ref (exact) and timed with CUDA events,
+    with its bucket, groups per block and the instantiation's ptxas
+    numbers; sums over the launches."""
     from bwamem2_tpu_torch.ops.bsw import bsw_desc_ref
     from bwamem2_tpu_torch.ops.bsw_cuda import bsw_extend
     tot = dict(launches=len(calls), pairs=0, ms=0.0, plain_ms=0.0,
-               bound_ms=0.0, ops_ms=0.0, mem_ms=0.0, cells=0, err=0)
+               bound_ms=0.0, bound24_ms=0.0, ops_ms=0.0, mem_ms=0.0, cells=0,
+               err=0, one_thread_ms=ONE_THREAD_BSW_MS["main path"],
+               per_launch=[])
+    ptx = instances(bsw_extend.build_log, "bsw_extend")
     ev = lambda: torch.cuda.Event(enable_timing=True)  # noqa: E731
-    log(f"  {'Q':>4} {'T':>4} {'pairs':>7} {'cells':>11} {'kernel_ms':>10} "
-        f"{'plain_ms':>10} {'bound_ms':>9}")
+    log(f"  {'Qmax':>4} {'T':>4} {'pairs':>7} {'cells':>11} "
+        f"{'kernel_ms':>10} {'plain_ms':>10} {'bound_ms':>9} "
+        f"{'24-op_ms':>9} launch")
     for args in calls:
         got = bsw_extend.launch(*args)
         cells: list = []
@@ -341,10 +373,24 @@ def bsw_main_path(torch, calls) -> dict:
                   + int(args[7].sum()))
         ops_ms = cells[0] * OPS_PER_CELL / INT32_OPS_PER_S * 1e3
         mem_ms = nbytes / HBM_BYTES_PER_S * 1e3
+        b24_ms = max(cells[0] * OPS_PER_CELL_24 / INT32_OPS_PER_S * 1e3,
+                     mem_ms)
+        G, C, gpb = bsw_extend.plan(P, args[10])
+        inst = ptx.get((G, C), {})
+        tot["per_launch"].append(dict(
+            Qmax=args[10], T=args[11], P=P, cells=cells[0], ms=k_ms,
+            plain_ms=p_ms, bound_ms=max(ops_ms, mem_ms), bound24_ms=b24_ms,
+            G=G, C=C,
+            groups_per_block=gpb, registers=inst.get("registers"),
+            spill_bytes=inst.get("spill"), stack_bytes=inst.get("stack")))
         log(f"  {args[10]:>4} {args[11]:>4} {P:>7} {cells[0]:>11} "
-            f"{k_ms:>10.4f} {p_ms:>10.3f} {max(ops_ms, mem_ms):>9.5f}")
+            f"{k_ms:>10.4f} {p_ms:>10.3f} {max(ops_ms, mem_ms):>9.5f} "
+            f"{b24_ms:>9.5f} {G}x{C}, {gpb} groups/block, {inst.get('registers')} "
+            f"registers, {inst.get('spill')} B spilled, "
+            f"{inst.get('stack')} B stack frame")
         for key, v in (("pairs", P), ("ms", k_ms), ("plain_ms", p_ms),
-                       ("bound_ms", max(ops_ms, mem_ms)), ("ops_ms", ops_ms),
+                       ("bound_ms", max(ops_ms, mem_ms)),
+                       ("bound24_ms", b24_ms), ("ops_ms", ops_ms),
                        ("mem_ms", mem_ms), ("cells", cells[0])):
             tot[key] += v
     return tot
@@ -506,7 +552,7 @@ def rescue_vs_plain(torch, fm, opt, batches) -> dict:
     from bwamem2_tpu_torch.ops.kswv_cuda import kswv
     dfm = DeviceFMIndex.from_genome(fm.ref_string, "cuda")
     dk = DeviceKswv(dfm, opt)
-    ptx = kswv_instances(kswv.build_log)
+    ptx = instances(kswv.build_log, "kswv")
     ev = lambda: torch.cuda.Event(enable_timing=True)  # noqa: E731
     out = {}
     for tag, encj, desc in batches:
@@ -882,17 +928,21 @@ def main() -> None:
                 for i in range(chunks)]
         log(f"[5a] bsw_extend vs plain on {name}, P={P_KERNEL} per rung:")
         tot = kernel_vs_plain(torch, fm, opt)
-        log(f"  all rungs identical; kernel {tot['ms']:.3f} ms, plain "
+        log(f"  all rungs identical; kernel {tot['ms']:.3f} ms (one-thread "
+            f"design {ONE_THREAD_BSW_MS['synthetic rungs']} ms), plain "
             f"{tot['plain_ms']:.1f} ms, bound {tot['bound_ms']:.4f} ms "
-            f"({tot['cells']} cells) [{card}]")
+            f"({OPS_PER_CELL_24}-op model {tot['bound24_ms']:.4f} ms; "
+            f"{tot['cells']} cells) [{card}]")
         log(f"[5a] bsw_extend vs plain on the main path's {len(bsw_b)} "
             f"launches of run (b)'s first chunk [{card}]:")
         bm = bsw_main_path(torch, bsw_b)
         del bsw_b
         log(f"  all identical; kernel {bm['ms']:.4f} ms over "
             f"{bm['launches']} launches ({bm['pairs']} pairs, {bm['cells']} "
-            f"cells), plain {bm['plain_ms']:.1f} ms, bound "
-            f"{bm['bound_ms']:.5f} ms [{card}]")
+            f"cells; one-thread design {ONE_THREAD_BSW_MS['main path']} "
+            f"ms), plain {bm['plain_ms']:.1f} ms, bound "
+            f"{bm['bound_ms']:.5f} ms ({OPS_PER_CELL_24}-op model "
+            f"{bm['bound24_ms']:.5f} ms) [{card}]")
         log(f"[5b] smem_collect / sa_resolve vs plain on {name} [{card}]:")
         sd = seeding_vs_plain(torch, fm, (
             ("sample", fq1, fq2, TASK_BASES, N_SEED),

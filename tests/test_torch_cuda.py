@@ -1,5 +1,5 @@
-"""The port's seeding, rescue and gather kernels against their plain
-versions on the card (marker `cuda`; they skip without a GPU).
+"""The port's seeding, extension, rescue and gather kernels against their
+plain versions on the card (marker `cuda`; they skip without a GPU).
 
 This file imports only the port, numpy and torch — no JAX — so that it
 runs on a machine with a GPU and no JAX:
@@ -7,8 +7,8 @@ runs on a machine with a GPU and no JAX:
     pytest -m cuda tests/test_torch_cuda.py
 
 The plain versions are held against the JAX package on the CPU by
-tests/test_torch_seed.py, tests/test_torch_kswv.py and
-tests/test_torch_gather.py; chip_smoke.py
+tests/test_torch_seed.py, tests/test_torch_bsw.py, tests/test_torch_kswv.py
+and tests/test_torch_gather.py; chip_smoke.py
 repeats these checks at the main path's sizes.  Tolerance 0 (integer).
 """
 
@@ -25,6 +25,8 @@ from bwamem2_tpu_torch.io.fastq import FastxReader, read_chunk
 from bwamem2_tpu_torch.native import ksw_align_desc
 from bwamem2_tpu_torch.ops import seed as tseed
 from bwamem2_tpu_torch.ops.backend import _pad_reads
+from bwamem2_tpu_torch.ops.bsw import bsw_desc_ref
+from bwamem2_tpu_torch.ops.bsw_cuda import bsw_extend
 from bwamem2_tpu_torch.ops.device_index import DeviceFMIndex
 from bwamem2_tpu_torch.ops.kswv import DeviceKswv, kswv_two_phase_ref
 from bwamem2_tpu_torch.ops.kswv_cuda import kswv
@@ -200,3 +202,56 @@ def test_device_kswv_long_problems_on_card(card):
     np.testing.assert_array_equal(got, ksw_align_desc(enc, fm.ref_string,
                                                       desc, opt))
     assert (got[:, 6] >= 0).sum() > 0                 # some were rescued
+
+
+def extension_batch(genome: np.ndarray, seed: int, P: int, Qmax: int,
+                    Tmax: int):
+    """P extension descriptors of mixed lengths (qlen 1..Qmax, one pair at
+    Qmax; tlen 1..Tmax) over 2%-mutated genome slices in an int8[P, Qmax+8]
+    read grid: half walk right, half left, 1 in 8 against an unrelated
+    target; h0 in [19, 100), w in {20, 50, 100}."""
+    rng = np.random.default_rng(seed)
+    L, n = Qmax + 8, len(genome)
+    qlen = rng.integers(1, Qmax + 1, P).astype(np.int32)
+    qlen[P // 2] = Qmax
+    tlen = rng.integers(1, Tmax + 1, P).astype(np.int32)
+    s = rng.integers(Tmax + 8, n - L - Tmax - 8, P).astype(np.int64)
+    enc = genome[s[:, None] + np.arange(L)[None, :]].astype(np.int8)
+    mut = rng.random((P, L)) < 0.02
+    enc[mut] = rng.integers(0, 4, int(mut.sum()))
+    left = rng.random(P) < 0.5
+    toff = np.where(left, s + qlen - 1, s)
+    far = rng.random(P) < 0.125
+    toff[far] = rng.integers(Tmax, n - Tmax, int(far.sum()))
+    qoff = np.arange(P) * L + np.where(left, qlen - 1, 0)
+    d = np.where(left, -1, 1).astype(np.int32)
+    h0 = rng.integers(19, 100, P).astype(np.int32)
+    w = rng.choice([20, 50, 100], P).astype(np.int32)
+    return enc, qoff.astype(np.int32), d, qlen, toff, d, tlen, h0, w
+
+
+@pytest.mark.cuda
+def test_bsw_extend_buckets_on_card(card):
+    """bsw_extend against bsw_desc_ref on the card, one launch per call, on
+    mixed-length batches of a prime number of pairs whose longest query
+    picks each (lanes, columns) bucket in turn: a prime P is no multiple
+    of the groups per block, and the pairs arrive unsorted."""
+    fm = FMIndex.load(PREFIX)
+    dfm = DeviceFMIndex.from_host(fm, card)
+    opt = MemOptions().finalize()
+    sc = (opt.a, opt.b, opt.o_del, opt.e_del, opt.o_ins, opt.e_ins,
+          opt.zdrop, opt.pen_clip5, max(opt.a, 1), dfm.ref_packed)
+    for Qmax, P, bucket in ((31, 2203, (8, 4)), (63, 3001, (8, 8)),
+                            (95, 2003, (16, 6)), (127, 2203, (16, 8)),
+                            (159, 2003, (32, 5)), (191, 1201, (32, 6)),
+                            (255, 3001, (32, 8)), (319, 1301, (32, 10)),
+                            (383, 1201, (32, 12))):
+        x = extension_batch(fm.ref_string, Qmax, P, Qmax, 608)
+        t = [torch.from_numpy(np.ascontiguousarray(a)).to(card) for a in x]
+        assert bsw_extend.plan(P, Qmax)[:2] == bucket
+        n = bsw_extend.launches
+        got = bsw_extend(dfm.ref, *t, Qmax, 608, *sc)
+        torch.cuda.synchronize()
+        assert bsw_extend.launches == n + 1
+        want = bsw_desc_ref(dfm.ref, *t, Qmax, 608, *sc)
+        assert torch.equal(got, want), Qmax
