@@ -202,6 +202,10 @@ def batch_rescue_pre(fm: FMIndex, opt, pes, regs_per_read, encs,
     sequential skip rules in matesw only grow as rescued hits are inserted,
     so problems skipped at runtime simply leave their batch result unused.
 
+    A mate longer than the read grid's width L (ops/backend.py:
+    grid_read_cap) has no grid row to read its query from; its problems
+    stay out of the batch.
+
     Returns (descriptor dict for TorchBackend.rescue_batch, which scores
     it with ops/kswv.py:DeviceKswv.align_batch, keys)."""
     l_pac = fm.l_pac
@@ -218,6 +222,8 @@ def batch_rescue_pre(fm: FMIndex, opt, pes, regs_per_read, encs,
         for i in range(2):
             mate_row = (p << 1) | (not i)
             l_ms = len(encs[mate_row])
+            if l_ms > L:    # not on the read grid: matesw rescues on the host
+                continue
             for j, breg in enumerate(b[i]):
                 if j >= opt.max_matesw:
                     break

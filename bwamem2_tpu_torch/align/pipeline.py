@@ -41,14 +41,15 @@ class Aligner:
     # ---- phase 1: seeds -> chains ----
     def _flat_ext_ok(self, encs, opt) -> bool:
         """True when the all-native extension path applies: device read
-        grid present and mem_flt_chained_seeds provably a no-op for every
-        read (its engage condition is monotonic in read length)."""
+        grid present and holding every read, and mem_flt_chained_seeds
+        provably a no-op for every read (its engage condition is monotonic
+        in read length)."""
         import math
         bsw = getattr(self.backend, "_bsw", None)
         if bsw is None or bsw.encj is None:
             return False
         lmax = max((len(e) for e in encs), default=0)
-        if lmax == 0:
+        if lmax == 0 or lmax > bsw.encj.shape[1]:
             return False
         min_l = (1.1 * opt.min_chain_weight if opt.min_chain_weight
                  else 5.5 * math.log(lmax))

@@ -329,7 +329,30 @@ def main_mem(argv: list[str]) -> int:
     if out is not sys.stdout:
         out.close()
     sys.stderr.write(f"* done in {time.time()-t0:.1f}s\n")
+    _print_param_echo()
     return 0
+
+
+def _print_param_echo() -> None:
+    """Exit-time tuned-constant echo (main.cpp:115-125 analog), under the
+    reference's keys: the port's own constants that govern kernel shapes —
+    the extension tile caps, the seeding kernel's lane group widths, its
+    on-chip candidate list and its per-read slot rule."""
+    from .ops.bsw import LONG_QCAP, QCAP, TCAP
+    from .ops.seed import LIST_CAPS, SLOTS_BASE, SLOTS_PER_BASE
+    from .ops.seed_cuda import SmemCollect
+    sys.stderr.write("\nImportant parameter settings: \n")
+    sys.stderr.write("\tMAX_SEQ_LEN_REF (TCAP): %d\n" % TCAP)
+    sys.stderr.write("\tMAX_SEQ_LEN_QER (QCAP): %d\n" % QCAP)
+    sys.stderr.write("\tLONG_QCAP (sheared-band class): %d\n" % LONG_QCAP)
+    sys.stderr.write("\tVPU_LANES (seeding lane group widths): %s\n"
+                     % "/".join(map(str, SmemCollect.LANES)))
+    sys.stderr.write("\tSEED_CAND_SLOTS (on-chip list, by grid width): "
+                     "%d/%d\n" % LIST_CAPS)
+    sys.stderr.write("\tSEEDS_PER_READ (slots per read): %d + len/%d\n"
+                     % (SLOTS_BASE, SLOTS_PER_BASE))
+    sys.stderr.write("\tSA_COORDS_PER_READ (per SMEM, no per-read cap): "
+                     "min(s, max_occ)\n")
 
 
 def main_index(argv: list[str]) -> int:

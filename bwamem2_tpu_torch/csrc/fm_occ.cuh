@@ -37,6 +37,13 @@ FM_HD int fm_popc(uint32_t x) {
 #endif
 }
 
+// counts[c] by selects: a run-time index into the view would put the
+// counts in local memory on the card
+FM_HD int64_t fm_count(const FmView &f, int c) {
+    return c == 0 ? f.counts[0] : c == 1 ? f.counts[1]
+         : c == 2 ? f.counts[2] : c == 3 ? f.counts[3] : f.counts[4];
+}
+
 // the block row of `blk`: two 16-byte loads on the device
 FM_HD void fm_row(const FmView &f, int64_t blk, uint32_t r[8]) {
 #ifdef __CUDA_ARCH__
@@ -120,19 +127,31 @@ FM_HD int64_t fm_occ_one(const FmView &f, int64_t pos, int c) {
     return fm_cp(f, r, hi, c) + n;
 }
 
+// backwardExt's arithmetic from occ(k, .) = sp and occ(k + s, .) = ep
+FM_HD void fm_ext_combine(const FmView &f, int64_t k, int64_t l, int64_t s,
+                          int a, const int64_t sp[4], const int64_t ep[4],
+                          int64_t *ko, int64_t *lo, int64_t *so) {
+    // every char's value is formed first and then picked by a select on
+    // a: a loop with `if (c == a)` lets the compiler rewrite sp[c] as
+    // sp[a], a run-time index that puts sp in local memory on the card
+    const int64_t sent = (k <= f.sentinel && f.sentinel < k + s) ? 1 : 0;
+    const int64_t s0 = ep[0] - sp[0], s1 = ep[1] - sp[1];
+    const int64_t s2 = ep[2] - sp[2], s3 = ep[3] - sp[3];
+    const int64_t k0 = f.counts[0] + sp[0], k1 = f.counts[1] + sp[1];
+    const int64_t k2 = f.counts[2] + sp[2], k3 = f.counts[3] + sp[3];
+    *ko = a == 0 ? k0 : a == 1 ? k1 : a == 2 ? k2 : a == 3 ? k3 : 0;
+    *so = a == 0 ? s0 : a == 1 ? s1 : a == 2 ? s2 : a == 3 ? s3 : 0;
+    // l3: the sizes of the chars after a
+    *lo = l + sent + (a < 1 ? s1 : 0) + (a < 2 ? s2 : 0) + (a < 3 ? s3 : 0);
+}
+
 // backwardExt: (k', l', s') of (k, l, s) extended by char a; two row reads
 FM_HD void fm_backward_ext(const FmView &f, int64_t k, int64_t l, int64_t s,
                            int a, int64_t *ko, int64_t *lo, int64_t *so) {
-    int64_t sp[4], ep[4], ss[4];
+    int64_t sp[4], ep[4];
     fm_occ4(f, k, sp);
     fm_occ4(f, k + s, ep);
-    for (int c = 0; c < 4; ++c) ss[c] = ep[c] - sp[c];
-    const int64_t sent = (k <= f.sentinel && f.sentinel < k + s) ? 1 : 0;
-    int64_t ll = l + sent;               // l3
-    for (int c = 3; c > a; --c) ll += ss[c];
-    *ko = f.counts[a] + sp[a];
-    *lo = ll;
-    *so = ss[a];
+    fm_ext_combine(f, k, l, s, a, sp, ep, ko, lo, so);
 }
 
 // (BWT char at pos (4 = sentinel), occ(pos, stored code)) from one row

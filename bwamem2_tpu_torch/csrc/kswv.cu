@@ -15,9 +15,9 @@
 // saturated).  Every problem must have qlen <= Qmax (a multiple of 16) and
 // tlen <= Tmax; the kernel clamps to keep a broken descriptor inside its
 // stripes and its row array.  There is no length cap: the launch sizes the
-// stripes from the batch's longest query.  The i16 class needs Qmax * a <=
-// 32767 (row maxima and shared stripes are int16, where the native kernel
-// saturates).
+// stripes from the batch's longest query.  The i16 class saturates its adds
+// at 32767 as the native kernel does (row maxima and shared stripes are
+// int16), so any query length and match score fit.
 //
 // Design: one lane group per problem, the SIMD lanes of the striped
 // register as threads (kswv_group.cuh): a half-warp for u8, a quarter-warp
@@ -55,9 +55,9 @@
 //     bias with max 0; 1 three-way max of H, E, F; 1 running row max;
 //     2 for E' = max(max(E - e_del, 0), H - oe_del) (two fused add-max);
 //     2 for F' likewise.
-//   i16 main-pass cell (8):  1 profile load; 1 add of diagonal H and score
-//     (no bias, no saturation); 1 three-way max; 1 row max; 2 for E'; 2 for
-//     F'.
+//   i16 main-pass cell (9):  1 profile load; 1 add of diagonal H and score
+//     (no bias); 1 min with 32767 (saturate); 1 three-way max; 1 row max;
+//     2 for E'; 2 for F'.
 //   lazy-F cell, both classes (4):  1 max of H and F; 2 fused add-max
 //     (H - oe_ins and F - e_ins, each floored at 0); 1 compare for the
 //     sweep's exit vote.  Every row runs at least one segment (NL cells).

@@ -5,12 +5,14 @@
 // as the port's scalar host kernel emulates it lane for lane
 // (native/core.cpp: ksw_run_u8 :397-505, ksw_run_i16 :507-612, ksw_align
 // :631-655): NL = 16 u8 lanes (biased by shift = max(b, 1), adds saturating
-// at 255, subtracts at 0) or NL = 8 i16 lanes (raw signed adds), slen =
+// at 255, subtracts at 0) or NL = 8 i16 lanes (signed adds saturating at
+// 32767, _mm_adds_epi16: the i16 class's own width), slen =
 // ceil(qlen/NL) segments, the main pass with intra-stripe F, up to 16 lazy-F
 // sweeps, the row maximum taken before the fixup and Hmax copied after it.
 // Three differences keep it identical to bwamem2_tpu/ops/kswv.py:
-// kswv_two_phase and to ops/kswv.py:kswv_two_phase_ref, the outputs it is
-// held against:
+// kswv_two_phase (where no i16 score reaches 32767; JAX's int32 emulation
+// does not saturate) and to ops/kswv.py:kswv_two_phase_ref, the outputs it
+// is held against:
 //   * q and t are gathered from descriptors (read grid `enc`, doubled genome
 //     `ref` through bsw_ref_at): pad columns score 0, ambiguous bases -1,
 //     else a / -b;
@@ -430,8 +432,8 @@ KSWV_D KswvEnd kswv_phase(const G &g, S &st, const KswvBatch &b,
             V hh = h + g.prmt(tlo, thi, st.sel(j));
             if (U8)     // subsu8(addsu8(h, sc + shift), shift), floored below
                 hh = kswv_min(hh, 255) - shift;
-            else
-                hh = hh - shift;
+            else        // addsi16(h, sc): saturates at 32767
+                hh = kswv_min(hh - shift, 32767);
             const V ee = st.E(j);
             hh = kswv_max3(hh, ee, f);   // E, F >= 0: the u8 floor at 0
             mx = kswv_max(mx, hh);

@@ -1,5 +1,5 @@
 // smem_collect: SMEM collection (all three rounds + the per-read sort) on
-// Hopper (sm_90a), one thread per read.
+// Hopper (sm_90a), one lane group per read.
 //
 // Replaces the JAX package's fused seeding stages (jitted XLA, not Pallas):
 // bwamem2_tpu/ops/seedall.py:_stage_chain_collect, _stage_bwd_emit1,
@@ -7,73 +7,139 @@
 // the merge/sort of _stage_merge_sa, and ops/smem.py:round3_replay_kernel
 // and _bwd_walk.  Plain PyTorch version: bwamem2_tpu_torch/ops/seed.py:
 // smem_collect_ref; wrapper: ops/seed_cuda.py.  The per-read algorithm is
-// csrc/smem_collect_dp.cuh, which the tests compile as host C++.
+// csrc/smem_group.cuh, which the tests compile as host C++.
 //
-// What bounds it: random 32-byte occ-row reads.  Every backward_ext reads
-// two rows (k and k+s) at data-dependent places of a table far larger than
-// L2 at genome scale, and each read's walk is a chain of dependent reads;
-// the arithmetic per row (8 popcounts, a few selects) is small.  The bound
-// chip_smoke.py reports is the bytes these inputs need: backward_ext calls
-// x 2 rows x 32 B (the kernel counts its calls per read), plus the read
-// grid and the output slots, over 3.35 TB/s.
+// Design.  A group of G lanes (16 or 32; a template argument chosen by the
+// wrapper from the chunk's read count) seeds one read: the forward walks run as one step of the
+// whole group with the two occ rows' code words split over the lanes, the
+// backward steps one candidate per lane, the sequential rules of the host
+// loop as ballots, shuffles and a prefix popcount (smem_group.cuh).  The
+// candidate list and the staged output slots stay in the group's shared
+// memory: LCAP list entries (a compile-time bucket, 160 or 320, chosen by
+// the wrapper from the grid width) and SMEM_STAGE slots; a read with more
+// slots stages in its own output slots.  Each read's slots are its own
+// (ops/seed.py:slot_offsets, from its length), at offsets prefix-summed on
+// the device, so no buffer scales with N x L.  The grid is persistent: one
+// block per resident slot (the occupancy of this instantiation and its
+// shared memory), four groups per block, each group taking its next read
+// from an atomic counter in the order the wrapper gives (longest first), so
+// a long read does not hold a block while the short ones wait.  What still
+// holds it back: each forward step is a dependent round trip to the occ
+// table (the walks are chains), and the groups resident on an SM are
+// bounded by their shared memory (~4.7 KB per group at LCAP 160).
 //
-// Design (right and simple first): one thread per read running the scalar
-// rounds of the port's host oracle.  The TPU design (lockstep candidate
-// grids, survivor compaction on measured schedules, tier-1/tier-2 caps)
-// exists for a SIMD machine without per-lane control flow and is not
-// carried over; what must match is the final (m, n, k, s) per read.  The
-// candidate lists live in a global scratch laid out [2][L+1][N] so that
-// neighbouring threads touch neighbouring words.  A warp runs as long as
-// its slowest read, and each thread's row reads are serialised by the walk:
-// later work batches the candidates of a step across a warp.
+// What bounds it.  Bytes: every backward_ext reads two 32-byte occ rows at
+// data-dependent places (the kernel counts its calls per read), plus the
+// read grid and the written slots, over 3.35 TB/s.  Operations: the least
+// int32 operations a backward_ext needs, not this kernel's instruction mix:
+//   per code word (4 per row, 8 per call): 1 shift (the high bit plane);
+//     3 three-input logic operations (LOP3: three of the four char classes,
+//     each masked by the row's prefix); 3 popcounts; 3 adds into the
+//     counts (the fourth class follows from the prefix length) = 10, of
+//     which 3 are popcounts;
+//   per row (2 per call): 2 for the prefix mask of the partial word, 3 for
+//     the fourth class, 8 for the four int64 checkpoint adds, 3 for the
+//     sentinel's test and adjustment = 16;
+//   per call: 8 for the four int64 interval sizes, 3 for the sentinel in
+//     [k, k+s), 6 for l's sum of up to three int64 sizes, 2 for k' = 19.
+//   Total 8 x 10 + 2 x 16 + 19 = 131 operations, 24 of them popcounts.
+// On sm_90 a popcount issues at 16 per clock per SM, the others at 64:
+// 132 x 16 x 1.98 GHz = 4.18 Tops/s and 16.7 Tops/s.  chip_smoke.py
+// reports max(bytes, operations) with the one that bounds.
 
 #include <cuda_runtime.h>
 
-#include "smem_collect_dp.cuh"
+#include "smem_group.cuh"
 
 namespace {
 
-__global__ void __launch_bounds__(128)
-smem_collect_kernel(FmView f, const int8_t *__restrict__ enc,
-                    const int *__restrict__ lens, int N, int L,
-                    SmemParams p, int cap, int32_t *sc_n, int64_t *sc_k,
-                    int64_t *sc_l, int64_t *sc_s, int32_t *out_m,
-                    int32_t *out_n, int64_t *out_k, int64_t *out_s,
-                    int *out_cnt, int64_t *out_nbwd) {
-    const int r = blockIdx.x * blockDim.x + threadIdx.x;
-    if (r >= N) return;
-    SmemScratch sc{sc_n + r, sc_k + r, sc_l + r, sc_s + r, (int64_t)N,
-                   L + 1};
-    const int64_t o0 = (int64_t)r * cap;
-    SmemOut o{out_m + o0, out_n + o0, out_k + o0, out_s + o0, cap, 0, 0};
-    int len = lens[r];
-    len = len < 0 ? 0 : (len > L ? L : len);
-    smem_collect_read(f, enc + (int64_t)r * L, len, p, sc, o);
-    out_cnt[r] = o.cnt;
-    out_nbwd[r] = o.nbwd;
+constexpr int SMEM_GROUPS_PER_BLOCK = 4;
+
+template <int G, int LCAP>
+__global__ void __launch_bounds__(SMEM_GROUPS_PER_BLOCK * G)
+smem_collect_kernel(const SmemBatch b, int *next) {
+    extern __shared__ __align__(16) unsigned char smem_shared[];
+    const SmemGroup<G> g;
+    unsigned char *mem = smem_shared
+                         + (threadIdx.x / G) * smem_group_bytes(LCAP);
+    for (;;) {
+        const int t = g.fetch_add(next);
+        if (t >= b.N) break;
+        smem_group_run(g, b, LCAP, b.order[t], mem);
+    }
+}
+
+#define SMEM_BUCKETS(X) X(16, 160) X(32, 160) X(16, 320) X(32, 320)
+
+// The launch's blocks (resident blocks per SM x SMs), threads and dynamic
+// shared bytes per block for lanes G and list capacity lcap; a CUDA error
+// code (cudaErrorInvalidValue for a bucket that does not exist).
+template <int G, int LCAP>
+int smem_plan_of(int *plan) {
+    int dev = 0, nsm = 0, per_sm = 0;
+    const int threads = SMEM_GROUPS_PER_BLOCK * G;
+    const int bytes = SMEM_GROUPS_PER_BLOCK * smem_group_bytes(LCAP);
+    cudaError_t err = cudaGetDevice(&dev);
+    if (!err)
+        err = cudaDeviceGetAttribute(&nsm, cudaDevAttrMultiProcessorCount,
+                                     dev);
+    if (!err && bytes > 48 * 1024)
+        err = cudaFuncSetAttribute(smem_collect_kernel<G, LCAP>,
+                                   cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                   bytes);
+    if (!err)
+        err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+            &per_sm, smem_collect_kernel<G, LCAP>, threads, bytes);
+    if (err) return (int)err;
+    plan[0] = (per_sm < 1 ? 1 : per_sm) * nsm;
+    plan[1] = threads;
+    plan[2] = bytes;
+    return 0;
 }
 
 }  // namespace
 
-// Launch on `stream` (PyTorch's current stream); returns
-// cudaGetLastError().  counts: int64[5] on the host.  Scratch: int32[2,
-// L+1, N] + 3 x int64[2, L+1, N]; outputs [N, cap] (m, n int32; k, s
-// int64), cnt int32[N], nbwd int64[N].
+extern "C" int smem_collect_plan(int G, int lcap, int *plan) {
+#define SMEM_PLAN(GG, LL) \
+    if (G == GG && lcap == LL) return smem_plan_of<GG, LL>(plan);
+    SMEM_BUCKETS(SMEM_PLAN)
+#undef SMEM_PLAN
+    return (int)cudaErrorInvalidValue;
+}
+
+// Launch on `stream` (PyTorch's current stream); returns a CUDA error code
+// (the plan's, or cudaGetLastError() of the launch).  counts: int64[5] on
+// the host.  order: int32[N], the reads in the order the groups take them;
+// slot_off: int64[N + 1]; outputs: m, n int32 and k, s int64 of
+// slot_off[N] slots, cnt int32[N], nbwd int64[N]; next: an int32 zero.
 extern "C" int smem_collect_launch(
     const int32_t *occp, const int32_t *occ_hi, int has_hi,
     const int64_t *counts, int64_t sentinel, const int8_t *enc,
-    const int *lens, int N, int L, int min_seed_len, int split_len,
-    int64_t split_width, int64_t max_mem_intv, int cap, int32_t *sc_n,
-    int64_t *sc_k, int64_t *sc_l, int64_t *sc_s, int32_t *out_m,
-    int32_t *out_n, int64_t *out_k, int64_t *out_s, int *out_cnt,
-    int64_t *out_nbwd, void *stream) {
-    FmView f{occp, occ_hi, {counts[0], counts[1], counts[2], counts[3],
-                            counts[4]}, sentinel, has_hi};
-    SmemParams p{min_seed_len, split_len, split_width, max_mem_intv};
-    const int threads = 128;
-    const int blocks = (N + threads - 1) / threads;
-    smem_collect_kernel<<<blocks, threads, 0, (cudaStream_t)stream>>>(
-        f, enc, lens, N, L, p, cap, sc_n, sc_k, sc_l, sc_s, out_m, out_n,
-        out_k, out_s, out_cnt, out_nbwd);
+    const int *lens, const int *order, const int64_t *slot_off, int N, int L,
+    int min_seed_len, int split_len, int64_t split_width,
+    int64_t max_mem_intv, int G, int lcap, int32_t *out_m, int32_t *out_n,
+    int64_t *out_k, int64_t *out_s, int *out_cnt, int64_t *out_nbwd,
+    int *next, void *stream) {
+    int plan[3];
+    const int err = smem_collect_plan(G, lcap, plan);
+    if (err) return err;
+    const SmemBatch b{
+        FmView{occp, occ_hi, {counts[0], counts[1], counts[2], counts[3],
+                              counts[4]}, sentinel, has_hi},
+        enc, lens, order, slot_off, N, L,
+        SmemParams{min_seed_len, split_len, split_width, max_mem_intv},
+        out_m, out_n, out_k, out_s, out_cnt, out_nbwd};
+    const int blocks = plan[0] < (N + SMEM_GROUPS_PER_BLOCK - 1)
+                                     / SMEM_GROUPS_PER_BLOCK
+                           ? plan[0]
+                           : (N + SMEM_GROUPS_PER_BLOCK - 1)
+                                 / SMEM_GROUPS_PER_BLOCK;
+    cudaStream_t st = (cudaStream_t)stream;
+#define SMEM_LAUNCH(GG, LL)                                                \
+    if (G == GG && lcap == LL)                                             \
+        smem_collect_kernel<GG, LL><<<blocks, plan[1], plan[2], st>>>(b,   \
+                                                                      next);
+    SMEM_BUCKETS(SMEM_LAUNCH)
+#undef SMEM_LAUNCH
     return (int)cudaGetLastError();
 }

@@ -603,9 +603,12 @@ def pes_to_stats(pes) -> np.ndarray:
 def rescue_pre_batch(fm, opt, reads, fr: FlatRegs, pes6: np.ndarray,
                      L: int):
     """Collect the chunk's mate-rescue SW problems as device descriptors.
-    Returns (desc dict for TorchBackend.rescue_batch, which scores it with
+    A problem whose query (the whole mate) is longer than the read grid's
+    width L has no grid row (ops/backend.py:grid_read_cap) and is left
+    out; sam_pe_batch rescues it on the host.  Returns (desc dict for
+    TorchBackend.rescue_batch, which scores it with
     ops/kswv.py:DeviceKswv.align_batch, keys arrays) or (None, None) when
-    there is nothing to rescue."""
+    there is nothing to rescue on the device."""
     lib = _lib()
     bv = bns_view(fm)
     oc = make_opt_c(opt)
@@ -637,6 +640,12 @@ def rescue_pre_batch(fm, opt, reads, fr: FlatRegs, pes6: np.ndarray,
                 tlen=arr(ro.tlen, np.int32),
                 u8=arr(ro.u8c, np.uint8).astype(bool))
     lib.rt_free(rop)
+    grid = desc["qlen"] <= L
+    if not grid.all():
+        if not grid.any():
+            return None, None
+        desc = {k: v[grid] for k, v in desc.items()}
+        keys = {k: v[grid] for k, v in keys.items()}
     return desc, keys
 
 

@@ -5,16 +5,21 @@ problems on the device.
 Three device stages run here:
   * seeding + SA resolution (`collect_chunk`): ops/seed.py:FusedSeeder
     with the kernels csrc/smem_collect.cu and csrc/sa_resolve.cu; reads
-    whose SMEMs outrun the per-read slot cap are re-seeded exactly by the
-    native host oracle (`_patch_chunk`) and counted as
-    `overflow.fused_read`;
+    whose SMEMs outrun their slots or the kernel's on-chip candidate list
+    are re-seeded exactly by the native host oracle (`_patch_chunk`) and
+    counted as `overflow.fused_read`;
   * banded-SW extension scoring (ops/bsw.py, csrc/bsw_extend.cu);
   * mate rescue (`rescue_batch`): ops/kswv.py:DeviceKswv with the kernel
     csrc/kswv.cu, for every problem of the chunk whatever its length; a
     rescue SW that later finds no batch result runs on the host scalar
     kernel and is counted as `overflow.rescue_miss` (align/pipeline.py).
-Every chunk seeds on the device, whatever its read count and read length
-(the kernel's candidate scratch is sized per grid).
+Every chunk seeds on the device whatever its read count.  A read longer
+than the read grid takes (TorchBackend.grid_read_cap: GRID_MAX_READ_LEN
+bases, or less where N x L would pass int32) gets an empty grid row and is
+seeded alone on the exact host oracle through `_patch_chunk`, counted as
+`overflow.long_read`; the chunk's other reads stay on the device.  The
+seeding kernel's buffers are each read's own slots, linear in the chunk's
+bases (SmemCollect.plan_bytes).
 
 Uploading each chunk's padded read grid (`_bsw.encj`) is what engages the
 all-native flat extension path (Aligner._flat_ext_ok), whose scoring
@@ -49,7 +54,20 @@ def _pad_reads(encs: list[np.ndarray], L: int | None = None):
     return enc, lens
 
 
+def host_seeding(fm, encs, opt):
+    """The exact host oracle's six seeding arrays (rt_collect_smems_reads,
+    the max_occ sampling of sa_positions_batch, rt_sa_entries)."""
+    sub = hostrt.collect_smems_reads(fm, encs, opt)
+    pos, smem_off, m, n, s, occ_off = sa_positions_batch(opt, sub)
+    return (smem_off, m.astype(np.int32), n.astype(np.int32),
+            s.astype(np.int64), occ_off, hostrt.sa_entries_host(fm, pos))
+
+
 class TorchBackend:
+    # the longest read a chunk's read grid takes (the JAX package's limit
+    # for device seeding); a longer one is seeded alone on the host oracle
+    GRID_MAX_READ_LEN = 32000
+
     # the object-path extension (long reads, where the flat path does not
     # apply) keeps the native host kernels: extend_chains' defaults
     left_bsw_kernel = None
@@ -66,55 +84,65 @@ class TorchBackend:
         self._kswv = DeviceKswv(self.dfm, opt)
         self.seeder = FusedSeeder(self.dfm)
 
+    @classmethod
+    def grid_read_cap(cls, N: int) -> int:
+        """The longest read a grid of N rows takes: GRID_MAX_READ_LEN, or
+        less where the padded N x L would pass the int32 flat offsets
+        (seqid * L + qoff) of the extension and rescue kernels."""
+        return min(cls.GRID_MAX_READ_LEN, (2**31 - 1) // max(N, 1) // 8 * 8)
+
     def _attach_grid(self, encs):
         enc, lens = _pad_reads(encs)
-        N, L = enc.shape
-        # the extension kernels flatten (seqid, qoff) to seqid*L+qoff in
-        # int32 — guard the precondition here, at attach time
-        if N * L >= 2**31:
-            raise ValueError(f"read grid {N}x{L} overflows int32 flat "
-                             "offsets")
         self._bsw.encj = torch.from_numpy(enc).to(self.device)
         return lens
 
     def collect_chunk(self, encs: list[np.ndarray], opt):
         """Fused seeding: (smem_off, m, n, s, occ_off, coords) ready for
         the native chainer — what collect_smems +
-        chain.sa_positions_batch + sa_lookup give on the host."""
-        lens = self._attach_grid(encs)
-        if not lens.any():          # no bases: no SMEMs
-            e32, e64 = np.zeros(0, np.int32), np.zeros(0, np.int64)
-            return (np.zeros(len(encs) + 1, np.int64), e32, e32.copy(), e64,
-                    np.zeros(1, np.int64), e64.copy())
-        lensj = torch.from_numpy(lens).to(self.device)
-        with PROF("seeding.device"):
-            cnt, m, n, s, coords = self.seeder.run(self._bsw.encj, lensj,
-                                                   opt)
+        chain.sa_positions_batch + sa_lookup give on the host.  A read
+        over grid_read_cap(N) bases has an empty row in the read grid and
+        is seeded on the host oracle."""
+        NR = len(encs)
+        long = np.array([len(e) for e in encs], np.int64) \
+            > self.grid_read_cap(NR)
+        PROF.count("overflow.long_read", int(long.sum()), NR)
+        lens = self._attach_grid([e[:0] if lg else e
+                                  for e, lg in zip(encs, long)])
+        if lens.any():
+            lensj = torch.from_numpy(lens).to(self.device)
+            with PROF("seeding.device"):
+                cnt, m, n, s, coords = self.seeder.run(self._bsw.encj,
+                                                       lensj, opt)
+        else:                       # no bases on the grid: no SMEMs
+            cnt = np.zeros(NR, np.int32)
+            m, n = np.zeros(0, np.int32), np.zeros(0, np.int32)
+            s, coords = np.zeros(0, np.int64), np.zeros(0, np.int64)
         with PROF("seeding.assemble"):
-            return self._assemble_chunk(encs, opt, cnt, m, n, s, coords)
+            return self._assemble_chunk(encs, opt, cnt, m, n, s, coords,
+                                        long)
 
-    def _assemble_chunk(self, encs, opt, cnt, m, n, s, coords):
+    def _assemble_chunk(self, encs, opt, cnt, m, n, s, coords, long):
         NR = len(encs)
         bad = cnt < 0
-        PROF.count("overflow.fused_read", int(bad.sum()), NR)
+        PROF.count("overflow.fused_read", int(bad.sum()),
+                   NR - int(long.sum()))
         smem_off = np.zeros(NR + 1, np.int64)
         np.cumsum(np.maximum(cnt, 0), out=smem_off[1:])
-        if bad.any():
-            return self._patch_chunk(encs, opt, bad, smem_off, m, n, s,
-                                     coords)
+        if bad.any() or long.any():
+            return self._patch_chunk(encs, opt, bad | long, smem_off, m, n,
+                                     s, coords)
         occ_off = np.zeros(len(s) + 1, np.int64)
         np.cumsum(np.minimum(s, opt.max_occ), out=occ_off[1:])
         return smem_off, m, n, s, occ_off, coords
 
     def _patch_chunk(self, encs, opt, bad, smem_off, m, n, s, coords):
         """Merge the exact host oracle's output for the reads that outran
-        the device's slot cap (they hold no device entries) into the
-        device arrays, keeping read order."""
+        their device slots or candidate list, or that the read grid does
+        not hold (none of them holds device entries), into the device
+        arrays, keeping read order."""
         badidx = np.nonzero(bad)[0]
-        sub = hostrt.collect_smems_reads(self.fm, [encs[r] for r in badidx],
-                                         opt)
-        pos_p, off_p, m_p, n_p, s_p, occ_p = sa_positions_batch(opt, sub)
-        coords_p = hostrt.sa_entries_host(self.fm, pos_p)
+        off_p, m_p, n_p, s_p, occ_p, coords_p = host_seeding(
+            self.fm, [encs[r] for r in badidx], opt)
         NR = len(encs)
         rid_d = np.repeat(np.arange(NR), np.diff(smem_off))
         rid_h = np.repeat(badidx, np.diff(off_p))

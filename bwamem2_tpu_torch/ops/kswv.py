@@ -15,7 +15,8 @@ textbook DP:
   row kept for the end-position scan (Hmax) after it;
 - u8 arithmetic saturates per operation (adds at 255 against the profile
   biased by shift = -min(mat), subtracts at 0); the i16 class (8 stripes)
-  adds raw signed values;
+  adds raw signed values and saturates at 32767 (_mm_adds_epi16), which
+  only a score of round_up(qlen, 16) * a > 32767 can reach;
 - the query is padded to 16*slen (8*slen) columns that score 0 and take
   part in the row maxima and the qe scan.
 
@@ -33,6 +34,11 @@ calls: both precision classes go to `kswv_cuda.kswv` — the kernel for a
 read grid on the GPU, this reference for one on the CPU — each in
 descending (tlen, qlen) order, and are enqueued before one fetch; the
 result is the native ksw_align 7-tuple per problem, in descriptor order.
+Every problem runs there; the i16 problems that can saturate are counted
+as `rescue.i16_wide`.  There the output is the native kernel's:
+the JAX package's int32 emulation (bwamem2_tpu/ops/kswv.py) does not
+saturate, so it differs where qlen <= 512 (above, it sends the problem to
+the native kernel).
 """
 
 from __future__ import annotations
@@ -40,6 +46,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from ..utils.profiling import PROF
 from . import round_up
 from .device_index import take_ref
 
@@ -58,7 +65,7 @@ def kswv_phase_ref(ref, enc, qoff, qdir, qcomp, qlen, toff, tdir, tlen,
                    ) -> torch.Tensor:
     """One phase of batched striped local SW from descriptors (plain
     PyTorch), emulating the u8 (16 stripes, biased, saturating at 255) or
-    i16 (8 stripes, raw signed) kernel lane-exactly.
+    i16 (8 stripes, signed, saturating at 32767) kernel lane-exactly.
 
     ref: uint8 doubled genome (2-bit packed if ref_packed); enc: int8[N, L]
     read grid.  Per problem: qoff int32 (flat row*L+col of the first query
@@ -119,7 +126,7 @@ def kswv_phase_ref(ref, enc, qoff, qdir, qcomp, qlen, toff, tdir, tlen,
         if u8:
             M = ((Hs + s + shift).clamp(max=255) - shift).clamp(min=0)
         else:
-            M = Hs + s
+            M = (Hs + s).clamp(max=32767)
         base = torch.maximum(M, E)
         # pre-fixup cell: intra-stripe F only (segmented prefix max)
         u = torch.where(valid, base - oe_ins + colsE + sidH, NEGBIG)
@@ -202,7 +209,8 @@ def kswv_two_phase_ref(ref, enc, qoff, qdir, qcomp, qlen, toff, tlen,
                        e_ins: int, ref_packed: bool = False, u8: bool = True,
                        work: list | None = None):
     """Both phases of every problem (bwamem2_tpu/ops/kswv.py:
-    kswv_two_phase with every lane live): phase 0 forward from the
+    kswv_two_phase with every lane live, where no i16 score saturates;
+    where one does, the native ksw_align): phase 0 forward from the
     descriptors with the b-array floor `minsc`; phase 1 on the reversed
     prefixes ending at the phase-0 end (query qe+1 long, target te+1),
     stopping at the phase-0 score, for the lanes where phase 0 found a
@@ -243,10 +251,15 @@ class DeviceKswv:
         self.opt = opt
         self.minsc = opt.min_seed_len * opt.a
 
-    @staticmethod
-    def launch_order(desc: dict) -> list:
-        """[(u8, idx)] per precision class present: the class's problems by
-        descending (tlen, qlen), ties in descriptor order."""
+    def wide(self, desc: dict) -> np.ndarray:
+        """The i16 problems whose scores can reach 32767, where the
+        kernel saturates as the native one does."""
+        span = (desc["qlen"].astype(np.int64) + 15) // 16 * 16 * self.opt.a
+        return ~desc["u8"] & (span > 32767)
+
+    def launch_order(self, desc: dict) -> list:
+        """[(u8, idx)] per precision class present: the class's kernel
+        problems by descending (tlen, qlen), ties in descriptor order."""
         out = []
         for u8 in (True, False):
             idx = np.nonzero(desc["u8"] == u8)[0]
@@ -301,6 +314,7 @@ class DeviceKswv:
         out = np.zeros((n, 7), np.int32)
         flights = [(idx, kswv(*self.kswv_args(encj, desc, idx, u8)))
                    for u8, idx in self.launch_order(desc)]
+        PROF.count("rescue.i16_wide", int(self.wide(desc).sum()), n)
         if flights:
             fetched = torch.cat([torch.cat(r, 1) for _, r in flights]) \
                 .cpu().numpy()                                   # 1 fetch

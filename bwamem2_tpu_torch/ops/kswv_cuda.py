@@ -84,12 +84,6 @@ class Kswv(CudaKernel):
                              "multiple of 16")
         if Tmax <= 0:
             raise ValueError(f"kswv: Tmax={Tmax} out of range")
-        if not u8 and Qmax * max(mat_a, 1) > 32767:
-            # row maxima and stripes are kept as int16, the i16 class's own
-            # width (the native kernel saturates there, the int32 emulation
-            # does not)
-            raise ValueError(f"kswv: i16 scores of Qmax={Qmax} x a={mat_a} "
-                             "overflow 16 bits")
         shift = max(mat_b, 1)
         if not (0 <= mat_a + shift <= 255 and shift - mat_b <= 255):
             # the per-row score table holds shift + score in one byte

@@ -7,9 +7,11 @@ smem.round3_replay_kernel) and ops/salookup.py.  Two kernels carry it:
                  (pivots at next_x, min_intv 1), round 2 (the split rule
                  over round 1's output), round 3 (forward-only seeds while
                  max_mem_intv > 0), then the per-read (m, n) sort.  Output
-                 goes into per-read slots capped at `cap`; a read that
-                 outruns the cap is flagged (count -1) and re-seeded exactly
-                 on the host by the caller (ops/backend.py:_patch_chunk).
+                 goes into each read's own slots (slot_offsets, sized from
+                 its length); a read that outruns them, or the candidate
+                 list's capacity (list_cap), is flagged (count -1) and
+                 re-seeded exactly on the host by the caller
+                 (ops/backend.py:_patch_chunk).
   sa_resolve     get_sa_entry_compressed for every sampled BWT position.
 
 Each has a plain PyTorch version here (`smem_collect_ref`,
@@ -18,7 +20,7 @@ ops/seed_cuda.py): CPU tensors run the plain version, CUDA tensors launch
 the kernel (csrc/smem_collect.cu, csrc/sa_resolve.cu) or raise.
 
 `FusedSeeder.run` chains them for one read grid: smem_collect, compaction
-of the slots into flat (m, n, k, s), expansion of the max_occ-sampled
+of the slots into (m, n, k, s) of the SMEMs alone, expansion of the max_occ-sampled
 positions (sa_positions_batch semantics: cnt = min(s, max_occ),
 pos = k + j*step), sa_resolve, and one fetch of everything.  The sizes of
 the flat arrays are read from the device once before they are built (two
@@ -39,9 +41,28 @@ from .seed_cuda import SaResolve, SmemCollect
 I64 = torch.int64
 
 
-def smem_cap(L: int) -> int:
-    """SMEM slots per read for a read grid of width L."""
-    return max(64, L // 2)
+# The two route rules of smem_collect.  They decide only where a read is
+# seeded (on the device, or re-seeded exactly on the host when it outruns
+# either), never what it gets.
+SLOTS_BASE, SLOTS_PER_BASE = 16, 4     # a read's slots: 16 + len // 4
+LIST_CAPS = (160, 320)                 # on-chip candidate list entries
+
+
+def list_cap(L: int) -> int:
+    """Candidate list entries for a read grid of width L: a list holds at
+    most one entry per base of its read, so 160 never overflows under 160
+    bp."""
+    return LIST_CAPS[0] if L < LIST_CAPS[0] else LIST_CAPS[1]
+
+
+def slot_offsets(lens: torch.Tensor) -> torch.Tensor:
+    """int64[N + 1] offsets of each read's SMEM slots in the flat outputs,
+    prefix-summed on lens' device: read r gets SLOTS_BASE + lens[r] //
+    SLOTS_PER_BASE slots."""
+    caps = SLOTS_BASE + lens.long().clamp(min=0) // SLOTS_PER_BASE
+    off = torch.zeros(lens.shape[0] + 1, dtype=I64, device=lens.device)
+    torch.cumsum(caps, 0, out=off[1:])
+    return off
 
 
 # ------------------------------------------------------ smem_collect_ref
@@ -50,9 +71,9 @@ def _emit(st, rows, mask, m, n, k, s) -> None:
     per read per call); a read whose slots are full is flagged dead."""
     mask = mask & st.alive[rows]
     pos = st.cnt[rows]
-    over = mask & (pos >= st.cap)
+    over = mask & (pos >= st.cap[rows])
     w = mask & ~over
-    pp = pos.clamp(max=st.cap - 1)
+    pp = torch.minimum(pos, st.cap[rows] - 1).clamp(min=0)
     for arr, v in ((st.m, m), (st.n, n), (st.k, k), (st.s, s)):
         arr[rows, pp] = torch.where(w, v.to(arr.dtype), arr[rows, pp])
     st.cnt[rows] = pos + w.long()
@@ -63,8 +84,10 @@ def _one_pos(st, rows, x, mi):
     """smems_one_pos for the reads `rows` at pivots x with min_intv mi
     (int64[R] each), lockstep over the reads; returns next_x.
 
-    The candidate lists are [R, L+1] tensors with a per-read length.  One
-    backward step extends every candidate of every read at once; the
+    The candidate lists are [R, C] tensors with a per-read length, C =
+    min(L+1, list_cap); a read whose forward walk would push more than
+    list_cap candidates is flagged dead.  One backward step extends every
+    candidate of every read at once; the
     sequential rules of the host loop become masked scans:
       * first emit: the first candidate that either survives or dies at
         full length; it emits if it died;
@@ -74,7 +97,7 @@ def _one_pos(st, rows, x, mi):
     e = st.enc[rows]
     ln = st.lens[rows]
     R, L = e.shape
-    C = L + 1
+    C = min(L + 1, st.lcap)
     dev = e.device
     ar = torch.arange(R, device=dev)
     cidx = torch.arange(C, device=dev)
@@ -91,6 +114,10 @@ def _one_pos(st, rows, x, mi):
 
     def push(mask, vn, vk, vl, vs):
         nonlocal npv
+        mask = mask & st.alive[rows]
+        over = mask & (npv >= st.lcap)
+        st.alive[rows] = st.alive[rows] & ~over
+        mask = mask & ~over
         at = npv.clamp(max=C - 1)
         for P, v in ((Pn, vn), (Pk, vk), (Pl, vl), (Ps, vs)):
             P[ar, at] = torch.where(mask, v, P[ar, at])
@@ -169,19 +196,25 @@ def _one_pos(st, rows, x, mi):
 
 def smem_collect_ref(dfm: DeviceFMIndex, enc: torch.Tensor,
                      lens: torch.Tensor, min_seed_len: int, split_len: int,
-                     split_width: int, max_mem_intv: int, cap: int):
+                     split_width: int, max_mem_intv: int, lcap: int,
+                     slot_off: torch.Tensor):
     """Plain PyTorch version of csrc/smem_collect.cu: one lane per read,
     lockstep over the read axis.  enc int8[N, L] (4 = N/padding), lens
-    int32[N].  Returns (m, n int32[N, cap], k, s int64[N, cap], cnt
-    int32[N], nbwd int64[N]); slots at or beyond cnt are unspecified, and
-    a read that outran the cap has cnt -1 and nbwd 0."""
+    int32[N]; the route rules: lcap candidate list entries, and read r's
+    slots at [slot_off[r], slot_off[r+1]) of the flat outputs.  Returns
+    (m, n int32[S], k, s int64[S], cnt int32[N], nbwd int64[N]), S =
+    slot_off[N]; each read's first cnt slots hold its SMEMs sorted by (m,
+    n), the rest are unspecified; a read that outran its list or its slots
+    has cnt -1 and nbwd 0."""
     dev = enc.device
     N, L = enc.shape
+    caps = slot_off[1:] - slot_off[:-1]
+    cmax = max(int(caps.max()), 1) if N else 1
     z = lambda *sh: torch.zeros(sh, dtype=I64, device=dev)  # noqa: E731
     st = SimpleNamespace(
-        dfm=dfm, enc=enc.long(), lens=lens.long().clamp(0, L), cap=cap,
-        msl=int(min_seed_len), m=z(N, cap), n=z(N, cap), k=z(N, cap),
-        s=z(N, cap), cnt=z(N), nbwd=z(N),
+        dfm=dfm, enc=enc.long(), lens=lens.long().clamp(0, L), cap=caps,
+        lcap=int(lcap), msl=int(min_seed_len), m=z(N, cmax), n=z(N, cmax),
+        k=z(N, cmax), s=z(N, cmax), cnt=z(N), nbwd=z(N),
         alive=torch.ones(N, dtype=torch.bool, device=dev))
     all_rows = torch.arange(N, device=dev)
 
@@ -194,7 +227,7 @@ def smem_collect_ref(dfm: DeviceFMIndex, enc: torch.Tensor,
         x[rows] = _one_pos(st, rows, x[rows], torch.ones_like(rows))
 
     # round 2: the split rule over a snapshot of round 1's output
-    slot = torch.arange(cap, device=dev)
+    slot = torch.arange(cmax, device=dev)
     qm, qn, qs = st.m.clone(), st.n.clone(), st.s.clone()
     q = ((slot < st.cnt[:, None]) & ((qn + 1 - qm) >= split_len)
          & (qs <= split_width) & st.alive[:, None])
@@ -255,10 +288,19 @@ def smem_collect_ref(dfm: DeviceFMIndex, enc: torch.Tensor,
     valid = slot < st.cnt[:, None]
     key = torch.where(valid, st.m * (L + 2) + st.n, (L + 2) ** 2)
     order = torch.sort(key, dim=1, stable=True).indices
-    m, n, k, s = (a.gather(1, order) for a in (st.m, st.n, st.k, st.s))
+    own = slot < caps[:, None]
+    at = (slot_off[:-1, None] + slot)[own]
+    S = int(slot_off[-1])
+
+    def flat(a, dt):
+        out = torch.zeros(S, dtype=dt, device=dev)
+        out[at] = a.gather(1, order)[own].to(dt)
+        return out
+
     cnt = torch.where(st.alive, st.cnt, -1).to(torch.int32)
     nbwd = torch.where(st.alive, st.nbwd, 0)
-    return (m.to(torch.int32), n.to(torch.int32), k, s, cnt, nbwd)
+    return (flat(st.m, torch.int32), flat(st.n, torch.int32),
+            flat(st.k, I64), flat(st.s, I64), cnt, nbwd)
 
 
 # -------------------------------------------------------- sa_resolve_ref
@@ -295,25 +337,29 @@ sa_resolve = SaResolve(sa_resolve_ref)
 
 
 # ----------------------------------------------------------- the seeder
-def compact_and_expand(m, n, k, s, cnt, max_occ: int):
-    """smem_collect's per-read slots -> flat (m, n, s) in (read, m, n)
-    order (overflowed reads contribute nothing) and the max_occ-sampled
-    BWT positions of every SMEM: cnt = min(s, max_occ) positions k +
-    j*step, step = s // max_occ when s > max_occ, else 1 (the sampling of
-    mem_chain_seeds, align/chain.py:sa_positions_batch).  One read of two
-    sizes from the device; nothing else waits on it."""
+def compact_and_expand(m, n, k, s, cnt, slot_off, max_occ: int):
+    """smem_collect's flat per-read slots (read r's at slot_off[r]...) ->
+    flat (m, n, s) in (read, m, n) order (overflowed reads contribute
+    nothing) and the max_occ-sampled BWT positions of every SMEM: cnt =
+    min(s, max_occ) positions k + j*step, step = s // max_occ when s >
+    max_occ, else 1 (the sampling of mem_chain_seeds,
+    align/chain.py:sa_positions_batch).  One read of two sizes from the
+    device; nothing else waits on it."""
     dev = m.device
-    cap = m.shape[1]
+    S = m.shape[0]
+    rid = torch.repeat_interleave(torch.arange(cnt.shape[0], device=dev),
+                                  slot_off[1:] - slot_off[:-1],
+                                  output_size=S)
     c = cnt.long().clamp(min=0)
-    valid = (torch.arange(cap, device=dev) < c[:, None]).reshape(-1)
-    occ_n = torch.where(valid, s.reshape(-1), 0).clamp(max=max_occ)
+    valid = (torch.arange(S, device=dev) - slot_off[rid]) < c[rid]
+    occ_n = torch.where(valid, s, 0).clamp(max=max_occ)
     nsm, npos = torch.stack([c.sum(), occ_n.sum()]).tolist()
     # compact the slots, read-major, keeping each read's sorted order
     dest = torch.where(valid, valid.long().cumsum(0) - 1, nsm)
 
     def compact(a):
         buf = torch.zeros(nsm + 1, dtype=a.dtype, device=dev)
-        return buf.scatter_(0, dest, a.reshape(-1))[:nsm]
+        return buf.scatter_(0, dest, a)[:nsm]
 
     m_c, n_c, k_c, s_c = (compact(a) for a in (m, n, k, s))
     cnt_c = s_c.clamp(max=max_occ)
@@ -339,13 +385,15 @@ class FusedSeeder:
         ends at the size read (smem_collect done), seeding.resolve at the
         fetch."""
         N, L = encj.shape
-        cap = smem_cap(L)
         split_len = int(opt.min_seed_len * opt.split_factor + 0.499)
         with PROF("seeding.collect"):
+            slot_off = slot_offsets(lensj)
             m, n, k, s, cnt, _ = smem_collect(
                 self.dfm, encj, lensj, opt.min_seed_len, split_len,
-                int(opt.split_width), int(opt.max_mem_intv), cap)
+                int(opt.split_width), int(opt.max_mem_intv), list_cap(L),
+                slot_off)
             m_c, n_c, s_c, pos = compact_and_expand(m, n, k, s, cnt,
+                                                    slot_off,
                                                     int(opt.max_occ))
         with PROF("seeding.resolve"):
             nsm, npos = s_c.shape[0], pos.shape[0]

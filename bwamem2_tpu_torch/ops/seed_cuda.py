@@ -1,5 +1,5 @@
-"""ctypes bindings of the seeding kernels: csrc/smem_collect.cu and
-csrc/sa_resolve.cu (built by ops/cuda_build.py).
+"""ctypes bindings of the seeding kernels: csrc/smem_collect.cu (with
+csrc/smem_group.cuh) and csrc/sa_resolve.cu (built by ops/cuda_build.py).
 
 Each class is a wrapper: on CPU tensors it runs the plain PyTorch version
 it was given (ops/seed.py), on CUDA tensors it launches the kernel or
@@ -35,58 +35,100 @@ def _check_index(kernel: str, dfm, dev) -> None:
 
 class SmemCollect(CudaKernel):
     """smem_collect(dfm, enc, lens, min_seed_len, split_len, split_width,
-    max_mem_intv, cap) -> (m, n int32[N, cap], k, s int64[N, cap],
-    cnt int32[N] (-1: the read outran the cap), nbwd int64[N])."""
+    max_mem_intv, lcap, slot_off) -> (m, n int32[S], k, s int64[S],
+    cnt int32[N] (-1: the read outran its list or its slots), nbwd
+    int64[N]), S = slot_off[N]: read r's SMEMs in slots slot_off[r]...,
+    sorted by (m, n).  `lcap` is one of ops/seed.py:LIST_CAPS.  The lane
+    group's width, one of LANES, is lanes_for(N)."""
 
     NAME = "smem_collect"
-    SOURCES = ("smem_collect.cu", "smem_collect_dp.cuh", "fm_occ.cuh")
+    SOURCES = ("smem_collect.cu", "smem_group.cuh", "fm_occ.cuh")
     SIGNATURE = ("smem_collect_launch",
-                 [VP, VP, I32, VP, I64, VP, VP, I32, I32, I32, I32, I64,
-                  I64, I32] + [VP] * 10 + [VP])
+                 [VP, VP, I32, VP, I64, VP, VP, VP, VP, I32, I32, I32, I32,
+                  I64, I64, I32, I32] + [VP] * 7 + [VP])
+    LANES = (16, 32)        # the lane widths smem_collect.cu instantiates
 
     def __init__(self, plain):
         super().__init__()
         self.plain = plain
 
+    @staticmethod
+    def lanes_for(N: int) -> int:
+        """Lanes per read for a chunk of N reads, chosen on an NVIDIA H100
+        80GB HBM3 (700 W) from chip_smoke.py's phase 5b, which times every
+        width: 32 lanes led at 2,048 and 15,000 reads, where the reads do
+        not fill the resident groups many times over; 16 at 66,668 reads
+        (the default task size)."""
+        return 32 if N < 32768 else 16
+
+    @staticmethod
+    def plan_bytes(N: int, lens) -> int:
+        """Device bytes the wrapper allocates for N reads of lengths `lens`
+        (ops/seed.py:slot_offsets' rule): 24 per slot, the per-read count,
+        backward_ext count, order and slot offset, and the read counter.
+        Linear in sum(lens) + N; the read grid is the caller's."""
+        from .seed import SLOTS_BASE, SLOTS_PER_BASE
+        slots = sum(SLOTS_BASE + max(int(x), 0) // SLOTS_PER_BASE
+                    for x in lens)
+        return 24 * slots + N * (4 + 8 + 4) + 8 * (N + 1) + 4
+
+    def plan(self, lanes: int, lcap: int) -> tuple:
+        """(blocks, threads, shared bytes per block) of a launch at this
+        lane width and list capacity on the current device."""
+        fn = self.lib().smem_collect_plan
+        fn.restype = I32
+        fn.argtypes = [I32, I32, VP]
+        plan = (I32 * 3)()
+        err = fn(lanes, lcap, plan)
+        if err:
+            raise ValueError(f"smem_collect: no launch for {lanes} lanes, "
+                             f"list capacity {lcap} (CUDA error {err})")
+        return tuple(plan)
+
     def __call__(self, dfm, enc, lens, min_seed_len: int, split_len: int,
-                 split_width: int, max_mem_intv: int, cap: int):
+                 split_width: int, max_mem_intv: int, lcap: int, slot_off):
         args = (dfm, enc, lens, min_seed_len, split_len, split_width,
-                max_mem_intv, cap)
+                max_mem_intv, lcap, slot_off)
         if enc.device.type == "cpu":
             self._plain()
             return self.plain(*args)
         return self.launch(*args)
 
     def launch(self, dfm, enc, lens, min_seed_len, split_len, split_width,
-               max_mem_intv, cap):
+               max_mem_intv, lcap, slot_off):
         dev = enc.device
         if dev.type != "cuda":
             raise ValueError(f"smem_collect kernel needs CUDA tensors, got "
                              f"{dev}")
         _check_index("smem_collect", dfm, dev)
         check_tensors("smem_collect", dev, enc=(enc, torch.int8, 2),
-                      lens=(lens, torch.int32, 1))
+                      lens=(lens, torch.int32, 1),
+                      slot_off=(slot_off, torch.int64, 1))
         N, L = enc.shape
-        if lens.shape[0] != N or cap < 1:
-            raise ValueError(f"smem_collect: lens has {lens.shape[0]} "
-                             f"entries for {N} reads, cap={cap}")
-        z = lambda *s, dt: torch.zeros(s, dtype=dt, device=dev)  # noqa
-        m, n = z(N, cap, dt=torch.int32), z(N, cap, dt=torch.int32)
-        k, s = z(N, cap, dt=torch.int64), z(N, cap, dt=torch.int64)
-        cnt = torch.empty(N, dtype=torch.int32, device=dev)
-        nbwd = torch.empty(N, dtype=torch.int64, device=dev)
+        if lens.shape[0] != N or slot_off.shape[0] != N + 1:
+            raise ValueError(f"smem_collect: {lens.shape[0]} lengths and "
+                             f"{slot_off.shape[0]} slot offsets for {N} "
+                             "reads")
+        lanes = self.lanes_for(N)
+        if lanes not in self.LANES:
+            raise ValueError(f"smem_collect: {lanes} lanes per group, not "
+                             f"one of {self.LANES}")
+        S = int(slot_off[-1])
+        z = lambda n, dt: torch.empty(n, dtype=dt, device=dev)  # noqa
+        m, n = z(S, torch.int32), z(S, torch.int32)
+        k, s = z(S, torch.int64), z(S, torch.int64)
+        cnt, nbwd = z(N, torch.int32), z(N, torch.int64)
         if N == 0:
             return m, n, k, s, cnt, nbwd
-        sc_n = torch.empty((2, L + 1, N), dtype=torch.int32, device=dev)
-        sc_kls = torch.empty((3, 2, L + 1, N), dtype=torch.int64,
-                             device=dev)
+        # longest reads first: a long read starts early, not last
+        order = torch.argsort(lens, descending=True, stable=True).int()
+        nxt = torch.zeros(1, dtype=torch.int32, device=dev)
         self._launch(
-            dev, *_fm_args(dfm), enc.data_ptr(), lens.data_ptr(), N, L,
-            int(min_seed_len), int(split_len), int(split_width),
-            int(max_mem_intv), int(cap), sc_n.data_ptr(),
-            sc_kls[0].data_ptr(), sc_kls[1].data_ptr(), sc_kls[2].data_ptr(),
-            m.data_ptr(), n.data_ptr(), k.data_ptr(), s.data_ptr(),
-            cnt.data_ptr(), nbwd.data_ptr())
+            dev, *_fm_args(dfm), enc.data_ptr(), lens.data_ptr(),
+            order.data_ptr(), slot_off.data_ptr(), N, L, int(min_seed_len),
+            int(split_len), int(split_width), int(max_mem_intv), lanes,
+            int(lcap), m.data_ptr(), n.data_ptr(), k.data_ptr(),
+            s.data_ptr(), cnt.data_ptr(), nbwd.data_ptr(), nxt.data_ptr())
         return m, n, k, s, cnt, nbwd
 
 

@@ -17,6 +17,10 @@ Phases, each of which fails the run (non-zero exit, no result line):
   3. data: a synthetic 11.7 Mbp genome (scale 0.25 of the chr21 class, the
      size of a yeast genome) with repeat families and N runs, its index and
      10,000 2x150 bp pairs, made once from fixed seeds under .tmp/;
+     3b. the seeding stage's first call on run (a)'s first chunk in a fresh
+     process, split into the kernels' library load, the CUDA context, the
+     index upload and the first FusedSeeder.run's pieces, beside the same
+     pieces warm;
   4. main path: `mem` PE through the port's CLI entry on cuda, driven
      twice, each with every launch counter set to 0 just before and read
      just after: (a) default options with a 2.25 Mbp task size (`-K`, 2
@@ -27,7 +31,10 @@ Phases, each of which fails the run (non-zero exit, no result line):
      version runs, every read is seeded on the device route, at most 1 %
      of the reads overflow to the host seeding oracle, and every rescue SW
      takes its result from the chunk's kswv batch (`overflow.rescue_miss`
-     is 0);
+     is 0); the counters overflow.fused_read, overflow.long_read (reads
+     too long for the read grid, seeded on the host; none may happen here)
+     and rescue.i16_wide (i16 rescues that can saturate, in the kernel)
+     are printed;
   5. kernel vs plain, exact equality, with times and bounds:
      a. bsw_extend against bsw_desc_ref at every production rung (Q in
         127/255/383 x T in 96..608) with P = 4096 real-length descriptors,
@@ -40,14 +47,22 @@ Phases, each of which fails the run (non-zero exit, no result line):
      b. the smem_collect and sa_resolve wrappers against smem_collect_ref
         and sa_resolve_ref on 2,048 reads of the smoke FASTQ and on the
         first chunk of each main-path run (15,000 and 66,668 reads), with
-        their SA positions; at both chunks the backend's collect_chunk
-        arrays also equal the native host oracle's;
+        their SA positions; smem_collect at each lane width (16 and 32
+        lanes per read, all identical, each timed, with its ptxas numbers
+        and launch shape), its bound the larger of bytes and operations,
+        its overflow share (at most 1 % on the chunks); at both chunks the
+        backend's collect_chunk arrays also equal the native host oracle's;
+     d. the same at DRAM scale: one default-size chunk (66,668 reads) on a
+        genome of scale 2.0 (93.4 Mbp, an occ table beyond the 50 MB L2),
+        the timed launch's output on its first 2,048 reads held against
+        smem_collect_ref on those reads;
      c. kswv against kswv_two_phase_ref on the rescue problems of the
         first chunk of each main-path run (captured as the pipeline hands
         them to TorchBackend.rescue_batch), on a synthetic i16-class batch
-        (qlen 250-512, windows up to 2,048) and on a batch of longer
+        (qlen 250-512, windows up to 2,048), on a batch of longer
         problems (qlen 513-1,500 in the i16 class, windows up to 4,000 in
-        the u8 class), each class in DeviceKswv's launch order with the
+        the u8 class) and on an i16 batch at a = 64 whose scores saturate
+        at 32767 (qlen 513-700), each class in DeviceKswv's launch order with the
         launch's stripe placement, groups per block and ptxas numbers, and
         the earlier one-thread design's time beside the kernel's;
         DeviceKswv.align_batch against the native ksw_align on the same
@@ -107,7 +122,7 @@ ONE_THREAD_BSW_MS = {"main path": 297.656, "synthetic rungs": 112.755}
 # striped cell of the main pass, by class, and per cell of the one lazy-F
 # segment every row runs at least; the bytes of a problem's descriptors in
 # and two rows of 6 out
-KSWV_OPS_PER_CELL = {True: 10, False: 8}      # u8, i16
+KSWV_OPS_PER_CELL = {True: 10, False: 9}      # u8, i16
 KSWV_LAZY_OPS = 4
 KSWV_DESC_BYTES, KSWV_OUT_BYTES = 25, 48
 # kswv times (ms) of the earlier one-thread-per-problem design (stripes in
@@ -120,7 +135,22 @@ ONE_THREAD_KSWV_MS = {("chunk (a)", "u8"): 60.8931,
                       ("long batch", "i16"): 3201.2744}
 N_I16 = 1024             # problems in the synthetic i16-class batch
 N_LONG = 256             # problems per class in the long-problem batch
+N_WIDE = 128             # i16 problems at a = 64, whose scores saturate
 N_SEED = 2048            # reads in the seeding kernel-vs-plain sample
+# the DRAM-scale seeding pass: a genome of scale 2.0 (93.4 Mbp, an occ
+# table of ~93 MB, beyond the 50 MB L2), one default-size chunk
+DRAM_SCALE = 2.0
+# smem_collect bound model (csrc/smem_collect.cu header): the least int32
+# operations per backward_ext, the popcounts among them, and the card's
+# popcount issue rate (16 per clock per SM on sm_90)
+SMEM_OPS_PER_EXT, SMEM_POPC_PER_EXT = 131, 24
+POPC_OPS_PER_S = 132 * 16 * 1.98e9
+# smem_collect times (ms) of the earlier one-thread-per-read design (the
+# candidate lists in global scratch), measured by this script's phase 5b
+# on an NVIDIA H100 80GB HBM3 at 700.00 W, printed beside the lane-group
+# kernel's times
+ONE_THREAD_SMEM_MS = {"sample": 7.955, "chunk (a)": 11.580,
+                      "chunk (b)": 23.835}
 P_GATHER = 1 << 22       # rows of the timed row_gather calls
 PROBE_SIZES_MB = (4, 16, 64, 256, 1024, 2048, 4096)
 MAX_OVERFLOW = 0.01      # share of main-path reads allowed to the oracle
@@ -179,7 +209,8 @@ def ptxas_table(text: str) -> dict:
 def instances(text: str, kernel: str) -> dict:
     """{template arguments: ptxas numbers} of a kernel's instantiations:
     (G, C) of bsw_extend_kernel<G, C>, (u8, SMAX) of kswv_kernel<U8, SMAX>
-    (SMAX 0 = shared-memory stripes)."""
+    (SMAX 0 = shared-memory stripes), (G, LCAP) of
+    smem_collect_kernel<G, LCAP>."""
     import re
     out = {}
     for name, v in ptxas_table(text).items():
@@ -218,6 +249,12 @@ def build_all() -> dict:
         if name == "kswv":       # one line per instantiation
             for (u8, smax), v in inst:
                 log(f"  ptxas kswv<{'u8' if u8 else 'i16'}, SMAX={smax}>: "
+                    f"{v.get('registers')} registers, {v.get('spill')} B "
+                    f"spilled, {v.get('stack')} B stack frame")
+            continue
+        if name == "smem_collect":
+            for (G, lcap), v in inst:
+                log(f"  ptxas smem_collect<G={G}, LCAP={lcap}>: "
                     f"{v.get('registers')} registers, {v.get('spill')} B "
                     f"spilled, {v.get('stack')} B stack frame")
             continue
@@ -417,69 +454,123 @@ def chunk_reads(fq1: str, fq2: str, task_bases: int):
     return read_chunk(FastxReader(fq1), FastxReader(fq2), task_bases)
 
 
-def host_route(fm, encs, opt):
-    """The native host oracle's six seeding arrays (rt_collect_smems_reads,
-    the max_occ sampling of sa_positions_batch, rt_sa_entries)."""
-    from bwamem2_tpu_torch.align.chain import sa_positions_batch
-    from bwamem2_tpu_torch.native import hostrt
-    sub = hostrt.collect_smems_reads(fm, encs, opt)
-    pos, smem_off, m, n, s, occ_off = sa_positions_batch(opt, sub)
-    return smem_off, m, n, s, occ_off, hostrt.sa_entries_host(fm, pos)
+def smem_bounds(nbwd: int, N: int, L: int, nsm: int) -> tuple:
+    """smem_collect's (bytes ms, operations ms) for these inputs: 2 occ rows
+    of 32 B per backward_ext, the grid and lengths in, the written slots
+    and per-read counts out; SMEM_OPS_PER_EXT operations per backward_ext,
+    SMEM_POPC_PER_EXT of them popcounts at the popcount rate."""
+    nbytes = nbwd * 64 + N * (L + 4) + nsm * 24 + N * 12
+    ops_s = nbwd * (SMEM_POPC_PER_EXT / POPC_OPS_PER_S
+                    + (SMEM_OPS_PER_EXT - SMEM_POPC_PER_EXT)
+                    / INT32_OPS_PER_S)
+    return nbytes / HBM_BYTES_PER_S * 1e3, ops_s * 1e3
 
 
 def seeding_vs_plain(torch, fm, passes, opt) -> dict:
     """The smem_collect and sa_resolve wrappers against their plain
     versions (exact) on each pass's read grid and its SA positions, with
-    times and bounds.  passes: (tag, fq1, fq2, task_bases, n_reads or None
-    for the whole first chunk).  On whole chunks the backend's
-    collect_chunk arrays are also held against the host oracle's."""
+    times and bounds; smem_collect at every lane width (all exact, each
+    timed).  passes: (tag, fq1, fq2, task_bases, n_reads or None for the
+    whole first chunk, n_ref: the plain version's reads, None for all).
+    On whole chunks with every read held against the plain version, the
+    backend's collect_chunk arrays are also held against the host
+    oracle's."""
     import numpy as np
     from bwamem2_tpu_torch.align.seeding import encode_reads
     from bwamem2_tpu_torch.ops import seed
-    from bwamem2_tpu_torch.ops.backend import TorchBackend, _pad_reads
+    from bwamem2_tpu_torch.ops.backend import (TorchBackend, _pad_reads,
+                                               host_seeding)
     backend = TorchBackend(fm, opt)
     dfm = backend.dfm
     split_len = int(opt.min_seed_len * opt.split_factor + 0.499)
     ev = lambda: torch.cuda.Event(enable_timing=True)  # noqa: E731
+    sm = seed.smem_collect
+    ptx = instances(sm.build_log, "smem_collect")
     out = {}
-    for tag, fq1, fq2, task, n_reads in passes:
+    for tag, fq1, fq2, task, n_reads, n_ref in passes:
         encs = encode_reads([r.seq for r in
                              chunk_reads(fq1, fq2, task)[:n_reads]])
         enc, lens = _pad_reads(encs)
         e, ln = torch.from_numpy(enc).cuda(), torch.from_numpy(lens).cuda()
         N, L = e.shape
-        cap = seed.smem_cap(L)
-        args = (dfm, e, ln, opt.min_seed_len, split_len,
-                int(opt.split_width), int(opt.max_mem_intv), cap)
-        got = seed.smem_collect(*args)
-        m_c, n_c, s_c, pos = seed.compact_and_expand(*got[:5],
+        off = seed.slot_offsets(ln)
+        lcap = seed.list_cap(L)
+        rest = (opt.min_seed_len, split_len, int(opt.split_width),
+                int(opt.max_mem_intv), lcap)
+        args = (dfm, e, ln) + rest + (off,)
+        per_lanes, outs = {}, {}
+        chosen = sm.lanes_for(N)
+        try:
+            for G in sm.LANES:
+                # each width in turn: lanes_for replaced on the instance
+                sm.lanes_for = lambda n, G=G: G
+                outs[G] = sm(*args)
+                torch.cuda.synchronize()
+                blocks, threads, smem = sm.plan(G, lcap)
+                inst = ptx.get((G, lcap), {})
+                per_lanes[G] = dict(
+                    ms=cuda_ms(torch, lambda: sm(*args), 3), blocks=blocks,
+                    threads=threads, shared_bytes=smem,
+                    registers=inst.get("registers"),
+                    spill_bytes=inst.get("spill"),
+                    stack_bytes=inst.get("stack"))
+        finally:
+            del sm.lanes_for
+        got = outs[chosen]
+        # every lane width gives the same slots, counts and step counts
+        cnt = got[4].long().clamp(min=0)
+        valid = (torch.arange(int(off[-1]), device=e.device)
+                 - torch.repeat_interleave(off[:-1], off.diff())) \
+            < torch.repeat_interleave(cnt, off.diff())
+        for G, o in outs.items():
+            same = torch.equal(o[4], got[4]) and torch.equal(o[5], got[5])
+            for x, y in zip(o[:4], got[:4]):
+                same = same and torch.equal(x[valid], y[valid])
+            if not same:
+                fail(f"{tag}: smem_collect with {G} lanes differs from "
+                     f"{chosen} lanes")
+        m_c, n_c, s_c, pos = seed.compact_and_expand(*got[:5], off,
                                                      int(opt.max_occ))
         coords = seed.sa_resolve(dfm, pos)
         torch.cuda.synchronize()
-        sm_ms = cuda_ms(torch, lambda: seed.smem_collect(*args), 3)
+        sm_ms = per_lanes[chosen]["ms"]
         sa_ms = cuda_ms(torch, lambda: seed.sa_resolve(dfm, pos), 5)
         nbwd, nsm, P = int(got[5].sum()), int(s_c.numel()), pos.numel()
-        r = dict(reads=N, L=L, cap=cap, smems=nsm, positions=P,
-                 bwd_ext=nbwd, overflowed=int((got[4] < 0).sum()),
-                 smem_ms=sm_ms, sa_ms=sa_ms)
-        # smem_collect bytes: 2 occ rows of 32 B per backward_ext, the
-        # grid and lengths in, the written slots and per-read counts out
-        sm_bytes = nbwd * 64 + N * (L + 4) + nsm * 24 + N * 12
-        r["smem_bound_ms"] = sm_bytes / HBM_BYTES_PER_S * 1e3
+        overflowed = int((got[4] < 0).sum())
+        r = dict(reads=N, L=L, list_cap=lcap, slots=int(off[-1]),
+                 smems=nsm, positions=P, bwd_ext=nbwd, overflowed=overflowed,
+                 overflow_share=overflowed / N, lanes=chosen,
+                 per_lanes=per_lanes, smem_ms=sm_ms, sa_ms=sa_ms,
+                 one_thread_ms=ONE_THREAD_SMEM_MS.get(tag))
+        mem_ms, ops_ms = smem_bounds(nbwd, N, L, nsm)
+        r.update(smem_bound_ms=max(mem_ms, ops_ms), smem_mem_ms=mem_ms,
+                 smem_ops_ms=ops_ms,
+                 smem_bound_by="operations" if ops_ms >= mem_ms else "bytes")
+        # the plain version on all reads, or on the first n_ref of them,
+        # against the timed launch's own output: their slots are a prefix
+        # of the flat buffers (slot_offsets is a prefix sum)
+        sub = slice(None) if n_ref is None else slice(0, n_ref)
+        sargs = (dfm, e[sub].contiguous(), ln[sub].contiguous()) + rest \
+            + (off[:N + 1 if n_ref is None else n_ref + 1],)
+        S = int(sargs[-1][-1])
+        sgot = [x[:S] for x in got[:4]] + [x[sub] for x in got[4:]]
         e0, e1 = ev(), ev()
         e0.record()
-        want = seed.smem_collect_ref(*args)
+        want = seed.smem_collect_ref(*sargs)
         e1.record()
         torch.cuda.synchronize()
         r["smem_plain_ms"] = e0.elapsed_time(e1)
-        cnt = want[4]
-        err = max(int((got[4] - cnt).abs().max()),
-                  int((got[5] - want[5]).abs().max()))
-        slot = (torch.arange(cap, device=e.device)[None, :]
-                < cnt.clamp(min=0)[:, None])
-        for g, w in zip(got[:4], want[:4]):
+        r["smem_plain_reads"] = want[4].numel()
+        soff = sargs[-1]
+        wcnt = want[4].long()
+        err = max(int((sgot[4] - want[4]).abs().max()),
+                  int((sgot[5] - want[5]).abs().max()))
+        wvalid = (torch.arange(int(soff[-1]), device=e.device)
+                  - torch.repeat_interleave(soff[:-1], soff.diff())) \
+            < torch.repeat_interleave(wcnt.clamp(min=0), soff.diff())
+        for g, w in zip(sgot[:4], want[:4]):
             d = (g.long() - w.long()).abs()
-            err = max(err, int(torch.where(slot, d, 0).max()))
+            err = max(err, int(torch.where(wvalid, d, 0).max()))
         r["smem_err"] = err
         reads = []
         e0.record()
@@ -498,7 +589,7 @@ def seeding_vs_plain(torch, fm, passes, opt) -> dict:
                  f"versions: smem_collect max abs err {err}, sa_resolve "
                  f"{r['sa_err']}")
         note = ""
-        if n_reads is None:
+        if n_reads is None and n_ref is None:
             # the whole stage as the main path runs it, warm (host clock;
             # run() ends in its fetch), and its arrays against the oracle
             r["seeder_s"] = []
@@ -508,19 +599,31 @@ def seeding_vs_plain(torch, fm, passes, opt) -> dict:
                 r["seeder_s"].append(time.perf_counter() - t0)
             flat = backend.collect_chunk(encs, opt)
             for nm, x, y in zip(("smem_off", "m", "n", "s", "occ_off",
-                                 "coords"), flat, host_route(fm, encs, opt)):
+                                 "coords"), flat,
+                             host_seeding(fm, encs, opt)):
                 if not np.array_equal(x, y):
                     fail(f"{tag}: collect_chunk {nm} differs from the host "
                          f"oracle's")
             note = ("; collect_chunk == host oracle; FusedSeeder.run warm: "
                     + ", ".join(f"{x:.4f}s" for x in r["seeder_s"]))
         out[tag] = r
-        log(f"  {tag}: {N} reads x L={L}, cap {cap}: smem_collect "
-            f"{sm_ms:.3f} ms (bound {r['smem_bound_ms']:.4f} ms, "
-            f"{nbwd} backward_ext, {r['overflowed']} overflowed), "
+        lanes_txt = ", ".join(
+            f"G={G} {v['ms']:.3f} ms ({v['registers']} registers, "
+            f"{v['spill_bytes']} B spilled, {v['stack_bytes']} B stack, "
+            f"{v['blocks']} blocks x {v['threads']} threads, "
+            f"{v['shared_bytes']} B shared/block)"
+            for G, v in per_lanes.items())
+        log(f"  {tag}: {N} reads x L={L}, list {lcap}, {r['slots']} slots: "
+            f"smem_collect {sm_ms:.3f} ms at G={chosen} (one-thread design "
+            f"{r['one_thread_ms']} ms; bound {r['smem_bound_ms']:.4f} ms by "
+            f"{r['smem_bound_by']}: bytes {mem_ms:.4f}, operations "
+            f"{ops_ms:.4f}; {nbwd} backward_ext, overflow.fused_read "
+            f"{overflowed} = {100.0 * overflowed / N:.3f} %), "
             f"sa_resolve {sa_ms:.3f} ms on {P} positions (bound "
-            f"{r['sa_bound_ms']:.5f} ms); plain {r['smem_plain_ms']:.1f} / "
-            f"{r['sa_plain_ms']:.1f} ms, identical" + note)
+            f"{r['sa_bound_ms']:.5f} ms); plain {r['smem_plain_ms']:.1f} ms "
+            f"on {r['smem_plain_reads']} reads / {r['sa_plain_ms']:.1f} ms, "
+            f"identical" + note)
+        log(f"    lane widths, all identical: {lanes_txt}")
     return out
 
 
@@ -567,7 +670,8 @@ def rescue_vs_plain(torch, fm, opt, batches) -> dict:
             fail(f"5c {tag}: DeviceKswv differs from the native ksw_align "
                  f"on {bad} of {n} problems")
         r = dict(problems=n, u8=int(desc["u8"].sum()), native_host_s=host_s,
-                 classes={})
+                 saturated_i16=int(((want7[:, 0] == 32767)
+                                    & ~desc["u8"]).sum()), classes={})
         for u8, idx in dk.launch_order(desc):
             args = dk.kswv_args(encj, desc, idx, u8)
             Qmax, Tmax = args[8], args[9]
@@ -617,7 +721,8 @@ def rescue_vs_plain(torch, fm, opt, batches) -> dict:
                 f"registers, {inst.get('spill')} B spilled, "
                 f"{inst.get('stack')} B stack frame")
         out[tag] = r
-        log(f"  {tag}: {n} problems ({r['u8']} u8): DeviceKswv == native "
+        log(f"  {tag}: {n} problems ({r['u8']} u8, {r['saturated_i16']} "
+            f"i16 scores at 32767): DeviceKswv == native "
             f"ksw_align; native ksw_align {host_s:.4f} s on the host; kswv "
             f"{sum(c['ms'] for c in r['classes'].values()) / 1e3:.4f} s "
             f"on the card")
@@ -686,6 +791,53 @@ def gather_phase(torch, fm) -> dict:
                 tot[key] += v
         del tab, idx
     return dict(launches=launches, probe=rows, cases=per, **tot)
+
+
+def first_call_split(fq1: str, fq2: str, prefix: str) -> None:
+    """Run in a fresh process (`chip_smoke.py --first-call ...`): the
+    seeding stage's first call on run (a)'s first chunk, split into the
+    kernels' library build/load, the CUDA context, the index upload, and
+    the first FusedSeeder.run's pieces (smem_collect, compaction,
+    sa_resolve with the fetch), each ended by a synchronize; then the same
+    pieces warm.  Prints one JSON line of seconds."""
+    import torch
+    from bwamem2_tpu_torch.align.seeding import encode_reads
+    from bwamem2_tpu_torch.index.fmindex import FMIndex
+    from bwamem2_tpu_torch.ops import seed
+    from bwamem2_tpu_torch.ops.backend import TorchBackend, _pad_reads
+    from bwamem2_tpu_torch.options import MemOptions
+    out = {}
+
+    def timed(name, fn, sync=True):
+        t0 = time.perf_counter()
+        r = fn()
+        if sync:
+            torch.cuda.synchronize()
+        out[name] = time.perf_counter() - t0
+        return r
+
+    fm = FMIndex.load(prefix)
+    opt = MemOptions().finalize(None)
+    encs = encode_reads([r.seq for r in chunk_reads(fq1, fq2, TASK_BASES)])
+    enc, lens = _pad_reads(encs)
+    timed("build_load", lambda: (seed.smem_collect.lib(),
+                                 seed.sa_resolve.lib()), sync=False)
+    timed("context", lambda: torch.zeros(1, device="cuda"))
+    be = timed("index_upload", lambda: TorchBackend(fm, opt))
+    e, ln = timed("grid_upload", lambda: (torch.from_numpy(enc).cuda(),
+                                          torch.from_numpy(lens).cuda()))
+    split_len = int(opt.min_seed_len * opt.split_factor + 0.499)
+    for tag in ("first", "warm"):
+        off = seed.slot_offsets(ln)
+        got = timed(f"{tag}_smem_collect", lambda: seed.smem_collect(
+            be.dfm, e, ln, opt.min_seed_len, split_len,
+            int(opt.split_width), int(opt.max_mem_intv),
+            seed.list_cap(e.shape[1]), off))
+        flat = timed(f"{tag}_compact", lambda: seed.compact_and_expand(
+            *got[:5], off, int(opt.max_occ)))
+        timed(f"{tag}_sa_resolve_fetch", lambda: torch.cat([
+            flat[0].long(), seed.sa_resolve(be.dfm, flat[3])]).cpu())
+    print(json.dumps(out), flush=True)
 
 
 # ------------------------------------------------------------ main path
@@ -809,8 +961,16 @@ def drive_main(torch, card: str, tag: str, cli_args: list, fq1: str,
     log(f"  {tag}: {n_reads} reads in {wall:.2f}s = "
         f"{n_reads / wall:.1f} reads/s, {chunks} chunks, launches "
         f"{launches} [{card}]")
+    long_reads = PROF.c.get("overflow.long_read", 0)
+    wide = PROF.c.get("rescue.i16_wide", 0)
+    if long_reads:
+        fail(f"{tag}: {long_reads} reads too long for the read grid")
     log(f"    overflow.fused_read {overflow} of {seeded} reads "
-        f"({100.0 * overflow / n_reads:.3f} %)")
+        f"({100.0 * overflow / n_reads:.3f} %), overflow.long_read "
+        f"{long_reads} of {PROF.ctot.get('overflow.long_read', 0)} reads, "
+        f"rescue.i16_wide {wide} of "
+        f"{PROF.ctot.get('rescue.i16_wide', 0)} rescue problems (in the "
+        f"kernel)")
     log(f"    seeding.device {phases.get('seeding.device', 0.0):.3f}s "
         f"(FusedSeeder.run, {chunks} chunks) [{card}]")
     log(f"    rescue: problems per chunk {problems} (u8 {n_u8}, i16 "
@@ -820,7 +980,8 @@ def drive_main(torch, card: str, tag: str, cli_args: list, fq1: str,
     log(f"    host phases (s): {json.dumps(phases)}")
     return dict(reads=n_reads, chunks=chunks, wall_s=round(wall, 3),
                 reads_per_s=round(n_reads / wall, 1), launches=launches,
-                overflow_fused_read=overflow, rescue_problems=problems,
+                overflow_fused_read=overflow, overflow_long_read=long_reads,
+                rescue_i16_wide=wide, rescue_problems=problems,
                 rescue_u8=n_u8, phases_s=phases,
                 _capture=rescues[0][:2],
                 _bsw=[a for a in bsw_calls if a[1] is rescues[0][0]])
@@ -895,6 +1056,17 @@ def main() -> None:
     log(f"[3] data: l_pac={fm.l_pac} ({DATA_SCALE}x chr21), {N_PAIRS} "
         f"pairs, {time.perf_counter() - t0:.1f}s")
 
+    # ---- the seeding stage's first call, split, in a fresh process
+    r = subprocess.run([sys.executable, os.path.abspath(__file__),
+                        "--first-call", fq1, fq2, prefix],
+                       capture_output=True, text=True, timeout=600)
+    if r.returncode:
+        fail(f"first-call split failed:\n{r.stderr[-3000:]}")
+    first = json.loads(r.stdout.strip().splitlines()[-1])
+    log("[3b] seeding's first call on run (a)'s first chunk, fresh process "
+        f"(s) [{card}]: " + ", ".join(f"{k} {v:.4f}" for k, v in
+                                       first.items()))
+
     # ---- main path, twice: counts to 0, drive the CLI entry, read them
     os.makedirs(WORK, exist_ok=True)
     sam = os.path.join(WORK, "main_path.sam")
@@ -945,9 +1117,22 @@ def main() -> None:
             f"{bm['bound24_ms']:.5f} ms) [{card}]")
         log(f"[5b] smem_collect / sa_resolve vs plain on {name} [{card}]:")
         sd = seeding_vs_plain(torch, fm, (
-            ("sample", fq1, fq2, TASK_BASES, N_SEED),
-            ("chunk (a)", fq1, fq2, TASK_BASES, None),
-            ("chunk (b)", fq1d, fq2d, DEFAULT_TASK_BASES, None)), opt)
+            ("sample", fq1, fq2, TASK_BASES, N_SEED, None),
+            ("chunk (a)", fq1, fq2, TASK_BASES, None, None),
+            ("chunk (b)", fq1d, fq2d, DEFAULT_TASK_BASES, None, None)), opt)
+        t1 = time.perf_counter()
+        prefix2, fq1x, fq2x = benchdata.ensure(
+            os.path.join(REPO, ".tmp", f"bench_scale{DRAM_SCALE}"),
+            DRAM_SCALE, DEFAULT_PAIRS)
+        fm2 = FMIndex.load(prefix2)
+        log(f"[5d] smem_collect / sa_resolve at DRAM scale: l_pac="
+            f"{fm2.l_pac} ({DRAM_SCALE}x chr21, occ table "
+            f"{fm2.l_pac * 2 // 64 * 32 / 1e6:.1f} MB), data "
+            f"{time.perf_counter() - t1:.1f}s [{card}]:")
+        sd.update(seeding_vs_plain(torch, fm2, (
+            ("DRAM chunk", fq1x, fq2x, DEFAULT_TASK_BASES, None, N_SEED),),
+            opt))
+        del fm2
         log(f"[5c] kswv vs plain and DeviceKswv vs native ksw_align on "
             f"{name} [{card}]:")
         rs = rescue_vs_plain(torch, fm, opt, (
@@ -957,6 +1142,16 @@ def main() -> None:
             synthetic_rescue(torch, fm.ref_string, "long batch", 19, [
                 (N_LONG, (513, 1501), (600, 3001), False),
                 (N_LONG, (60, 150), (2049, 4001), True)])))
+        # i16 scores past 16 bits (a = 64, the other scores at their
+        # defaults): the kernel saturates at 32767 as the native one does
+        wide = MemOptions()
+        wide.a = 64
+        wide.finalize(None)
+        rs.update(rescue_vs_plain(torch, fm, wide, (synthetic_rescue(
+            torch, fm.ref_string, "i16 a=64 batch", 29, [
+                (N_WIDE, (513, 701), (600, 1201), False)]),)))
+        if not rs["i16 a=64 batch"]["saturated_i16"]:
+            fail("5c: no i16 score of the a=64 batch reached 32767")
         del cap_a, cap_b
         log(f"[6] gather probe on {name} [{card}]:")
         gt = gather_phase(torch, fm)
@@ -977,6 +1172,10 @@ def main() -> None:
     # largest shape the main path gave them; errors over every pass
     big = sd["chunk (b)"]
     sm_err = max(r["smem_err"] for r in sd.values())
+    for tag, r in sd.items():
+        if tag != "sample" and r["overflow_share"] > MAX_OVERFLOW:
+            fail(f"{tag}: {r['overflowed']} of {r['reads']} reads outran "
+                 f"the seeding kernel's list or slots")
     sa_err = max(r["sa_err"] for r in sd.values())
     by = lambda ops, mem: "operations" if ops >= mem else "bytes"  # noqa
     # kswv's time and bound on run (b)'s first chunk's rescue problems, the
@@ -1001,10 +1200,12 @@ def main() -> None:
              launches=launches["smem_collect"], max_abs_err=sm_err,
              ms=round(big["smem_ms"], 4),
              plain_ms=round(big["smem_plain_ms"], 3),
-             bound_ms=round(big["smem_bound_ms"], 5), bound_by="bytes",
+             bound_ms=round(big["smem_bound_ms"], 5),
+             bound_by=big["smem_bound_by"],
              library_ms=None, library_note="no PyTorch call computes SMEMs",
              shape=f"{big['reads']} reads x L={big['L']} (run (b)'s first "
-                   f"chunk), {big['bwd_ext']} backward_ext"),
+                   f"chunk), {big['bwd_ext']} backward_ext, "
+                   f"{big['lanes']} lanes per read"),
         dict(name="sa_resolve", route="cuda",
              source="bwamem2_tpu_torch/csrc/sa_resolve.cu",
              replaces="bwamem2_tpu/ops/seedall.py:602",
@@ -1039,7 +1240,8 @@ def main() -> None:
              shape=f"sum over the probe's {len(PROBE_SIZES_MB)} tables "
                    f"(4-4096 MB), P={P_GATHER} rows of 16 int32 each"),
     ]
-    result = dict(kernels=kern, card=card, main_a=run_a, main_b=run_b,
+    result = dict(kernels=kern, card=card, first_call_s=first,
+                  main_a=run_a, main_b=run_b,
                   launches=launches,
                   build_s={k: round(v, 1) for k, v in secs.items()},
                   bsw_main=bm, bsw_rungs=tot,
@@ -1056,4 +1258,8 @@ def main() -> None:
 
 
 if __name__ == "__main__":
-    main()
+    if sys.argv[1:2] == ["--first-call"]:
+        sys.path.insert(0, REPO)
+        first_call_split(*sys.argv[2:5])
+    else:
+        main()

@@ -1,5 +1,6 @@
 """The port's seeding, extension, rescue and gather kernels against their
-plain versions on the card (marker `cuda`; they skip without a GPU).
+plain versions (or the native host kernels) on the card (marker `cuda`;
+they skip without a GPU).
 
 This file imports only the port, numpy and torch — no JAX — so that it
 runs on a machine with a GPU and no JAX:
@@ -45,11 +46,26 @@ def card():
     return torch.device("cuda")
 
 
+def flat_equal(got, want, slot_off):
+    """smem_collect outputs equal: counts, backward_ext counts and every
+    read's first cnt slots (the rest is unspecified)."""
+    got = [t.cpu().numpy() for t in got]
+    want = [t.cpu().numpy() for t in want]
+    np.testing.assert_array_equal(got[4], want[4])
+    np.testing.assert_array_equal(got[5], want[5])
+    off = slot_off.cpu().numpy()
+    rid = np.repeat(np.arange(len(off) - 1), np.diff(off))
+    slot = (np.arange(off[-1]) - off[rid]) < np.maximum(want[4], 0)[rid]
+    for g, w in zip(got[:4], want[:4]):
+        np.testing.assert_array_equal(g[slot], w[slot])
+    return want[4]
+
+
 @pytest.mark.cuda
-def test_seeding_kernels_match_ref_on_card(card):
-    """smem_collect (with the default cap and a cap of 5 that overflows
-    most reads) and sa_resolve (every BWT position) against their plain
-    versions on the card."""
+def test_seeding_kernels_match_ref_on_card(card, monkeypatch):
+    """smem_collect at each lane width, with the default route rules and
+    with 5 slots per read (most reads overflow), and sa_resolve (every BWT
+    position) against their plain versions on the card."""
     fm = FMIndex.load(PREFIX)
     dfm = DeviceFMIndex.from_host(fm, card)
     reads = read_chunk(FastxReader(os.path.join(DATA, "reads_r1.fq")),
@@ -58,19 +74,23 @@ def test_seeding_kernels_match_ref_on_card(card):
     enc, lens = _pad_reads(encode_reads([r.seq for r in reads]))
     e, ln = torch.from_numpy(enc).to(card), torch.from_numpy(lens).to(card)
     opt = MemOptions().finalize()
-    for cap in (tseed.smem_cap(enc.shape[1]), 5):
-        args = (dfm, e, ln, opt.min_seed_len, 29, opt.split_width,
-                opt.max_mem_intv, cap)
-        n = tseed.smem_collect.launches
-        got = [t.cpu().numpy() for t in tseed.smem_collect(*args)]
-        torch.cuda.synchronize()
-        assert tseed.smem_collect.launches == n + 1
-        want = [t.cpu().numpy() for t in tseed.smem_collect_ref(*args)]
-        np.testing.assert_array_equal(got[4], want[4])
-        np.testing.assert_array_equal(got[5], want[5])
-        slot = np.arange(cap)[None, :] < np.maximum(want[4], 0)[:, None]
-        for g, w in zip(got[:4], want[:4]):
-            np.testing.assert_array_equal(g[slot], w[slot])
+    rule = tseed.slot_offsets(ln)
+    five = torch.arange(len(lens) + 1, device=card, dtype=torch.int64) * 5
+    for lanes in tseed.smem_collect.LANES:
+        # the width lanes_for would pick for another read count
+        monkeypatch.setattr(tseed.smem_collect, "lanes_for",
+                            lambda N, G=lanes: G)
+        lcap = tseed.list_cap(enc.shape[1])
+        for off in (rule, five):
+            args = (dfm, e, ln, opt.min_seed_len, 29, opt.split_width,
+                    opt.max_mem_intv, lcap, off)
+            n = tseed.smem_collect.launches
+            got = tseed.smem_collect(*args)
+            torch.cuda.synchronize()
+            assert tseed.smem_collect.launches == n + 1
+            cnt = flat_equal(got, tseed.smem_collect_ref(*args), off)
+            assert ((cnt < 0).any()) == (off is five)
+    monkeypatch.undo()
     pos = torch.arange(fm.ref_seq_len, device=card)
     n = tseed.sa_resolve.launches
     got = tseed.sa_resolve(dfm, pos)
@@ -82,35 +102,57 @@ def test_seeding_kernels_match_ref_on_card(card):
 
 @pytest.mark.cuda
 def test_smem_collect_long_reads_on_card(card):
-    """Reads of 300-1,000 bp (mutated genome slices, some with N bases):
-    the kernel's per-grid scratch takes any read length."""
+    """Mixed read lengths: 256 reads of 300-1,000 bp (mutated genome
+    slices, some with N bases) against smem_collect_ref, and a chunk of
+    2x150 reads with one 12 kb read against the host oracle (the plain
+    version takes minutes on a 12 kb read): each read's slots are its own,
+    so any read length takes the kernel."""
+    from bwamem2_tpu_torch.align.chain import sa_positions_batch
+    from bwamem2_tpu_torch.native import hostrt
     fm = FMIndex.load(PREFIX)
     dfm = DeviceFMIndex.from_host(fm, card)
     with open(os.path.join(DATA, "ref_small.fa")) as f:
         genome = "".join(ln.strip() for ln in f if not ln.startswith(">"))
     rng = np.random.default_rng(7)
-    seqs = []
-    for _ in range(256):
-        ln = int(rng.integers(300, 1001))
+
+    def sliced(ln, alphabet="ACGTN", every=80):
         p = int(rng.integers(0, len(genome) - ln))
         s = list(genome[p:p + ln])
-        for _ in range(ln // 80):
-            s[int(rng.integers(0, ln))] = "ACGTN"[int(rng.integers(0, 5))]
-        seqs.append("".join(s))
-    enc, lens = _pad_reads(encode_reads(seqs))
-    e, ln = torch.from_numpy(enc).to(card), torch.from_numpy(lens).to(card)
+        for _ in range(ln // every):
+            s[int(rng.integers(0, ln))] = alphabet[int(rng.integers(
+                0, len(alphabet)))]
+        return "".join(s)
+
     opt = MemOptions().finalize()
-    cap = tseed.smem_cap(enc.shape[1])
-    args = (dfm, e, ln, opt.min_seed_len, 29, opt.split_width,
-            opt.max_mem_intv, cap)
-    got = [t.cpu().numpy() for t in tseed.smem_collect(*args)]
-    want = [t.cpu().numpy() for t in tseed.smem_collect_ref(*args)]
-    np.testing.assert_array_equal(got[4], want[4])
-    np.testing.assert_array_equal(got[5], want[5])
-    assert (want[4] > 0).all()
-    slot = np.arange(cap)[None, :] < np.maximum(want[4], 0)[:, None]
-    for g, w in zip(got[:4], want[:4]):
-        np.testing.assert_array_equal(g[slot], w[slot])
+    seqs = [sliced(int(rng.integers(300, 1001))) for _ in range(256)]
+    reads = read_chunk(FastxReader(os.path.join(DATA, "reads_r1.fq")),
+                       FastxReader(os.path.join(DATA, "reads_r2.fq")),
+                       10**9)[:200]
+    for encs, oracle in ((encode_reads(seqs), False),
+                         (encode_reads([r.seq for r in reads]
+                                       + [sliced(12_000, "ACGT", 200)]),
+                          True)):
+        enc, lens = _pad_reads(encs)
+        e = torch.from_numpy(enc).to(card)
+        ln = torch.from_numpy(lens).to(card)
+        off = tseed.slot_offsets(ln)
+        args = (dfm, e, ln, opt.min_seed_len, 29, opt.split_width,
+                opt.max_mem_intv, tseed.list_cap(enc.shape[1]), off)
+        got = tseed.smem_collect(*args)
+        if not oracle:
+            assert (flat_equal(got, tseed.smem_collect_ref(*args), off)
+                    > 0).all()
+            continue
+        m, n, _, s, cnt, _ = (t.cpu().numpy() for t in got)
+        assert (cnt >= 0).all() and cnt[-1] > 100
+        _, smem_off, hm, hn, hs, _ = sa_positions_batch(
+            opt, hostrt.collect_smems_reads(fm, encs, opt))
+        np.testing.assert_array_equal(np.diff(smem_off), cnt)
+        o = off.cpu().numpy()
+        rid = np.repeat(np.arange(len(lens)), np.diff(o))
+        slot = (np.arange(o[-1]) - o[rid]) < cnt[rid]
+        for g, w in ((m, hm), (n, hn), (s, hs)):
+            np.testing.assert_array_equal(g[slot], w)
 
 
 @pytest.mark.cuda
@@ -202,6 +244,32 @@ def test_device_kswv_long_problems_on_card(card):
     np.testing.assert_array_equal(got, ksw_align_desc(enc, fm.ref_string,
                                                       desc, opt))
     assert (got[:, 6] >= 0).sum() > 0                 # some were rescued
+
+
+@pytest.mark.cuda
+def test_i16_beyond_16_bits_takes_native_kernel_on_card(card):
+    """On the card, i16 problems whose scores pass 16 bits (513-560
+    bases, a = 64) run in the kernel beside the others, in one launch,
+    saturating at 32767 as the native ksw_align does; the batch equals the
+    native ksw_align."""
+    fm = FMIndex.load(PREFIX)
+    dfm = DeviceFMIndex.from_host(fm, card)
+    opt = MemOptions()
+    opt.a = 64
+    opt.finalize()
+    enc, desc = rescue_batch(fm.ref_string, [
+        dict(seed=21, n=4, qr=(513, 560), tr=(600, 900), nmut=0,
+             n_every=99, plant=7, u8=False),
+        dict(seed=23, n=32, qr=(100, 400), tr=(200, 900), nmut=3,
+             n_every=5, plant=7, u8=False)])
+    dk = DeviceKswv(dfm, opt)
+    assert int(dk.wide(desc).sum()) == 4
+    n0 = kswv.launches
+    got = dk.align_batch(torch.from_numpy(enc).to(card), desc)
+    assert kswv.launches == n0 + 1
+    want = ksw_align_desc(enc, fm.ref_string, desc, opt)
+    np.testing.assert_array_equal(got, want)
+    assert (want[:4, 0] == 32767).any()
 
 
 def extension_batch(genome: np.ndarray, seed: int, P: int, Qmax: int,

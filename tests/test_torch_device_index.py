@@ -10,7 +10,9 @@
   tests/test_device_kernels.py::test_occ_hi_plane_above_2gbp, rebuilt
   here, against brute force and the JAX primitives.
 * csrc/fm_occ.cuh compiled as host C++ — the code the kernels run, minus
-  the launch — equals the plain primitives on both indexes.
+  the launch — equals the plain primitives on both indexes.  The same
+  host build carries csrc/smem_group.cuh, which tests/test_torch_seed.py
+  holds against smem_collect_ref.
 """
 
 import ctypes
@@ -38,10 +40,14 @@ torch.set_num_threads(1)
 PREFIX = os.path.join(FIXTURES, "ref_small.fa")
 
 # host build of the kernels' shared device code: the primitives of
-# fm_occ.cuh and the per-read seeding of smem_collect_dp.cuh, each behind a
-# loop over the batch in place of the launch
+# fm_occ.cuh and the lane-group seeding body of smem_group.cuh (G lanes
+# stepped in lockstep), each behind a loop over the batch in place of the
+# launch; the group body's event counts land in smem_stats
 SHIM = r'''
-#include "smem_collect_dp.cuh"
+#include <vector>
+static long long smem_stats[2];
+#define SMEM_STAT_HOOK(what, n) (smem_stats[what] += (n))
+#include "smem_group.cuh"
 #define FMARGS const int32_t *occp, const int32_t *occ_hi, int has_hi, \
     const int64_t *counts, int64_t sent
 static FmView mk(FMARGS) {
@@ -75,21 +81,29 @@ extern "C" void h_sa_entry(FMARGS, const int8_t *ms, const uint32_t *ls,
   int steps;
   for (int64_t i = 0; i < n; ++i) out[i] = fm_sa_entry(f, ms, ls, pos[i], &steps);
 }
-extern "C" void h_smem_collect(FMARGS, const int8_t *enc, const int32_t *lens,
-    int N, int L, int msl, int split_len, int64_t split_width,
-    int64_t max_mem_intv, int cap, int32_t *sc_n, int64_t *sc_k,
-    int64_t *sc_l, int64_t *sc_s, int32_t *om, int32_t *on, int64_t *ok,
-    int64_t *os, int32_t *ocnt, int64_t *onbwd) {
-  FmView f = mk(occp, occ_hi, has_hi, counts, sent);
-  SmemParams p{msl, split_len, split_width, max_mem_intv};
-  for (int r = 0; r < N; ++r) {
-    SmemScratch sc{sc_n + r, sc_k + r, sc_l + r, sc_s + r, (int64_t)N, L + 1};
-    int64_t o0 = (int64_t)r * cap;
-    SmemOut o{om + o0, on + o0, ok + o0, os + o0, cap, 0, 0};
-    smem_collect_read(f, enc + (int64_t)r * L, lens[r], p, sc, o);
-    ocnt[r] = o.cnt;
-    onbwd[r] = o.nbwd;
-  }
+template <int G>
+static void group_reads(const SmemBatch &b, int lcap) {
+  std::vector<int64_t> mem(smem_group_bytes(lcap) / 8 + 1);
+  const SmemGroup<G> g;
+  for (int r = 0; r < b.N; ++r)
+    smem_group_run(g, b, lcap, r, reinterpret_cast<unsigned char *>(mem.data()));
+}
+extern "C" int h_smem_group(FMARGS, const int8_t *enc, const int32_t *lens,
+    const int64_t *slot_off, int N, int L, int msl, int split_len,
+    int64_t split_width, int64_t max_mem_intv, int G, int lcap, int32_t *om,
+    int32_t *on, int64_t *ok, int64_t *os, int32_t *ocnt, int64_t *onbwd,
+    int64_t *stats) {
+  SmemBatch b{mk(occp, occ_hi, has_hi, counts, sent), enc, lens, nullptr,
+              slot_off, N, L, SmemParams{msl, split_len, split_width,
+                                         max_mem_intv},
+              om, on, ok, os, ocnt, onbwd};
+  smem_stats[0] = smem_stats[1] = 0;
+  if (G == 16) group_reads<16>(b, lcap);
+  else if (G == 32) group_reads<32>(b, lcap);
+  else return 1;
+  stats[0] = smem_stats[0];
+  stats[1] = smem_stats[1];
+  return 0;
 }
 '''
 
@@ -164,22 +178,29 @@ class HostFm:
                   ctypes.c_int64(len(pos)), out)
         return out
 
-    def smem_collect(self, enc, lens, msl, split_len, split_width,
-                     max_mem_intv, cap):
+    def smem_group(self, enc, lens, msl, split_len, split_width,
+                   max_mem_intv, lcap, slot_off, G):
+        """smem_group.cuh's body with G lanes over every read: (m, n, k, s
+        flat slots, cnt, nbwd, {"passes", "ties"})."""
         enc = np.ascontiguousarray(enc, np.int8)
         lens = np.ascontiguousarray(lens, np.int32)
+        slot_off = np.ascontiguousarray(slot_off, np.int64)
         N, L = enc.shape
-        sc_n = np.zeros(2 * (L + 1) * N, np.int32)
-        sc = [np.zeros(2 * (L + 1) * N, np.int64) for _ in range(3)]
-        m, n = np.zeros((N, cap), np.int32), np.zeros((N, cap), np.int32)
-        k, s = np.zeros((N, cap), np.int64), np.zeros((N, cap), np.int64)
+        S = int(slot_off[-1])
+        m, n = np.zeros(S, np.int32), np.zeros(S, np.int32)
+        k, s = np.zeros(S, np.int64), np.zeros(S, np.int64)
         cnt, nbwd = np.zeros(N, np.int32), np.zeros(N, np.int64)
+        stats = np.zeros(2, np.int64)
         I = ctypes.c_int
-        self.call("h_smem_collect", enc, lens, I(N), I(L), I(msl),
-                  I(split_len), ctypes.c_int64(split_width),
-                  ctypes.c_int64(max_mem_intv), I(cap), sc_n, *sc, m, n, k,
-                  s, cnt, nbwd)
-        return m, n, k, s, cnt, nbwd
+        fn = self.lib.h_smem_group
+        fn.restype = ctypes.c_int
+        args = [self._p(a) if isinstance(a, np.ndarray) else a for a in (
+            enc, lens, slot_off, I(N), I(L), I(msl), I(split_len),
+            ctypes.c_int64(split_width), ctypes.c_int64(max_mem_intv), I(G),
+            I(lcap), m, n, k, s, cnt, nbwd, stats)]
+        assert fn(*self.fm, *args) == 0, G
+        return m, n, k, s, cnt, nbwd, dict(passes=int(stats[0]),
+                                           ties=int(stats[1]))
 
 
 @pytest.fixture(scope="session")

@@ -18,6 +18,11 @@ is integer):
     lazy-F sweeps, qe decided by its tie rule (tie_windows) and the 2-bit
     packed genome;
   * DeviceKswv's length-sorted launch order against descriptor order;
+  * the i16 problems whose scores can pass 16 bits, where the plain
+    version and the kernel's group source saturate at 32767 as the native
+    ksw_align does, against it (and the JAX package, which sends qlen >
+    512 to the native kernel; below that its int32 emulation does not
+    saturate, so it is not the reference there);
   * the real rescue descriptors of the reads_r1/r2.fq chunk, from
     hostrt.rescue_pre_batch, through the port's and JAX's DeviceKswv.
 Inputs are made with numpy from fixed seeds.
@@ -60,6 +65,7 @@ PREFIX = os.path.join(FIXTURES, "ref_small.fa")
 DEFAULT = (1, 4, 6, 1, 6, 1)          # a b o_del e_del o_ins e_ins
 GAPS = (1, 4, 5, 2, 4, 1)             # -O5,4 -E2,1
 B2 = (1, 2, 6, 1, 6, 1)               # -B2
+A120 = (120, 4, 6, 1, 6, 1)           # -A120: i16 scores pass 32767
 MIN_SEED_LEN = 19
 
 
@@ -86,6 +92,9 @@ WINDOWS = {
     "tiny": (dict(seed=59, n=48, L=48, qr=(6, 48), tr=(20, 200), nmut=1,
                   n_every=7, plant=3), 48, 200),
     "ties": (None, 64, 160),        # tie_windows()
+    # i16 queries of 280-400 bases: at -A120 the planted ones saturate
+    "wide": (dict(seed=37, n=24, L=400, qr=(280, 401), tr=(300, 800),
+                  nmut=3, n_every=5, plant=11), 400, 800),
 }
 CASES = {   # name: (windows, u8 class, scoring)
     "u8_default": ("u8", True, DEFAULT),
@@ -101,7 +110,11 @@ CASES = {   # name: (windows, u8 class, scoring)
     "u8_short_gaps": ("tiny", True, GAPS),
     "u8_ties": ("ties", True, DEFAULT),
     "i16_ties": ("ties", False, DEFAULT),
+    "i16_wide": ("wide", False, A120),
 }
+# JAX's kswv_two_phase emulates the i16 class in int32 without saturating,
+# so it is the reference only where no score reaches 32767
+JAX_CASES = [c for c in CASES if c != "i16_wide"]
 
 
 @functools.lru_cache(maxsize=None)
@@ -177,7 +190,7 @@ def packed_genome() -> np.ndarray:
     return dfm.ref.numpy()
 
 
-@pytest.mark.parametrize("case", list(CASES))
+@pytest.mark.parametrize("case", JAX_CASES)
 def test_ref_matches_jax_two_phase(case):
     win, u8, sc = CASES[case]
     _, Qmax, Tmax = WINDOWS[win]
@@ -213,6 +226,75 @@ def test_device_kswv_matches_native():
     assert kswv_cuda.kswv.plain_calls == n0 + 2       # one per class
     np.testing.assert_array_equal(got, ksw_align_desc(enc, genome(), desc,
                                                       opt))
+
+
+def test_i16_beyond_16_bits_takes_native_kernel():
+    """A 528-base perfect match at a = 64 (the other scores at their
+    defaults): round_up(qlen, 16) * a > 32767, so the native ksw_align
+    saturates its i16 score at 32767 where an int32 emulation would give
+    33,792.  TorchBackend(device="cpu").rescue_batch runs it, and a
+    300-base i16 problem beside it, in one call of the kernel's plain
+    version, which saturates as the native kernel does (counted as
+    rescue.i16_wide), and equals the native ksw_align and the JAX
+    package's rescue (which sends every qlen > 512 to the native
+    kernel)."""
+    from bwamem2_tpu_torch.ops.backend import TorchBackend
+    from bwamem2_tpu_torch.utils.profiling import PROF
+    g = genome()
+    opt = MemOptions()
+    opt.a = 64
+    opt.finalize()
+    L = 528
+    enc = np.full((2, L), 4, np.int8)
+    enc[0] = g[5007:5007 + L]
+    enc[1, :300] = g[20011:20311]
+    desc = dict(qoff=np.array([0, L], np.int32),
+                qdir=np.array([1, 1], np.int32),
+                qcomp=np.zeros(2, bool), qlen=np.array([L, 300], np.int32),
+                toff=np.array([5000, 20000], np.int64),
+                tlen=np.array([700, 400], np.int32), u8=np.zeros(2, bool))
+    want = ksw_align_desc(enc, g, desc, opt)
+    assert want[0, 0] == 32767 and want[1, 0] == 300 * 64
+    be = TorchBackend(FMIndex.load(PREFIX), opt, device="cpu")
+    be._bsw.encj = torch.from_numpy(enc)
+    PROF.c.pop("rescue.i16_wide", None)
+    n0 = kswv_cuda.kswv.plain_calls
+    got = be.rescue_batch(desc)
+    assert PROF.c["rescue.i16_wide"] == 1
+    assert kswv_cuda.kswv.plain_calls == n0 + 1
+    np.testing.assert_array_equal(got, want)
+    jdfm = SimpleNamespace(ref=jnp.asarray(g), ref_packed=False)
+    jdesc = dict(desc, enc_host=lambda i, ql: enc[i, :ql].astype(np.uint8),
+                 ref_host=lambda i, tl: g[desc["toff"][i]:
+                                          desc["toff"][i] + tl])
+    np.testing.assert_array_equal(
+        got, JaxDeviceKswv(jdfm, opt).align_batch(jnp.asarray(enc), jdesc))
+
+
+def test_i16_saturation_matches_native():
+    """At -A120 the i16 windows of 280-400 bases saturate (scores up to
+    48,000 in int32): DeviceKswv.align_batch on the CPU equals the native
+    ksw_align per problem.  JAX's kswv_two_phase, which keeps these
+    problems (qlen <= 512) in its int32 emulation, does not saturate and
+    differs from both (a caveat on the reference side)."""
+    enc, *w = windows("wide")
+    desc = dict(zip(("qoff", "qdir", "qcomp", "qlen", "toff", "tlen"), w),
+                u8=np.zeros(len(w[0]), bool))
+    opt = MemOptions()
+    opt.a = 120
+    opt.finalize()
+    dk = DeviceKswv(DeviceFMIndex.from_genome(genome(), "cpu"), opt)
+    assert int(dk.wide(desc).sum()) == len(w[0])
+    got = dk.align_batch(torch.from_numpy(enc), desc)
+    want = ksw_align_desc(enc, genome(), desc, opt)
+    assert (want[:, 0] == 32767).sum() >= 4
+    np.testing.assert_array_equal(got, want)
+    _, Qmax, Tmax = WINDOWS["wide"]
+    jax0 = kswv_two_phase(jnp.asarray(genome()),
+                          *[jnp.asarray(x) for x in windows("wide")],
+                          jnp.ones(len(w[0]), bool), Qmax, Tmax,
+                          MIN_SEED_LEN * 120, *A120, False, False)[0]
+    assert int(np.asarray(jax0)[:, 0].max()) > 32767
 
 
 def test_device_kswv_launch_order_keeps_output():
@@ -333,6 +415,7 @@ HOST_DP = {
     "u8_qe_ties": ("u8_ties", False, False, 8),
     "i16_qe_ties": ("i16_ties", False, False, 16),
     "i16_qe_ties_shared": ("i16_ties", False, True, 0),
+    "i16_saturating": ("i16_wide", False, False, 0),
 }
 
 
@@ -340,8 +423,8 @@ HOST_DP = {
 def test_cuda_dp_source_matches_ref(host_dp, name):
     """The kernel's group source, built with g++, equals the plain version
     array for array: u8 and i16, registers and pointer stripes (the
-    launch's own choice, and pointer stripes forced), saturating u8 lanes,
-    the packed genome, rows that need several lazy-F sweeps and qe decided
+    launch's own choice, and pointer stripes forced), saturating u8 and
+    i16 lanes, the packed genome, rows that need several lazy-F sweeps and qe decided
     by the tie rule."""
     case, packed, force_ptr, bucket = HOST_DP[name]
     got, smax, sweeps = run_host_dp(host_dp, case, packed, force_ptr)
@@ -353,6 +436,8 @@ def test_cuda_dp_source_matches_ref(host_dp, name):
         np.testing.assert_array_equal(got[0], plain(case)[0])
     if case == "u8_short_gaps":     # F crossed several stripe boundaries
         assert sweeps >= 3
+    if case == "i16_wide":
+        assert (want[0][:, 0] == 32767).any()
     assert 1 <= sweeps <= 16
 
 

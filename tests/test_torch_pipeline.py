@@ -170,6 +170,65 @@ def test_long_read_pe_rescue_on_device_route(fm, rescued):
     assert out[False] == out[True]
 
 
+@pytest.mark.parametrize("native_rt", [True, False],
+                         ids=["native_rt", "python_rt"])
+def test_long_mates_off_grid_rescue_on_host(fm, monkeypatch, native_rt):
+    """Reads longer than the read grid takes (GRID_MAX_READ_LEN, lowered
+    to 599 here, for 600 bp first mates beside 500 bp second mates): each
+    is seeded alone on the host oracle (overflow.long_read) while the
+    other reads go through the seeding kernel's plain version; a rescue
+    whose query is a long mate stays out of the batch and runs on the host
+    (overflow.rescue_miss), the others go through rescue_batch.  The SAM
+    equals the host-native run's, through the native runtime
+    (hostrt.rescue_pre_batch) and the Python one
+    (pairing.batch_rescue_pre)."""
+    rng = np.random.default_rng(79)
+    comp = {"A": "T", "C": "G", "G": "C", "T": "A"}
+    reads = []
+    for i in range(32):     # >= 10 proper pairs, so pestat succeeds
+        isize = int(rng.normal(1000, 40))
+        p = int(rng.integers(0, fm.l_pac - isize))
+        frag = "".join("ACGTN"[c] for c in fm.ref_string[p:p + isize])
+        r1 = frag[:600]
+        r2 = "".join(comp.get(c, "N") for c in frag[-500:])[::-1]
+        if i % 4 == 0:      # knock one mate's seeds out so rescue fires
+            r2 = "".join("ACGT"[c] for c in rng.integers(0, 4, 500))
+        if i % 4 == 1:
+            r1 = "".join("ACGT"[c] for c in rng.integers(0, 4, 600))
+        for seq in (r1, r2):
+            reads.append(Read(name=f"M{i}", comment=None, seq=seq,
+                              qual="I" * len(seq)))
+    opt = MemOptions().finalize()
+    opt.flag |= MEM_F_PE
+    monkeypatch.setattr(TorchBackend, "GRID_MAX_READ_LEN", 599)
+    seen = []
+    orig = TorchBackend.rescue_batch
+
+    def spy(self, desc):
+        seen.append(desc["qlen"])
+        return orig(self, desc)
+
+    monkeypatch.setattr(TorchBackend, "rescue_batch", spy)
+    out = {}
+    for backend in (TorchBackend(fm, opt, device="cpu"), None):
+        rd = [Read(name=r.name, comment=None, seq=r.seq, qual=r.qual)
+              for r in reads]
+        for k in ("overflow.long_read", "overflow.rescue_miss"):
+            PROF.c.pop(k, None)
+        n0 = smem_collect.plain_calls
+        Aligner(fm, opt, backend=backend, verbose=0,
+                native_rt=native_rt or backend is None).process(rd, 0)
+        out[backend is None] = "".join(r.sam for r in rd)
+        if backend is not None:
+            assert PROF.c["overflow.long_read"] == 32
+            assert smem_collect.plain_calls == n0 + 1
+            assert backend.read_grid_width() == 504
+            assert PROF.c["overflow.rescue_miss"] > 0
+    assert sum(map(len, seen)) > 0
+    assert max(int(q.max()) for q in seen) == 500
+    assert out[False] == out[True]
+
+
 def test_cli_mem_device_cpu_pe_golden(tmp_path):
     out = tmp_path / "pe.sam"
     rc = cli.main(["mem", "--device", "cpu", "-v", "0", "-o", str(out),
@@ -193,3 +252,20 @@ def test_cli_mem_default_device_needs_cuda(tmp_path):
         cli.main(["mem", "-o", str(out), PREFIX,
                   os.path.join(DATA, "reads_r1.fq")])
     assert not out.exists()
+
+
+def test_exit_parameter_echo(tmp_path, capsys):
+    """The port's `mem` ends with the reference's "Important parameter
+    settings" echo (tests/test_verbose_parity.py::test_exit_parameter_echo),
+    with the port's own constants under the same keys."""
+    rc = cli.main(["mem", "--device", "cpu", "-v", "1", "-o",
+                   str(tmp_path / "se.sam"), PREFIX,
+                   os.path.join(DATA, "reads_r1.fq")])
+    assert rc == 0
+    err = capsys.readouterr().err
+    assert "Important parameter settings:" in err
+    for key in ("MAX_SEQ_LEN_REF", "MAX_SEQ_LEN_QER", "LONG_QCAP",
+                "VPU_LANES", "SEED_CAND_SLOTS", "SEEDS_PER_READ",
+                "SA_COORDS_PER_READ"):
+        assert key in err
+    assert "SEED_CAND_SLOTS (on-chip list, by grid width): 160/320" in err

@@ -11,8 +11,13 @@
   oracle) and still gives identical arrays.
 * Every chunk takes the device route: reads of 600 and 1,000 bp equal the
   host oracle's arrays, and chunks without bases give empty arrays.
-* csrc/smem_collect_dp.cuh compiled as host C++ equals smem_collect_ref,
-  slots, counts, overflow flags and backward_ext counts.
+* csrc/smem_group.cuh compiled as host C++ (each lane group stepped in
+  lockstep) equals smem_collect_ref, slots, counts, overflow flags and
+  backward_ext counts, at every lane width and on both overflow routes
+  (slots, candidate list); on a chunk with a 12 kb read it equals the host
+  oracle.  The wrapper's buffers are linear in the chunk's bases
+  (plan_bytes), and a chunk with a read over 32,000 bp seeds on the host
+  oracle, its SAM equal to the host-native run's.
 * sa_resolve_ref equals JAX sa_lookup_kernel (and the host-built
   fm_sa_entry, and the native rt_sa_entries) on every BWT position.
 Tolerance 0 throughout: everything is integer.
@@ -30,7 +35,9 @@ from bwamem2_tpu.io.fastq import FastxReader, read_chunk
 from bwamem2_tpu.options import MemOptions as JaxMemOptions
 from bwamem2_tpu.ops.backend import DeviceBackend
 from bwamem2_tpu.ops.salookup import sa_lookup_kernel
+from bwamem2_tpu_torch import benchdata
 from bwamem2_tpu_torch.align.chain import sa_positions_batch
+from bwamem2_tpu_torch.index.build import build_index
 from bwamem2_tpu_torch.index.fmindex import FMIndex
 from bwamem2_tpu_torch.native import hostrt
 from bwamem2_tpu_torch.ops import seed as tseed
@@ -109,17 +116,36 @@ def test_collect_chunk_matches_jax(fm, encs, jax_arrays):
     check_equal(got, jax_arrays)
 
 
+def four_slots(lens):
+    off = torch.zeros(lens.shape[0] + 1, dtype=torch.int64)
+    off[1:] = torch.arange(1, lens.shape[0] + 1) * 4
+    return off
+
+
 def test_small_cap_patch_path_matches_jax(fm, encs, jax_arrays,
                                          monkeypatch):
-    """cap 4: most reads outrun their slots and are re-seeded by the host
-    oracle in _patch_chunk; the arrays do not change."""
+    """4 slots per read: most reads outrun their slots and are re-seeded by
+    the host oracle in _patch_chunk; the arrays do not change."""
     opt = MemOptions().finalize()
     be = TorchBackend(fm, opt, device="cpu")
-    monkeypatch.setattr(tseed, "smem_cap", lambda L: 4)
+    monkeypatch.setattr(tseed, "slot_offsets", four_slots)
     PROF.c.pop("overflow.fused_read", None)
     got = be.collect_chunk(encs, opt)
     n_bad = PROF.c["overflow.fused_read"]
     assert 0 < n_bad < len(encs)
+    check_equal(got, jax_arrays)
+
+
+def test_small_list_patch_path_matches_jax(fm, encs, jax_arrays,
+                                          monkeypatch):
+    """A candidate list of 10 entries: reads whose forward walks push more
+    are re-seeded by the host oracle; the arrays do not change."""
+    opt = MemOptions().finalize()
+    be = TorchBackend(fm, opt, device="cpu")
+    monkeypatch.setattr(tseed, "list_cap", lambda L: 10)
+    PROF.c.pop("overflow.fused_read", None)
+    got = be.collect_chunk(encs, opt)
+    assert 0 < PROF.c["overflow.fused_read"] < len(encs)
     check_equal(got, jax_arrays)
 
 
@@ -168,28 +194,194 @@ def test_collect_chunk_takes_every_chunk(fm, case):
         assert len(got[5]) > 0
 
 
-@pytest.mark.parametrize("cap", [64, 5], ids=["cap64", "cap5"])
-def test_smem_collect_dp_header_matches_ref(tmp_path, fm, encs, cap):
-    """csrc/smem_collect_dp.cuh (host build, one loop iteration per read in
-    place of one thread per read) == smem_collect_ref, including the
-    overflow flags of a small cap."""
+# (lanes G, list capacity, slots per read or None for slot_offsets' rule)
+GROUP_CASES = {"cap64": (16, 160, 64), "cap5": (16, 160, 5),
+               "G16": (16, 160, None), "G32": (32, 160, None),
+               "G32_list10": (32, 10, None), "G16_list10": (16, 10, None),
+               "G32_cap5": (32, 160, 5)}
+
+
+@pytest.mark.parametrize("case", list(GROUP_CASES))
+def test_smem_collect_dp_header_matches_ref(tmp_path, fm, encs, case):
+    """csrc/smem_group.cuh (host build: the G lanes of one group stepped in
+    lockstep, one read after another in place of the persistent grid) ==
+    smem_collect_ref, slots, counts, overflow flags and backward_ext
+    counts: at both lane widths, with equal-s survivors dropped as ties,
+    and on the overflow routes of a small slot count (cap5) and a small
+    list (list10).  The inputs hold N
+    runs, reads below min_seed_len and an all-N read."""
+    G, lcap, per = GROUP_CASES[case]
+    seqs = seedall_inputs()
+    assert "N" * 40 in seqs and "ACGT" * 5 in seqs
+    assert any("N" in x and set(x) != {"N"} for x in seqs)
     lib = build_host_shim(str(tmp_path))
     dfm = DeviceFMIndex.from_host(fm, "cpu")
     opt = MemOptions().finalize()
     enc, lens = _pad_reads(encs)
     split_len = int(opt.min_seed_len * opt.split_factor + 0.499)
+    lt = torch.from_numpy(lens)
+    off = tseed.slot_offsets(lt)
+    if per is not None:
+        off = torch.arange(len(lens) + 1, dtype=torch.int64) * per
     args = (opt.min_seed_len, split_len, opt.split_width, opt.max_mem_intv,
-            cap)
-    hm, hn, hk, hs, hcnt, hnb = HostFm(lib, dfm).smem_collect(enc, lens,
-                                                              *args)
-    rm, rn, rk, rs, rcnt, rnb = (t.numpy() for t in tseed.smem_collect_ref(
-        dfm, torch.from_numpy(enc), torch.from_numpy(lens), *args))
-    np.testing.assert_array_equal(hcnt, rcnt)
-    np.testing.assert_array_equal(hnb, rnb)
-    assert (rnb > 0).any() and (cap == 64) == (rcnt >= 0).all()
-    slot = np.arange(cap)[None, :] < np.maximum(rcnt, 0)[:, None]
-    for h, r in ((hm, rm), (hn, rn), (hk, rk), (hs, rs)):
-        np.testing.assert_array_equal(h[slot], r[slot])
+            lcap)
+    *h, stats = HostFm(lib, dfm).smem_group(enc, lens, *args, off.numpy(),
+                                            G)
+    r = [t.numpy() for t in tseed.smem_collect_ref(
+        dfm, torch.from_numpy(enc), lt, *args, off)]
+    np.testing.assert_array_equal(h[4], r[4])
+    np.testing.assert_array_equal(h[5], r[5])
+    overflow = int((r[4] < 0).sum())
+    assert (r[5] > 0).any()
+    assert (overflow > 0) == (per == 5 or lcap == 10)
+    assert overflow < len(lens)
+    assert stats["ties"] > 0
+    o = off.numpy()
+    rid = np.repeat(np.arange(len(lens)), np.diff(o))
+    slot = (np.arange(o[-1]) - o[rid]) < np.maximum(r[4], 0)[rid]
+    for a, b in zip(h[:4], r[:4]):
+        np.testing.assert_array_equal(a[slot], b[slot])
+
+
+@pytest.fixture(scope="module")
+def repeat_genome(tmp_path_factory):
+    """benchdata's genome at scale 0.01 (467 kb: ~155 copies of a 300 bp
+    repeat at 2 % divergence), indexed, and 200 of its 2x150 reads: a
+    forward walk inside a repeat copy sheds the other copies a few at a
+    time, so candidate lists grow past 32 entries."""
+    d = str(tmp_path_factory.mktemp("repeat_genome"))
+    fa = os.path.join(d, "genome.fa")
+    benchdata.make_genome(fa, 0.01)
+    build_index(fa, fa)
+    benchdata.sample_reads_pe(fa, fa + "_1.fq", fa + "_2.fq", 100)
+    reads = read_chunk(FastxReader(fa + "_1.fq"), FastxReader(fa + "_2.fq"),
+                       10**9)
+    return FMIndex.load(fa), encode_reads([r.seq for r in reads])
+
+
+@pytest.mark.parametrize("G", [16, 32])
+def test_smem_group_long_lists_match_ref(tmp_path, repeat_genome, G):
+    """Lists longer than the lane group (reads from a repeat-rich genome):
+    the backward steps run in several lane-strided passes, and the host
+    build of smem_group.cuh still equals smem_collect_ref, slots, counts
+    and backward_ext counts."""
+    fm, encs = repeat_genome
+    dfm = DeviceFMIndex.from_host(fm, "cpu")
+    opt = MemOptions().finalize()
+    enc, lens = _pad_reads(encs)
+    split_len = int(opt.min_seed_len * opt.split_factor + 0.499)
+    off = tseed.slot_offsets(torch.from_numpy(lens))
+    args = (opt.min_seed_len, split_len, opt.split_width, opt.max_mem_intv,
+            tseed.list_cap(enc.shape[1]))
+    *h, stats = HostFm(build_host_shim(str(tmp_path)), dfm).smem_group(
+        enc, lens, *args, off.numpy(), G)
+    r = [t.numpy() for t in tseed.smem_collect_ref(
+        dfm, torch.from_numpy(enc), torch.from_numpy(lens), *args, off)]
+    assert stats["passes"] > 0              # lists longer than the group
+    assert (r[4] >= 0).all()
+    np.testing.assert_array_equal(h[4], r[4])
+    np.testing.assert_array_equal(h[5], r[5])
+    o = off.numpy()
+    rid = np.repeat(np.arange(len(lens)), np.diff(o))
+    slot = (np.arange(o[-1]) - o[rid]) < r[4][rid]
+    for a, b in zip(h[:4], r[:4]):
+        np.testing.assert_array_equal(a[slot], b[slot])
+
+
+def genome_reads(lengths, seed):
+    """Mutated slices of the fixture genome's first contig (1 substitution
+    per 200 bases), one per length."""
+    with open(os.path.join(DATA, "ref_small.fa")) as f:
+        g0 = "".join(f.read().split(">")[1].splitlines()[1:])
+    rng = np.random.default_rng(seed)
+    out = []
+    for ln in lengths:
+        p = int(rng.integers(0, len(g0) - ln))
+        s = list(g0[p:p + ln])
+        for _ in range(ln // 200):
+            s[int(rng.integers(0, ln))] = "ACGT"[int(rng.integers(0, 4))]
+        out.append("".join(s))
+    return out
+
+
+def test_plan_bytes_linear_in_bases():
+    """The seeding wrapper's buffers for a default-size chunk (66,668 reads
+    of 150 bp) plus one 20 kb read stay under 2 GB, and the long read adds
+    its own slots only: nothing scales with N x L."""
+    from bwamem2_tpu_torch.ops.seed_cuda import SmemCollect
+    N = 66_668
+    short = SmemCollect.plan_bytes(N, [150] * N)
+    both = SmemCollect.plan_bytes(N + 1, [150] * N + [20_000])
+    assert both < 2 * 10**9
+    assert both - short < 200_000
+
+
+def test_long_read_chunk_matches_host_oracle(tmp_path, fm):
+    """A chunk of 2x150 reads and one 12 kb read: the group body
+    (smem_group.cuh, host build, at the grid's list capacity and the
+    per-read slot rule) gives the host oracle's SMEMs read for read; the
+    wrapper's buffers for it are linear in its bases."""
+    from bwamem2_tpu_torch.ops.seed_cuda import SmemCollect
+    reads = read_chunk(FastxReader(os.path.join(DATA, "reads_r1.fq")),
+                       FastxReader(os.path.join(DATA, "reads_r2.fq")),
+                       10**9)[:60]
+    encs = encode_reads([r.seq for r in reads] + genome_reads([12_000], 9))
+    enc, lens = _pad_reads(encs)
+    assert SmemCollect.plan_bytes(len(lens), lens) < 10**6
+    opt = MemOptions().finalize()
+    split_len = int(opt.min_seed_len * opt.split_factor + 0.499)
+    off = tseed.slot_offsets(torch.from_numpy(lens)).numpy()
+    lcap = tseed.list_cap(enc.shape[1])
+    assert lcap == tseed.LIST_CAPS[1]
+    m, n, k, s, cnt, nbwd, _ = HostFm(
+        build_host_shim(str(tmp_path)), DeviceFMIndex.from_host(fm, "cpu")
+    ).smem_group(enc, lens, opt.min_seed_len, split_len, opt.split_width,
+                 opt.max_mem_intv, lcap, off, 16)
+    assert (cnt >= 0).all() and cnt[-1] > 100
+    _, smem_off, hm, hn, hs, _ = sa_positions_batch(
+        opt, hostrt.collect_smems_reads(fm, encs, opt))
+    np.testing.assert_array_equal(np.diff(smem_off), cnt)
+    rid = np.repeat(np.arange(len(lens)), np.diff(off))
+    slot = (np.arange(off[-1]) - off[rid]) < cnt[rid]
+    for got, want in ((m, hm), (n, hn), (s, hs)):
+        np.testing.assert_array_equal(got[slot], want)
+
+
+def test_over_32kb_chunk_seeds_on_host(fm):
+    """A chunk with a read over 32,000 bp: that read alone is seeded on the
+    host oracle (counted as overflow.long_read) and has an empty row in
+    the read grid; the chunk's other reads go through the seeding kernel's
+    plain version and keep their read grid.  The SAM equals the
+    host-native run's."""
+    from bwamem2_tpu_torch.align.pipeline import Aligner
+    from bwamem2_tpu_torch.io.fastq import Read
+    seqs = genome_reads([33_000, 150, 150], 13)
+    opt = MemOptions().finalize()
+    sams = []
+    for backend in (TorchBackend(fm, opt, device="cpu"), None):
+        reads = [Read(name=f"r{i}", comment=None, seq=x, qual="I" * len(x))
+                 for i, x in enumerate(seqs)]
+        PROF.c.pop("overflow.long_read", None)
+        n0 = tseed.smem_collect.plain_calls
+        Aligner(fm, opt, backend=backend, verbose=0).process(reads, 0)
+        sams.append([r.sam for r in reads])
+        if backend is not None:
+            assert PROF.c["overflow.long_read"] == 1
+            assert tseed.smem_collect.plain_calls == n0 + 1
+            assert backend.read_grid_width() == 152
+    assert sams[0] == sams[1]
+    assert all(x.count("\t") > 10 for x in sams[0])
+
+
+def test_grid_read_cap_keeps_int32_offsets():
+    """The read grid never passes the int32 flat offsets: at the default
+    task size (66,668 reads) it takes reads up to 32,000 bp, at four times
+    as many reads less, always N x L < 2^31."""
+    cap = TorchBackend.grid_read_cap
+    assert cap(66_668) == 32_000 and cap(3) == 32_000
+    for N in (66_668, 266_672, 10**7):
+        assert cap(N) % 8 == 0 and N * cap(N) < 2**31
+    assert cap(266_672) < 32_000
 
 
 def test_sa_resolve_matches_jax(fm):
@@ -228,15 +420,16 @@ def test_wrapper_dispatch(fm):
     enc, lens = _pad_reads(encode_reads(["ACGTACGTACGTACGTACGTACGT"]))
     for k in (tseed.smem_collect, tseed.sa_resolve):
         k.reset()
-    out = tseed.smem_collect(dfm, torch.from_numpy(enc),
-                             torch.from_numpy(lens), 19, 29, 10, 20, 64)
+    lt = torch.from_numpy(lens)
+    out = tseed.smem_collect(dfm, torch.from_numpy(enc), lt, 19, 29, 10, 20,
+                             160, tseed.slot_offsets(lt))
     assert len(out) == 6
     tseed.sa_resolve(dfm, torch.arange(16))
     for k in (tseed.smem_collect, tseed.sa_resolve):
         assert (k.plain_calls, k.launches) == (1, 0)
     with pytest.raises(ValueError, match="CUDA"):
-        tseed.smem_collect(dfm, torch.from_numpy(enc).to("meta"),
-                           torch.from_numpy(lens), 19, 29, 10, 20, 64)
+        tseed.smem_collect(dfm, torch.from_numpy(enc).to("meta"), lt, 19,
+                           29, 10, 20, 160, tseed.slot_offsets(lt))
     with pytest.raises(ValueError, match="CUDA"):
         tseed.sa_resolve(dfm, torch.arange(16).to("meta"))
     for k in (tseed.smem_collect, tseed.sa_resolve):
