@@ -17,8 +17,10 @@
 
 #ifdef __CUDACC__
 #define FM_HD __host__ __device__ __forceinline__
+#define FM_UNROLL _Pragma("unroll")
 #else
 #define FM_HD static inline
+#define FM_UNROLL
 #endif
 
 struct FmView {
@@ -71,9 +73,12 @@ FM_HD uint32_t fm_prefix_mask(int y, int wi) {
     return nf == 0 ? 0u : (0xFFFFFFFFu >> (32 - 2 * nf));
 }
 
+// checkpoint count of char c: r[c] by selects (a run-time index into the
+// row would put it in local memory on the card), plus its hi byte
 FM_HD int64_t fm_cp(const FmView &f, const uint32_t r[8], uint32_t hi,
                     int c) {
-    int64_t v = (int64_t)r[c];
+    int64_t v = (int64_t)(c == 0 ? r[0] : c == 1 ? r[1] : c == 2 ? r[2]
+                                                                : r[3]);
     if (f.has_hi) v += (int64_t)((hi >> (8 * c)) & 0xFFu) << 32;
     return v;
 }
@@ -91,6 +96,7 @@ FM_HD void fm_occ4(const FmView &f, int64_t pos, int64_t out[4]) {
     fm_row(f, blk, r);
     const uint32_t hi = f.has_hi ? fm_hi(f, blk) : 0u;
     int n[4] = {0, 0, 0, 0};
+    FM_UNROLL
     for (int w = 0; w < 4; ++w) {
         const uint32_t pm = fm_prefix_mask(y, w);
         const uint32_t lo = r[4 + w] & 0x55555555u;
@@ -109,6 +115,7 @@ FM_HD void fm_occ4(const FmView &f, int64_t pos, int64_t out[4]) {
 FM_HD int fm_inblock(const uint32_t r[8], int y, int c) {
     const uint32_t pat = (uint32_t)c * 0x55555555u;
     int n = 0;
+    FM_UNROLL
     for (int w = 0; w < 4; ++w) {
         const uint32_t m = r[4 + w] ^ pat;
         n += fm_popc(~(m | (m >> 1)) & 0x55555555u & fm_prefix_mask(y, w));
@@ -154,39 +161,25 @@ FM_HD void fm_backward_ext(const FmView &f, int64_t k, int64_t l, int64_t s,
     fm_ext_combine(f, k, l, s, a, sp, ep, ko, lo, so);
 }
 
-// (BWT char at pos (4 = sentinel), occ(pos, stored code)) from one row
-FM_HD int fm_bwt_char_occ(const FmView &f, int64_t pos, int64_t *occ) {
-    const int64_t blk = pos >> 6;
+// (BWT char at pos (4 = sentinel), occ(pos, stored code)) from pos's row
+// r (and its hi word).  The code word is taken from the row's two 64-bit
+// halves by a select and a shift, never by a run-time index into r.
+FM_HD int fm_char_occ_row(const FmView &f, const uint32_t r[8], uint32_t hi,
+                          int64_t pos, int64_t *occ) {
     const int y = (int)(pos & 63);
-    uint32_t r[8];
-    fm_row(f, blk, r);
-    const uint32_t hi = f.has_hi ? fm_hi(f, blk) : 0u;
-    const int code = (int)((r[4 + (y >> 4)] >> ((y & 15) * 2)) & 3u);
+    const uint64_t half = (y & 32) ? ((uint64_t)r[7] << 32 | r[6])
+                                   : ((uint64_t)r[5] << 32 | r[4]);
+    const int code = (int)((half >> ((y & 31) * 2)) & 3u);
     const int n = fm_inblock(r, y, code)
                   - (code == 0 ? fm_sent_in(f, pos, y) : 0);
     *occ = fm_cp(f, r, hi, code) + n;
     return pos == f.sentinel ? 4 : code;
 }
 
-// get_sa_entry_compressed: LF-walk from pos to a sampled slot (pos & 7 ==
-// 0) or the sentinel.  *steps = LF steps taken (row reads = steps, plus
-// one when the walk ends at the sentinel).
-FM_HD int64_t fm_sa_entry(const FmView &f, const int8_t *sa_ms,
-                          const uint32_t *sa_ls, int64_t pos, int *steps) {
-    int64_t sp = pos, off = 0;
-    while (sp & 7) {
-        int64_t occ;
-        const int b = fm_bwt_char_occ(f, sp, &occ);
-        if (b == 4) {
-            *steps = (int)off;
-            return off;
-        }
-        sp = f.counts[b] + occ;
-        ++off;
-    }
-    *steps = (int)off;
-    // (ms << 32) with ms sign-extended, written as a product: a left shift
-    // of a negative value is undefined in C++17
-    return (int64_t)sa_ms[sp >> 3] * 4294967296LL + (int64_t)sa_ls[sp >> 3]
-           + off;
+// A sampled slot's SA entry plus off, from its two words (sa_ms[sp >> 3]
+// and sa_ls[sp >> 3]): get_sa_entry_compressed's (ms << 32) + ls with the
+// int8 ms byte sign-extended, written as a product (a left shift of a
+// negative value is undefined in C++17).
+FM_HD int64_t fm_sa_value(int ms, uint32_t ls, int64_t off) {
+    return (int64_t)ms * 4294967296LL + (int64_t)ls + off;
 }

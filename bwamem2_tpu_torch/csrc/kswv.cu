@@ -17,7 +17,10 @@
 // stripes and its row array.  There is no length cap: the launch sizes the
 // stripes from the batch's longest query.  The i16 class saturates its adds
 // at 32767 as the native kernel does (row maxima and shared stripes are
-// int16), so any query length and match score fit.
+// int16), so any query length and match score fit.  The scores a and b are
+// those of the int8 score matrix the native kernel reads (match a,
+// mismatch -b, both in -128..127; ops/kswv.py:DeviceKswv takes them from
+// MemOptions.mat_scores), so every score the CLI accepts launches.
 //
 // Design: one lane group per problem, the SIMD lanes of the striped
 // register as threads (kswv_group.cuh): a half-warp for u8, a quarter-warp

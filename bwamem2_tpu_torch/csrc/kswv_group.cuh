@@ -4,7 +4,7 @@
 // Behavioral spec: ksw_align with KSW_XSUBO | KSW_XSTART (ksw.cpp:347-381),
 // as the port's scalar host kernel emulates it lane for lane
 // (native/core.cpp: ksw_run_u8 :397-505, ksw_run_i16 :507-612, ksw_align
-// :631-655): NL = 16 u8 lanes (biased by shift = max(b, 1), adds saturating
+// :631-655): NL = 16 u8 lanes (biased by shift = -min(mat), adds saturating
 // at 255, subtracts at 0) or NL = 8 i16 lanes (signed adds saturating at
 // 32767, _mm_adds_epi16: the i16 class's own width), slen =
 // ceil(qlen/NL) segments, the main pass with intra-stripe F, up to 16 lazy-F
@@ -54,10 +54,15 @@
 // Profile.  Each lane loads its slen query codes once per phase (0-3 bases
 // with the complement applied, 4 ambiguous, 5 pad column) and keeps each as
 // a __byte_perm selector.  Each row builds from its target base an 8-byte
-// table of biased scores (shift + score, by query code), so a cell's score
-// is one byte permute: ksw_align's 5-scores-per-column profile, indexed from
-// the row's side.  The table needs every biased score in 0..255 (the
-// wrapper checks a + shift <= 255).
+// table of scores by query code, so a cell's score is one byte permute:
+// ksw_align's 5-scores-per-column profile, indexed from the row's side.
+// The scores are those of bwa-mem2's int8 matrix (match a, mismatch -b,
+// ambiguous -1; the caller reads a and b from it), as the native kernel's
+// profile holds them: u8 bytes biased by shift = -min(matrix), as
+// (uint8)(score + shift) (ksw_u8's profile, native/core.cpp:build_u8), so
+// 0..255 for any int8 matrix; i16 bytes unbiased, the selector replicating
+// the byte's sign into the upper bytes (ksw_i16's int16 profile of the
+// same matrix), so any a and b of the matrix fit with no shift.
 
 #pragma once
 
@@ -134,16 +139,21 @@ KSWV_D int kswv_max3(int x, int y, int z) {
     return kswv_max(kswv_max(x, y), z);
 #endif
 }
-// __byte_perm: byte n of the result is byte (sel >> 4n) & 7 of hi:lo.
+// prmt (__byte_perm's PTX instruction): byte n of the result is byte
+// (sel >> 4n) & 7 of hi:lo, or that byte's sign in all 8 bits where bit 3
+// of the nibble is set.
 KSWV_D int kswv_prmt(unsigned lo, unsigned hi, int sel) {
 #ifdef __CUDA_ARCH__
-    return (int)__byte_perm(lo, hi, (unsigned)sel);
+    unsigned r;
+    asm("prmt.b32 %0, %1, %2, %3;" : "=r"(r) : "r"(lo), "r"(hi), "r"(sel));
+    return (int)r;
 #else
     unsigned r = 0;
     for (int n = 0; n < 4; ++n) {
         const int k = (sel >> (4 * n)) & 7;
-        r |= ((k < 4 ? lo >> (8 * k) : hi >> (8 * (k - 4))) & 0xffu)
-             << (8 * n);
+        unsigned x = (k < 4 ? lo >> (8 * k) : hi >> (8 * (k - 4))) & 0xffu;
+        if ((sel >> (4 * n)) & 8) x = x & 0x80u ? 0xffu : 0u;
+        r |= x << (8 * n);
     }
     return (int)r;
 #endif
@@ -279,11 +289,20 @@ struct KswvGroup {
 
 #endif
 
-#define KSWV_SEL(code) ((code) | 0x7770)   // byte `code`, zeros above
+// The __byte_perm selector of a query code: byte `code` of the row table,
+// zeros above it (u8) or its sign replicated above it (i16: nibbles 8 + k
+// copy the sign of byte k).
+template <bool U8, class V>
+KSWV_HD V kswv_sel(const V &code) {
+    if constexpr (U8)
+        return code | 0x7770;
+    else
+        return code * 0x1111 + 0x8880;
+}
 
 // Stripes in registers: SMAX segments per lane, indexed only by the
 // unrolled loops' constants.
-template <class G, int SMAX>
+template <class G, int SMAX, bool U8>
 struct KswvRegStripes {
     using V = typename G::V;
     V h[SMAX], e[SMAX], m[SMAX], s[SMAX];
@@ -293,7 +312,7 @@ struct KswvRegStripes {
     KSWV_D void setE(int j, const V &x) { e[j] = x; }
     KSWV_D V M(int j) const { return m[j]; }
     KSWV_D V sel(int j) const { return s[j]; }
-    KSWV_D void set_code(int j, const V &code) { s[j] = KSWV_SEL(code); }
+    KSWV_D void set_code(int j, const V &code) { s[j] = kswv_sel<U8>(code); }
     KSWV_D void init(int) {
         KSWV_UNROLL
         for (int j = 0; j < SMAX; ++j) h[j] = e[j] = 0;
@@ -306,7 +325,7 @@ struct KswvRegStripes {
 
 // Stripes behind a pointer (shared memory on the card): int16 H, E and Hmax
 // and uint8 query codes, each [smax segments][NL lanes].
-template <class G>
+template <class G, bool U8>
 struct KswvPtrStripes {
     using V = typename G::V;
     static constexpr int NL = G::NL;
@@ -324,7 +343,7 @@ struct KswvPtrStripes {
     KSWV_D V E(int j) const { return g.ld16(e + j * NL); }
     KSWV_D void setE(int j, const V &x) { g.st16(e + j * NL, x); }
     KSWV_D V M(int j) const { return g.ld16(m + j * NL); }
-    KSWV_D V sel(int j) const { return KSWV_SEL(g.ld8(s + j * NL)); }
+    KSWV_D V sel(int j) const { return kswv_sel<U8>(g.ld8(s + j * NL)); }
     KSWV_D void set_code(int j, const V &code) { g.st8(s + j * NL, code); }
     KSWV_D void init(int slen) {
         for (int j = 0; j < slen; ++j) {
@@ -366,8 +385,9 @@ KSWV_D KswvEnd kswv_phase(const G &g, S &st, const KswvBatch &b,
     using V = typename G::V;
     constexpr int NL = G::NL;
     const KswvParams &sp = b.sp;
-    const int shift = sp.b > 1 ? sp.b : 1;
-    const int maxsc = sp.a > 1 ? sp.a : 1;
+    // -min and max of the matrix (a, -b, -1), as build_u8 / build_i16
+    const int shift = kswv_max(kswv_max(-sp.a, sp.b), 1);
+    const int maxsc = kswv_max(kswv_max(sp.a, -sp.b), 1);
     const int oe_del = sp.o_del + sp.e_del, oe_ins = sp.o_ins + sp.e_ins;
     const int qlen = d.qlen < qcap ? d.qlen : qcap;
     const int tlen = d.tlen < tcap ? d.tlen : tcap;
@@ -388,11 +408,14 @@ KSWV_D KswvEnd kswv_phase(const G &g, S &st, const KswvBatch &b,
                 return (unsigned)qc < 4u ? qc : 4;
             }));
     }
-    // the row tables: bytes 0-3 the bases, 4 ambiguous, 5 pad; biased
-    const unsigned ap = (unsigned)(sp.a + shift);
-    const unsigned t_mis = (unsigned)(shift - sp.b) * 0x01010101u;
-    const unsigned t_amb = (unsigned)(shift - 1) * 0x01010101u;
-    const unsigned thi = (unsigned)(shift - 1) | ((unsigned)shift << 8);
+    // the row tables: bytes 0-3 the bases, 4 ambiguous, 5 pad, 6-7 zero;
+    // u8 biased by shift, i16 not
+    const int bias = U8 ? shift : 0;
+    const unsigned ap = (unsigned)(sp.a + bias) & 0xffu;
+    const unsigned amb = (unsigned)(bias - 1) & 0xffu;
+    const unsigned t_mis = ((unsigned)(bias - sp.b) & 0xffu) * 0x01010101u;
+    const unsigned t_amb = amb * 0x01010101u;
+    const unsigned thi = amb | ((unsigned)bias << 8);
 
     st.init(slen);
     // H's last segment, kept apart: selected where it is written, never
@@ -433,7 +456,7 @@ KSWV_D KswvEnd kswv_phase(const G &g, S &st, const KswvBatch &b,
             if (U8)     // subsu8(addsu8(h, sc + shift), shift), floored below
                 hh = kswv_min(hh, 255) - shift;
             else        // addsi16(h, sc): saturates at 32767
-                hh = kswv_min(hh - shift, 32767);
+                hh = kswv_min(hh, 32767);
             const V ee = st.E(j);
             hh = kswv_max3(hh, ee, f);   // E, F >= 0: the u8 floor at 0
             mx = kswv_max(mx, hh);
@@ -565,11 +588,11 @@ template <bool U8, int SMAX, class G>
 KSWV_D void kswv_run(const G &g, const KswvBatch &b, int p, void *stripes) {
     constexpr int NL = G::NL;
     if constexpr (SMAX > 0) {
-        KswvRegStripes<G, SMAX> st;
+        KswvRegStripes<G, SMAX, U8> st;
         kswv_both<SMAX, U8>(g, st, b, p,
                             b.Qmax < SMAX * NL ? b.Qmax : SMAX * NL);
     } else {
-        KswvPtrStripes<G> st(g, stripes, b.Qmax / NL);
+        KswvPtrStripes<G, U8> st(g, stripes, b.Qmax / NL);
         kswv_both<0, U8>(g, st, b, p, b.Qmax);
     }
 }

@@ -1,56 +1,119 @@
 // sa_resolve: suffix-array resolution of BWT positions on Hopper (sm_90a),
-// one thread per position.
+// each warp's lanes refilled as their walks end.
 //
 // Replaces the JAX package's SA walks (jitted XLA, not Pallas):
 // bwamem2_tpu/ops/seedall.py:_sa_walk (inside _stage_merge_sa) and
 // ops/salookup.py:sa_lookup_kernel.  Semantics: get_sa_entry_compressed
 // (FMI_search.cpp:1103-1175), as the port's host rt_sa_entries
-// (native/runtime.cpp): LF-walk until the position is a sampled slot
-// (pos & 7 == 0) or the sentinel, then (sa_ms << 32) + sa_ls + steps with
-// the int8 ms byte sign-extended; at the sentinel the result is the step
-// count.  Plain PyTorch version: ops/seed.py:sa_resolve_ref; wrapper:
-// ops/seed_cuda.py.  The walk is fm_sa_entry in csrc/fm_occ.cuh.
+// (native/runtime.cpp).  Plain PyTorch version: ops/seed.py:
+// sa_resolve_ref; wrapper: ops/seed_cuda.py:SaResolve.  The walk-and-refill
+// loop is csrc/sa_group.cuh, which the tests compile as host C++.
 //
-// What bounds it: one dependent random 32-byte occ-row read per LF step
-// (about 8 steps per position on average, geometric tail), then a 1-byte
-// and a 4-byte SA read.  chip_smoke.py's bound counts these inputs' steps
-// x 32 B + 5 B per position + the 8-byte position in and the 8-byte
-// coordinate out, over 3.35 TB/s.  One thread per position keeps every
-// walk's row reads independent across threads, so the card has as many
-// row reads in flight as it has resident threads; the latency chain within
-// a walk is what remains.
+// What bounds it: bytes.  One dependent random 32-byte occ-row read per LF
+// step (about 7 steps per position on the main path, geometric: 1/8 of
+// the positions are sampled), then a 1-byte and a 4-byte SA read, the
+// 8-byte position in and the 8-byte coordinate out: chip_smoke.py's bound
+// is 32 B per row read plus 5 + 16 B per position, over 3.35 TB/s.  The
+// instruction work per step (a row's popcounts, ~100 int32 operations) is
+// below that at the card's issue rate.
+//
+// Design.  A warp that walks one position per lane runs until its longest
+// walk ends (the longest of 32 geometric walks is ~26 steps against a mean
+// of 7: ~27 % of the lane-steps would do work), and a row or count array
+// indexed at run time sits in a stack frame in local memory.  So the grid
+// is persistent (resident blocks per SM x SMs, from the occupancy
+// API, fewer where the positions fill fewer); each thread keeps W walks in
+// registers (a template argument) and refills a slot when its walk ends
+// from its warp's reservation of tickets, renewed from a launch-wide
+// counter with one atomic per warp (sa_group.cuh), so lanes stay busy
+// until the queue drains and blocks do not wait on their slowest warp.
+// Each iteration waits only on its rows: new positions and SA entries are
+// loaded one iteration ahead of their use.  The row's code word and the
+// char's checkpoint and count are taken by selects (fm_occ.cuh:
+// fm_char_occ_row, fm_cp, fm_count), so nothing is indexed at run time
+// and ptxas reports no stack frame.  What remains: the longest walk of a
+// launch (~106 steps among 1.4 million positions) is a chain of dependent
+// row reads that no schedule shortens.  The wrapper chooses W and the
+// block size (SaResolve.shape_for).
 
 #include <cuda_runtime.h>
 
-#include "fm_occ.cuh"
+#include "sa_group.cuh"
+
+#define SA_MAX_THREADS 512
 
 namespace {
 
-__global__ void __launch_bounds__(256)
-sa_resolve_kernel(FmView f, const int8_t *__restrict__ sa_ms,
-                  const uint32_t *__restrict__ sa_ls,
-                  const int64_t *__restrict__ pos, int64_t P,
-                  int64_t *__restrict__ out) {
-    const int64_t i = blockIdx.x * (int64_t)blockDim.x + threadIdx.x;
-    if (i >= P) return;
-    int steps;
-    out[i] = fm_sa_entry(f, sa_ms, sa_ls, pos[i], &steps);
+template <int W>
+__global__ void __launch_bounds__(SA_MAX_THREADS)
+sa_resolve_kernel(const SaBatch b, unsigned long long *next) {
+    SaWarp g(next);
+    sa_group_run<W>(g, b);
+}
+
+// every instantiation: walks per lane.  One: on an NVIDIA H100 at 700 W,
+// W = 2 and W = 4 (54 and 92 registers, fewer warps resident) were
+// slower than W = 1 (39 registers) at every chunk size measured, from
+// 42,598 to 1,736,470 positions, L2- and DRAM-resident (PERF.md).
+#define SA_WALKS(X) X(1)
+
+template <int W>
+int sa_resident_of(int threads, int *blocks) {
+    int dev = 0, nsm = 0, per_sm = 0;
+    cudaError_t err = cudaGetDevice(&dev);
+    if (!err)
+        err = cudaDeviceGetAttribute(&nsm, cudaDevAttrMultiProcessorCount,
+                                     dev);
+    if (!err)
+        err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+            &per_sm, sa_resolve_kernel<W>, threads, 0);
+    if (err) return (int)err;
+    *blocks = (per_sm < 1 ? 1 : per_sm) * nsm;
+    return 0;
 }
 
 }  // namespace
 
-// Launch on `stream`; returns cudaGetLastError().  counts: int64[5] on the
-// host; pos and out int64[P].
+// The blocks of `threads` threads that the current device holds at once at
+// W walks per lane (the occupancy API x SMs): the persistent grid, which
+// the wrapper cuts to the blocks the positions fill.  A CUDA error code
+// (cudaErrorInvalidValue for a W that is not instantiated or a block that
+// is not whole warps of at most SA_MAX_THREADS).
+extern "C" int sa_resolve_resident(int W, int threads, int *blocks) {
+    if (threads < 32 || threads > SA_MAX_THREADS || threads % 32)
+        return (int)cudaErrorInvalidValue;
+#define SA_RESIDENT(WW) \
+    if (W == WW) return sa_resident_of<WW>(threads, blocks);
+    SA_WALKS(SA_RESIDENT)
+#undef SA_RESIDENT
+    return (int)cudaErrorInvalidValue;
+}
+
+// Launch `blocks` blocks on `stream` (PyTorch's current stream) after
+// zeroing the ticket counter `next` there; returns a CUDA error code
+// (cudaGetLastError() of the launch, or cudaErrorInvalidValue for a W that
+// is not instantiated).  counts: int64[5] on the host; pos and out
+// int64[P].
 extern "C" int sa_resolve_launch(const int32_t *occp, const int32_t *occ_hi,
                                  int has_hi, const int64_t *counts,
                                  int64_t sentinel, const int8_t *sa_ms,
                                  const uint32_t *sa_ls, const int64_t *pos,
-                                 int64_t P, int64_t *out, void *stream) {
-    FmView f{occp, occ_hi, {counts[0], counts[1], counts[2], counts[3],
-                            counts[4]}, sentinel, has_hi};
-    const int threads = 256;
-    const int64_t blocks = (P + threads - 1) / threads;
-    sa_resolve_kernel<<<(unsigned)blocks, threads, 0, (cudaStream_t)stream>>>(
-        f, sa_ms, sa_ls, pos, P, out);
-    return (int)cudaGetLastError();
+                                 int64_t P, int64_t *out, int W, int blocks,
+                                 int threads, unsigned long long *next,
+                                 void *stream) {
+    const SaBatch b{FmView{occp, occ_hi, {counts[0], counts[1], counts[2],
+                                          counts[3], counts[4]},
+                           sentinel, has_hi},
+                    sa_ms, sa_ls, pos, P, out};
+    cudaStream_t st = (cudaStream_t)stream;
+    cudaError_t err = cudaMemsetAsync(next, 0, sizeof *next, st);
+    if (err) return (int)err;
+#define SA_LAUNCH(WW)                                                     \
+    if (W == WW) {                                                        \
+        sa_resolve_kernel<WW><<<blocks, threads, 0, st>>>(b, next);       \
+        return (int)cudaGetLastError();                                   \
+    }
+    SA_WALKS(SA_LAUNCH)
+#undef SA_LAUNCH
+    return (int)cudaErrorInvalidValue;
 }

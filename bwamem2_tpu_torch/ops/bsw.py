@@ -219,7 +219,7 @@ class DeviceBSW:
 
     def __init__(self, dfm, opt):
         self.dfm = dfm
-        self.max_sc = max(opt.a, 1)
+        self.max_sc = max(max(opt.mat), 0)     # as the native kernel
         self._tls = threading.local()
 
     @property
@@ -280,7 +280,8 @@ class DeviceBSW:
                 put(desc["toff"], np.int64), put(desc["tdir"], np.int32),
                 put(tls, np.int32), put(desc["h0"], np.int32),
                 torch.full((len(idxs),), w, dtype=I32, device=dev), Q, T,
-                opt.a, opt.b, opt.o_del, opt.e_del, opt.o_ins, opt.e_ins,
-                opt.zdrop, end_bonus, self.max_sc, self.dfm.ref_packed)
+                *opt.mat_scores(), opt.o_del, opt.e_del, opt.o_ins,
+                opt.e_ins, opt.zdrop, end_bonus, self.max_sc,
+                self.dfm.ref_packed)
             flights.append((idxs, res))
         return flights, out

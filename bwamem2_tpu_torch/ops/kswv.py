@@ -17,6 +17,9 @@ textbook DP:
   biased by shift = -min(mat), subtracts at 0); the i16 class (8 stripes)
   adds raw signed values and saturates at 32767 (_mm_adds_epi16), which
   only a score of round_up(qlen, 16) * a > 32767 can reach;
+- the scores are those of bwa-mem2's int8 matrix (options.fill_scmat,
+  MemOptions.mat_scores: at -A52, -B208 is a mismatch of +48 there), so
+  the u8 profile never wraps and the i16 one fits a signed byte;
 - the query is padded to 16*slen (8*slen) columns that score 0 and take
   part in the row maxima and the qe scan.
 
@@ -82,8 +85,8 @@ def kswv_phase_ref(ref, enc, qoff, qdir, qcomp, qlen, toff, tdir, tlen,
     P = qoff.shape[0]
     N, L = enc.shape
     NL = 16 if u8 else 8
-    shift = max(mat_b, 1)           # -min(mat): the mismatch penalty
-    maxsc = max(mat_a, 1)
+    shift = max(-mat_a, mat_b, 1)   # -min(mat), mat = (a, -b, -1)
+    maxsc = max(mat_a, -mat_b, 1)   # max(mat)
     oe_del = o_del + e_del
     oe_ins = o_ins + e_ins
 
@@ -284,9 +287,9 @@ class DeviceKswv:
         return (self.dfm.ref, encj, put(desc["qoff"], np.int32),
                 put(desc["qdir"], np.int32), put(desc["qcomp"], bool),
                 put(desc["qlen"], np.int32), put(desc["toff"], np.int64),
-                put(desc["tlen"], np.int32), Qmax, Tmax, self.minsc, opt.a,
-                opt.b, opt.o_del, opt.e_del, opt.o_ins, opt.e_ins,
-                self.dfm.ref_packed, u8)
+                put(desc["tlen"], np.int32), Qmax, Tmax, self.minsc,
+                *opt.mat_scores(), opt.o_del, opt.e_del, opt.o_ins,
+                opt.e_ins, self.dfm.ref_packed, u8)
 
     def _finish(self, r0h, r1h) -> np.ndarray:
         """The native ksw_align 7-tuples from the fetched phase results."""

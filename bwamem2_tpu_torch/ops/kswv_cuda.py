@@ -84,11 +84,11 @@ class Kswv(CudaKernel):
                              "multiple of 16")
         if Tmax <= 0:
             raise ValueError(f"kswv: Tmax={Tmax} out of range")
-        shift = max(mat_b, 1)
-        if not (0 <= mat_a + shift <= 255 and shift - mat_b <= 255):
-            # the per-row score table holds shift + score in one byte
-            raise ValueError(f"kswv: scores a={mat_a} b={mat_b} do not fit "
-                             "the biased byte profile")
+        if not (-128 <= mat_a <= 127 and -127 <= mat_b <= 128):
+            # the per-row score table holds the matrix's int8 scores
+            raise ValueError(f"kswv: scores a={mat_a} b={mat_b} are not "
+                             "those of an int8 score matrix (options."
+                             "fill_scmat)")
         out = torch.empty((2, P, 6), dtype=torch.int32, device=dev)
         if P == 0:
             return out[0], out[1]

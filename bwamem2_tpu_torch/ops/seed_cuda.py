@@ -8,6 +8,8 @@ raises — it never falls back.  `launches` and `plain_calls` count the two.
 
 from __future__ import annotations
 
+import ctypes
+
 import torch
 
 from .cuda_build import I32, I64, VP, CudaKernel, check_tensors
@@ -135,16 +137,48 @@ class SmemCollect(CudaKernel):
 class SaResolve(CudaKernel):
     """sa_resolve(dfm, pos int64[P]) -> reference coordinates int64[P];
     every pos must be a BWT position of the index (the kernel does not
-    check)."""
+    check).  Each lane keeps W walks (one of WALKS) in blocks of `threads`
+    threads, both from shape_for(P)."""
 
     NAME = "sa_resolve"
-    SOURCES = ("sa_resolve.cu", "fm_occ.cuh")
+    SOURCES = ("sa_resolve.cu", "sa_group.cuh", "fm_occ.cuh")
     SIGNATURE = ("sa_resolve_launch",
-                 [VP, VP, I32, VP, I64, VP, VP, VP, I64, VP, VP])
+                 [VP, VP, I32, VP, I64, VP, VP, VP, I64, VP, I32, I32, I32,
+                  VP])
+    WALKS = (1,)            # the walks per lane sa_resolve.cu instantiates
 
     def __init__(self, plain):
         super().__init__()
         self.plain = plain
+        self._resident = {}
+
+    @staticmethod
+    def shape_for(P: int) -> tuple[int, int]:
+        """(walks per lane, threads per block) for P positions, chosen on
+        an NVIDIA H100 80GB HBM3 (700 W): one walk per lane led at every
+        size from 42,598 to 1,736,470 positions (two and four walks, with
+        more registers and fewer warps resident, were slower), and
+        chip_smoke.py's phases 5b and 5d time 128, 256 and 512 threads."""
+        return 1, 256
+
+    def plan(self, W: int, threads: int, P: int, dev) -> int:
+        """Blocks of a launch at this shape on CUDA device `dev`: the
+        resident blocks (the occupancy API, asked once per device and
+        shape), or fewer where P positions fill fewer."""
+        key = (torch.device(dev).index, W, threads)
+        if key not in self._resident:
+            fn = self.lib().sa_resolve_resident
+            fn.restype = I32
+            fn.argtypes = [I32, I32, VP]
+            blocks = I32()
+            with torch.cuda.device(dev):
+                err = fn(W, threads, ctypes.addressof(blocks))
+            if err:
+                raise ValueError(f"sa_resolve: no launch of {threads} "
+                                 f"threads at {W} walks per lane (CUDA "
+                                 f"error {err})")
+            self._resident[key] = blocks.value
+        return max(1, min(self._resident[key], -(-P // (threads * W))))
 
     def __call__(self, dfm, pos):
         if pos.device.type == "cpu":
@@ -162,9 +196,16 @@ class SaResolve(CudaKernel):
                       sa_ms=(dfm.sa_ms, torch.int8, 1),
                       sa_ls=(dfm.sa_ls, torch.int32, 1))
         P = pos.shape[0]
-        out = torch.empty(P, dtype=torch.int64, device=dev)
+        if P >= 1 << 31:
+            raise ValueError(f"sa_resolve: {P} positions, the kernel's "
+                             "int32 indices take fewer than 2^31")
+        # the coordinates, then the launch's ticket counter
+        out = torch.empty(P + 1, dtype=torch.int64, device=dev)
         if P == 0:
-            return out
+            return out[:0]
+        W, threads = self.shape_for(P)
+        ptr = out.data_ptr()
         self._launch(dev, *_fm_args(dfm), dfm.sa_ms.data_ptr(),
-                     dfm.sa_ls.data_ptr(), pos.data_ptr(), P, out.data_ptr())
-        return out
+                     dfm.sa_ls.data_ptr(), pos.data_ptr(), P, ptr, W,
+                     self.plan(W, threads, P, dev), threads, ptr + 8 * P)
+        return out[:P]

@@ -28,14 +28,20 @@ MEM_MAPQ_MAX = 60
 
 
 def fill_scmat(a: int, b: int) -> list[int]:
-    """5x5 DNA scoring matrix with ambiguous base rows/cols = -1.
+    """5x5 DNA scoring matrix with ambiguous base rows/cols = -1, each entry
+    as bwa-mem2's `int8_t mat[25]` holds it: a score outside -128..127
+    wraps (two's complement), so -A52 (-B scaled to 208) scores a mismatch
+    +48 there, in every kernel that reads the matrix.
 
     Reference: bwa.cpp:248-257 (bwa_fill_scmat).
     """
+    def i8(x: int) -> int:
+        return (x + 128) % 256 - 128
+
     mat = []
     for i in range(4):
         for j in range(4):
-            mat.append(a if i == j else -b)
+            mat.append(i8(a if i == j else -b))
         mat.append(-1)
     mat.extend([-1] * 5)
     return mat
@@ -131,6 +137,11 @@ class MemOptions:
             self.update_a()
         self.mat = fill_scmat(self.a, self.b)
         return self
+
+    def mat_scores(self) -> tuple[int, int]:
+        """(match score, mismatch penalty) of the int8 matrix: what the
+        native kernels score with, so what the device kernels are given."""
+        return self.mat[0], -self.mat[1]
 
     def copy(self) -> "MemOptions":
         o = MemOptions()

@@ -1,20 +1,20 @@
-"""Time the seeding kernel smem_collect of a checkout on one default-size
-chunk, to compare two commits' kernels on the same inputs and card.
+"""Time the seeding kernels smem_collect and sa_resolve of a checkout on one
+default-size chunk, to compare two commits' kernels on the same inputs and
+card.
 
     python bwamem2_tpu_torch/tools/seed_probe.py --root DIR [--scale 2.0]
         [--data DIR] [--reps 3]
 
 Imports bwamem2_tpu_torch from the checkout at --root (this commit's or an
-earlier one's), makes or reuses the benchdata genome of --scale (2.0: 93.4
-Mbp, an occ table beyond the H100's 50 MB L2) with 35,000 2x150 pairs
-under --data, takes the first chunk at the CLI's default task size (10
-Mbp: 66,668 reads), and prints one JSON line: the card with its power
-limit, the reads, the backward_ext calls and smem_collect's CUDA-event
-milliseconds (mean of --reps launches after a warm-up).  It drives either
-kernel interface: the lane-group kernel's list capacity and per-read slot
-offsets, or, for a checkout older than the lane-group kernel (PR 6), the
-one-thread kernel's per-grid slot cap (smem_cap), which exists only to
-time such a checkout as the "before" figure.
+earlier one's whose smem_collect takes per-read slot offsets), makes or
+reuses the benchdata genome of --scale (2.0: 93.4 Mbp, an occ table beyond
+the H100's 50 MB L2) with 35,000 2x150 pairs under --data, takes the first
+chunk at the CLI's default task size (10 Mbp: 66,668 reads), and prints
+one JSON line: the card with its power limit, the reads, the backward_ext
+calls and smem_collect's CUDA-event milliseconds, then the chunk's
+max_occ-sampled SA positions (FusedSeeder's compaction of that output) and
+sa_resolve's milliseconds on them, each the mean of --reps launches after
+a warm-up.
 """
 
 from __future__ import annotations
@@ -56,32 +56,41 @@ def main() -> None:
     opt = MemOptions().finalize()
     N, L = enc.shape
     split_len = int(opt.min_seed_len * opt.split_factor + 0.499)
+    off = seed.slot_offsets(ln)
     args = (dfm, e, ln, opt.min_seed_len, split_len, int(opt.split_width),
-            int(opt.max_mem_intv))
-    if hasattr(seed, "smem_cap"):           # a checkout before PR 6
-        args += (seed.smem_cap(L),)
-        design = "one thread per read"
+            int(opt.max_mem_intv), seed.list_cap(L), off)
+    sa = seed.sa_resolve
+    if hasattr(sa, "shape_for"):
+        W, threads = sa.shape_for(0)
+        sa_design = f"{W} walks per lane, {threads} threads per block"
     else:
-        args += (seed.list_cap(L), seed.slot_offsets(ln))
-        design = (f"lane group of {seed.smem_collect.lanes_for(N)} per "
-                  "read")
+        sa_design = "one thread per position"
+
+    def timed(fn) -> float:
+        fn()
+        torch.cuda.synchronize()
+        e0 = torch.cuda.Event(enable_timing=True)
+        e1 = torch.cuda.Event(enable_timing=True)
+        e0.record()
+        for _ in range(a.reps):
+            fn()
+        e1.record()
+        torch.cuda.synchronize()
+        return e0.elapsed_time(e1) / a.reps
+
     out = seed.smem_collect(*args)
-    torch.cuda.synchronize()
-    e0 = torch.cuda.Event(enable_timing=True)
-    e1 = torch.cuda.Event(enable_timing=True)
-    e0.record()
-    for _ in range(a.reps):
-        seed.smem_collect(*args)
-    e1.record()
-    torch.cuda.synchronize()
+    sm_ms = timed(lambda: seed.smem_collect(*args))
+    pos = seed.compact_and_expand(*out[:5], off, int(opt.max_occ))[3]
+    sa_ms = timed(lambda: sa(dfm, pos))
     card = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                            "--format=csv,noheader"], capture_output=True,
                           text=True).stdout.strip().splitlines()[0]
     print(json.dumps(dict(
-        root=root, design=design, card=card, scale=a.scale,
-        l_pac=int(fm.l_pac), reads=N, L=L, bwd_ext=int(out[5].sum()),
-        overflowed=int((out[4] < 0).sum()),
-        smem_collect_ms=e0.elapsed_time(e1) / a.reps)), flush=True)
+        root=root, card=card, scale=a.scale, l_pac=int(fm.l_pac), reads=N,
+        L=L, lanes=seed.smem_collect.lanes_for(N),
+        bwd_ext=int(out[5].sum()), overflowed=int((out[4] < 0).sum()),
+        smem_collect_ms=sm_ms, positions=int(pos.numel()),
+        sa_design=sa_design, sa_resolve_ms=sa_ms)), flush=True)
 
 
 if __name__ == "__main__":

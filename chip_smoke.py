@@ -12,8 +12,10 @@ Phases, each of which fails the run (non-zero exit, no result line):
      smem_collect, sa_resolve, kswv, row_gather) and the native host
      runtime (g++) from the checkout's sources, all started together; the
      registers, spills and stack frame of each bsw_extend instantiation
-     (lanes x columns per lane) and each kswv instantiation (u8/i16 x
-     register bucket or shared-memory stripes);
+     (lanes x columns per lane), each kswv instantiation (u8/i16 x
+     register bucket or shared-memory stripes), each smem_collect
+     instantiation and each sa_resolve instantiation (walks per lane),
+     which must have no stack frame;
   3. data: a synthetic 11.7 Mbp genome (scale 0.25 of the chr21 class, the
      size of a yeast genome) with repeat families and N runs, its index and
      10,000 2x150 bp pairs, made once from fixed seeds under .tmp/;
@@ -22,10 +24,12 @@ Phases, each of which fails the run (non-zero exit, no result line):
      index upload and the first FusedSeeder.run's pieces, beside the same
      pieces warm;
   4. main path: `mem` PE through the port's CLI entry on cuda, driven
-     twice, each with every launch counter set to 0 just before and read
-     just after: (a) default options with a 2.25 Mbp task size (`-K`, 2
-     chunks) on the 10,000 pairs; (b) the CLI's default task size (10 Mbp:
-     a 66,668-read chunk) on 35,000 pairs of the same genome.  In each,
+     three times, each with every launch counter set to 0 just before and
+     read just after: (a) default options with a 2.25 Mbp task size (`-K`,
+     2 chunks) on the 10,000 pairs; (b) the CLI's default task size (10
+     Mbp: a 66,668-read chunk) on 35,000 pairs of the same genome; (c)
+     -A52 (-B scaled to 208, which bwa-mem2's int8 score matrix holds as a
+     mismatch of +48) on the first 2,000 pairs, -K as (a).  In each,
      smem_collect, sa_resolve and bsw_extend launch at least once per
      chunk and kswv at least once per chunk with rescue problems, no plain
      version runs, every read is seeded on the device route, at most 1 %
@@ -49,7 +53,10 @@ Phases, each of which fails the run (non-zero exit, no result line):
         first chunk of each main-path run (15,000 and 66,668 reads), with
         their SA positions; smem_collect at each lane width (16 and 32
         lanes per read, all identical, each timed, with its ptxas numbers
-        and launch shape), its bound the larger of bytes and operations,
+        and launch shape), sa_resolve at each walk count per lane and
+        block size (all identical to the plain version, each timed, beside
+        the earlier one-thread design's time), its bound the larger of
+        bytes and operations,
         its overflow share (at most 1 % on the chunks); at both chunks the
         backend's collect_chunk arrays also equal the native host oracle's;
      d. the same at DRAM scale: one default-size chunk (66,668 reads) on a
@@ -61,8 +68,9 @@ Phases, each of which fails the run (non-zero exit, no result line):
         them to TorchBackend.rescue_batch), on a synthetic i16-class batch
         (qlen 250-512, windows up to 2,048), on a batch of longer
         problems (qlen 513-1,500 in the i16 class, windows up to 4,000 in
-        the u8 class) and on an i16 batch at a = 64 whose scores saturate
-        at 32767 (qlen 513-700), each class in DeviceKswv's launch order with the
+        the u8 class), on an i16 batch at a = 64 whose scores saturate
+        at 32767 (qlen 513-700) and on the i16 batch's problems at -A52,
+        each class in DeviceKswv's launch order with the
         launch's stripe placement, groups per block and ptxas numbers, and
         the earlier one-thread design's time beside the kernel's;
         DeviceKswv.align_batch against the native ksw_align on the same
@@ -75,7 +83,7 @@ Phases, each of which fails the run (non-zero exit, no result line):
      host work (the timed shape);
   7. goldens: tests/fixtures/golden_se.sam and golden_pe.sam reproduced on
      cuda, golden_pe.sam with its rescue batch through kswv;
-  8. run (a)'s SAM equals the port's host-native run
+  8. the SAM of runs (a) and (c) equals the port's host-native run
      (Aligner(backend=None), one process per chunk, started after phase 4
      and run during phases 5-7) byte for byte except @PG.
 The last two stdout lines are the card line and
@@ -137,6 +145,7 @@ N_I16 = 1024             # problems in the synthetic i16-class batch
 N_LONG = 256             # problems per class in the long-problem batch
 N_WIDE = 128             # i16 problems at a = 64, whose scores saturate
 N_SEED = 2048            # reads in the seeding kernel-vs-plain sample
+A52_PAIRS = 2000         # pairs of the -A52 main-path run (c)
 # the DRAM-scale seeding pass: a genome of scale 2.0 (93.4 Mbp, an occ
 # table of ~93 MB, beyond the 50 MB L2), one default-size chunk
 DRAM_SCALE = 2.0
@@ -151,6 +160,13 @@ POPC_OPS_PER_S = 132 * 16 * 1.98e9
 # kernel's times
 ONE_THREAD_SMEM_MS = {"sample": 7.955, "chunk (a)": 11.580,
                       "chunk (b)": 23.835}
+# sa_resolve: the block sizes timed at each walk count per lane (phases
+# 5b and 5d), and the times (ms) of the earlier one-thread-per-position
+# design, measured by this script's phases 5b and 5d on an NVIDIA H100
+# 80GB HBM3 at 700.00 W, printed beside the refill kernel's
+SA_THREADS = (128, 256, 512)
+ONE_THREAD_SA_MS = {"sample": 0.049, "chunk (a)": 0.116,
+                    "chunk (b)": 0.390, "DRAM chunk": 0.500}
 P_GATHER = 1 << 22       # rows of the timed row_gather calls
 PROBE_SIZES_MB = (4, 16, 64, 256, 1024, 2048, 4096)
 MAX_OVERFLOW = 0.01      # share of main-path reads allowed to the oracle
@@ -210,14 +226,14 @@ def instances(text: str, kernel: str) -> dict:
     """{template arguments: ptxas numbers} of a kernel's instantiations:
     (G, C) of bsw_extend_kernel<G, C>, (u8, SMAX) of kswv_kernel<U8, SMAX>
     (SMAX 0 = shared-memory stripes), (G, LCAP) of
-    smem_collect_kernel<G, LCAP>."""
+    smem_collect_kernel<G, LCAP>, (W,) of sa_resolve_kernel<W>."""
     import re
     out = {}
     for name, v in ptxas_table(text).items():
-        m = re.search(kernel + r"_kernelIL([ib])(\d+)EL([ib])(\d+)E", name)
+        m = re.search(kernel + r"_kernelI((?:L[ib]\d+E)+)E", name)
         if m:
-            out[tuple(int(m[k + 1]) == 1 if m[k] == "b" else int(m[k + 1])
-                      for k in (1, 3))] = v
+            out[tuple(int(x) == 1 if t == "b" else int(x) for t, x in
+                      re.findall(r"L([ib])(\d+)E", m[1]))] = v
     return out
 
 
@@ -263,6 +279,18 @@ def build_all() -> dict:
                 log(f"  ptxas bsw_extend<G={G}, C={C}>: "
                     f"{v.get('registers')} registers, {v.get('spill')} B "
                     f"spilled, {v.get('stack')} B stack frame")
+            continue
+        if name == "sa_resolve":
+            if not k.build_log:
+                continue        # built before this run: no ptxas output
+            for (W,), v in inst:
+                log(f"  ptxas sa_resolve<W={W}>: {v.get('registers')} "
+                    f"registers, {v.get('spill')} B spilled, "
+                    f"{v.get('stack')} B stack frame")
+            frames = {W: v.get("stack") for (W,), v in inst}
+            if sorted(frames) != sorted(k.WALKS) or any(frames.values()):
+                fail(f"sa_resolve: stack frames by walks per lane {frames} "
+                     f"(every instantiation of {k.WALKS} must have none)")
             continue
         for ln in k.build_log.splitlines():
             if "registers" in ln or "spill" in ln or "error" in ln.lower():
@@ -484,8 +512,9 @@ def seeding_vs_plain(torch, fm, passes, opt) -> dict:
     dfm = backend.dfm
     split_len = int(opt.min_seed_len * opt.split_factor + 0.499)
     ev = lambda: torch.cuda.Event(enable_timing=True)  # noqa: E731
-    sm = seed.smem_collect
+    sm, sa = seed.smem_collect, seed.sa_resolve
     ptx = instances(sm.build_log, "smem_collect")
+    sa_ptx = instances(sa.build_log, "sa_resolve")
     out = {}
     for tag, fq1, fq2, task, n_reads, n_ref in passes:
         encs = encode_reads([r.seq for r in
@@ -531,17 +560,39 @@ def seeding_vs_plain(torch, fm, passes, opt) -> dict:
                      f"{chosen} lanes")
         m_c, n_c, s_c, pos = seed.compact_and_expand(*got[:5], off,
                                                      int(opt.max_occ))
-        coords = seed.sa_resolve(dfm, pos)
+        # sa_resolve at every shape (walks per lane x threads per block,
+        # shape_for replaced on the instance), each timed; every shape's
+        # output is held against the plain version below
+        P = pos.numel()
+        sa_shape = sa.shape_for(P)
+        per_shape, sa_outs = {}, {}
+        try:
+            for W in sa.WALKS:
+                for T in SA_THREADS:
+                    sa.shape_for = lambda n, W=W, T=T: (W, T)
+                    sa_outs[W, T] = sa(dfm, pos)
+                    inst = sa_ptx.get((W,), {})
+                    per_shape[W, T] = dict(
+                        ms=cuda_ms(torch, lambda: sa(dfm, pos), 5),
+                        blocks=sa.plan(W, T, P, pos.device),
+                        registers=inst.get("registers"),
+                        stack_bytes=inst.get("stack"))
+        finally:
+            del sa.shape_for
         torch.cuda.synchronize()
+        coords = sa_outs[sa_shape]
         sm_ms = per_lanes[chosen]["ms"]
-        sa_ms = cuda_ms(torch, lambda: seed.sa_resolve(dfm, pos), 5)
-        nbwd, nsm, P = int(got[5].sum()), int(s_c.numel()), pos.numel()
+        sa_ms = per_shape[sa_shape]["ms"]
+        nbwd, nsm = int(got[5].sum()), int(s_c.numel())
         overflowed = int((got[4] < 0).sum())
         r = dict(reads=N, L=L, list_cap=lcap, slots=int(off[-1]),
                  smems=nsm, positions=P, bwd_ext=nbwd, overflowed=overflowed,
                  overflow_share=overflowed / N, lanes=chosen,
                  per_lanes=per_lanes, smem_ms=sm_ms, sa_ms=sa_ms,
-                 one_thread_ms=ONE_THREAD_SMEM_MS.get(tag))
+                 one_thread_ms=ONE_THREAD_SMEM_MS.get(tag),
+                 sa_shape=list(sa_shape),
+                 sa_shapes={f"{W}x{T}": v for (W, T), v in per_shape.items()},
+                 sa_one_thread_ms=ONE_THREAD_SA_MS.get(tag))
         mem_ms, ops_ms = smem_bounds(nbwd, N, L, nsm)
         r.update(smem_bound_ms=max(mem_ms, ops_ms), smem_mem_ms=mem_ms,
                  smem_ops_ms=ops_ms,
@@ -578,7 +629,8 @@ def seeding_vs_plain(torch, fm, passes, opt) -> dict:
         e1.record()
         torch.cuda.synchronize()
         r["sa_plain_ms"] = e0.elapsed_time(e1)
-        r["sa_err"] = int((coords - want_c).abs().max()) if P else 0
+        r["sa_err"] = max(int((o - want_c).abs().max()) if P else 0
+                          for o in sa_outs.values())
         r["sa_row_reads"] = reads[0]
         # sa_resolve bytes: one 32 B row per LF step, 1 + 4 B of SA per
         # position, the position in and the coordinate out
@@ -619,11 +671,18 @@ def seeding_vs_plain(torch, fm, passes, opt) -> dict:
             f"{r['smem_bound_by']}: bytes {mem_ms:.4f}, operations "
             f"{ops_ms:.4f}; {nbwd} backward_ext, overflow.fused_read "
             f"{overflowed} = {100.0 * overflowed / N:.3f} %), "
-            f"sa_resolve {sa_ms:.3f} ms on {P} positions (bound "
+            f"sa_resolve {sa_ms:.4f} ms on {P} positions (bound "
             f"{r['sa_bound_ms']:.5f} ms); plain {r['smem_plain_ms']:.1f} ms "
             f"on {r['smem_plain_reads']} reads / {r['sa_plain_ms']:.1f} ms, "
             f"identical" + note)
         log(f"    lane widths, all identical: {lanes_txt}")
+        log(f"    sa_resolve shapes (walks per lane x threads per block), "
+            f"all identical to the plain version; the wrapper's choice "
+            f"{sa_shape[0]}x{sa_shape[1]}, one-thread design "
+            f"{r['sa_one_thread_ms']} ms: " + ", ".join(
+                f"{W}x{T} {v['ms']:.4f} ms ({v['blocks']} blocks, "
+                f"{v['registers']} registers, {v['stack_bytes']} B stack)"
+                for (W, T), v in per_shape.items()))
     return out
 
 
@@ -846,10 +905,11 @@ def read_sam_body(path: str) -> list[str]:
         return [ln for ln in f if not ln.startswith("@PG")]
 
 
-def oracle_chunk(prefix: str, fq1: str, fq2: str, idx: int):
+def oracle_chunk(prefix: str, fq1: str, fq2: str, idx: int,
+                 a: int | None = None):
     """(SAM text, seconds) of chunk `idx` from the host-native
     Aligner(backend=None), chunked exactly as the CLI run (-K TASK_BASES,
-    PE)."""
+    PE), with the CLI's -A a (update_a's rescaling) when a is given."""
     from bwamem2_tpu_torch.align.pipeline import Aligner
     from bwamem2_tpu_torch.index.fmindex import FMIndex
     from bwamem2_tpu_torch.io.fastq import FastxReader, read_chunk
@@ -861,12 +921,23 @@ def oracle_chunk(prefix: str, fq1: str, fq2: str, idx: int):
     reads = read_chunk(ks1, ks2, TASK_BASES)
     for r in reads:
         r.comment = None
-    opt = MemOptions().finalize(None)
+    opt = MemOptions()
+    if a is not None:
+        opt.set("a", a)
+    opt.finalize(None)
     opt.flag |= MEM_F_PE
     t0 = time.perf_counter()
     Aligner(FMIndex.load(prefix), opt, backend=None, verbose=0).process(
         reads, base)
     return "".join(r.sam for r in reads), time.perf_counter() - t0
+
+
+def head_fastq(src: str, dst: str, n: int) -> str:
+    """The first n records of a FASTQ file, written to dst."""
+    with open(src) as f, open(dst, "w") as g:
+        for _ in range(4 * n):
+            g.write(f.readline())
+    return dst
 
 
 def n_chunks(fq1: str, fq2: str, task_bases: int) -> int:
@@ -1081,12 +1152,23 @@ def main() -> None:
     run_b = drive_main(torch, card, "(b) default task size", [
         "-v", "1", "-o", os.path.join(WORK, "main_default.sam"), prefix,
         fq1d, fq2d], fq1d, fq2d, 2 * DEFAULT_PAIRS, DEFAULT_TASK_BASES)
-    # the kernels line counts the launches of both runs
-    launches = {n: run_a["launches"][n] + run_b["launches"][n]
+    # (c): -A52 (-B scaled to 208, beyond the int8 score matrix, which
+    # holds a mismatch of +48) on the first A52_PAIRS pairs, -K as (a)
+    fq1c, fq2c = (head_fastq(f, os.path.join(WORK, f"a52_{i}.fq"),
+                             A52_PAIRS) for i, f in ((1, fq1), (2, fq2)))
+    sam_c = os.path.join(WORK, "main_a52.sam")
+    run_c = drive_main(torch, card, f"(c) -A52 -K {TASK_BASES}", [
+        "-A52", "-K", str(TASK_BASES), "-v", "1", "-o", sam_c, prefix, fq1c,
+        fq2c], fq1c, fq2c, 2 * A52_PAIRS, TASK_BASES)
+    runs = (run_a, run_b, run_c)
+    # the kernels line counts the launches of the three runs
+    launches = {n: sum(r["launches"][n] for r in runs)
                 for n in run_a["launches"]}
     cap_a, cap_b = run_a.pop("_capture"), run_b.pop("_capture")
     bsw_b = run_b.pop("_bsw")
-    run_a.pop("_bsw")
+    for r in (run_a, run_c):
+        r.pop("_bsw")
+    run_c.pop("_capture")
 
     # the host-native oracle (one process per chunk) runs while the kernels
     # are held against their plain versions and the goldens run
@@ -1094,10 +1176,11 @@ def main() -> None:
     import multiprocessing as mp
     opt = MemOptions().finalize(None)
     t0 = time.perf_counter()
-    with mp.get_context("spawn").Pool(min(chunks, os.cpu_count() or 1)) \
-            as pool:
+    with mp.get_context("spawn").Pool(min(chunks + 1,
+                                          os.cpu_count() or 1)) as pool:
         futs = [pool.apply_async(oracle_chunk, (prefix, fq1, fq2, i))
                 for i in range(chunks)]
+        fut_c = pool.apply_async(oracle_chunk, (prefix, fq1c, fq2c, 0, 52))
         log(f"[5a] bsw_extend vs plain on {name}, P={P_KERNEL} per rung:")
         tot = kernel_vs_plain(torch, fm, opt)
         log(f"  all rungs identical; kernel {tot['ms']:.3f} ms (one-thread "
@@ -1152,21 +1235,34 @@ def main() -> None:
                 (N_WIDE, (513, 701), (600, 1201), False)]),)))
         if not rs["i16 a=64 batch"]["saturated_i16"]:
             fail("5c: no i16 score of the a=64 batch reached 32767")
+        # -A52 as the CLI sets it (-B 208 raw, +48 in the int8 matrix): the
+        # i16 batch's problems again
+        a52 = MemOptions()
+        a52.set("a", 52)
+        a52.finalize(None)
+        rs.update(rescue_vs_plain(torch, fm, a52, (synthetic_rescue(
+            torch, fm.ref_string, "i16 a=52 batch", 17, [
+                (N_I16, (250, 513), (300, 2049), False)]),)))
         del cap_a, cap_b
         log(f"[6] gather probe on {name} [{card}]:")
         gt = gather_phase(torch, fm)
         log("[7] goldens on cuda:")
         goldens()
         oracle = [f.get() for f in futs]
-    ours = [ln for ln in read_sam_body(sam) if not ln.startswith("@")]
-    want = "".join(o[0] for o in oracle).splitlines(keepends=True)
-    if ours != want:
-        bad = sum(a != b for a, b in zip(ours, want))
-        fail(f"run (a)'s SAM differs from the host-native run: {bad} of "
-             f"{len(want)} records ({len(ours)} produced)")
-    log(f"[8] run (a)'s SAM == host-native Aligner(backend=None) SAM "
-        f"({len(want)} records; oracle {time.perf_counter() - t0:.1f}s, "
-        f"per chunk " + ", ".join(f"{o[1]:.1f}s" for o in oracle) + ")")
+        oracle_c = fut_c.get()
+    for tag, path, texts in (("(a)", sam, [o[0] for o in oracle]),
+                             ("(c) -A52", sam_c, [oracle_c[0]])):
+        ours = [ln for ln in read_sam_body(path) if not ln.startswith("@")]
+        want = "".join(texts).splitlines(keepends=True)
+        if ours != want:
+            bad = sum(x != y for x, y in zip(ours, want))
+            fail(f"run {tag}'s SAM differs from the host-native run: {bad} "
+                 f"of {len(want)} records ({len(ours)} produced)")
+        log(f"[8] run {tag}'s SAM == host-native Aligner(backend=None) SAM "
+            f"({len(want)} records)")
+    log(f"    oracle {time.perf_counter() - t0:.1f}s, per chunk of (a) "
+        + ", ".join(f"{o[1]:.1f}s" for o in oracle)
+        + f", (c) {oracle_c[1]:.1f}s")
 
     # the seeding kernels' times and bounds at run (b)'s first chunk, the
     # largest shape the main path gave them; errors over every pass
@@ -1241,7 +1337,7 @@ def main() -> None:
                    f"(4-4096 MB), P={P_GATHER} rows of 16 int32 each"),
     ]
     result = dict(kernels=kern, card=card, first_call_s=first,
-                  main_a=run_a, main_b=run_b,
+                  main_a=run_a, main_b=run_b, main_a52=run_c,
                   launches=launches,
                   build_s={k: round(v, 1) for k, v in secs.items()},
                   bsw_main=bm, bsw_rungs=tot,

@@ -64,8 +64,9 @@ def flat_equal(got, want, slot_off):
 @pytest.mark.cuda
 def test_seeding_kernels_match_ref_on_card(card, monkeypatch):
     """smem_collect at each lane width, with the default route rules and
-    with 5 slots per read (most reads overflow), and sa_resolve (every BWT
-    position) against their plain versions on the card."""
+    with 5 slots per read (most reads overflow), and sa_resolve at each
+    walk count per lane (every BWT position, in order and shuffled)
+    against their plain versions on the card."""
     fm = FMIndex.load(PREFIX)
     dfm = DeviceFMIndex.from_host(fm, card)
     reads = read_chunk(FastxReader(os.path.join(DATA, "reads_r1.fq")),
@@ -91,13 +92,21 @@ def test_seeding_kernels_match_ref_on_card(card, monkeypatch):
             cnt = flat_equal(got, tseed.smem_collect_ref(*args), off)
             assert ((cnt < 0).any()) == (off is five)
     monkeypatch.undo()
+    # sa_resolve at every walk count per lane, on every BWT position in
+    # order and in a random order
     pos = torch.arange(fm.ref_seq_len, device=card)
-    n = tseed.sa_resolve.launches
-    got = tseed.sa_resolve(dfm, pos)
-    torch.cuda.synchronize()
-    assert tseed.sa_resolve.launches == n + 1
-    np.testing.assert_array_equal(got.cpu().numpy(),
-                                  tseed.sa_resolve_ref(dfm, pos).cpu().numpy())
+    shuffled = torch.from_numpy(np.random.default_rng(7).permutation(
+        fm.ref_seq_len)).to(card)
+    for W in tseed.sa_resolve.WALKS:
+        monkeypatch.setattr(tseed.sa_resolve, "shape_for",
+                            lambda P, W=W: (W, 256))
+        for p in (pos, shuffled):
+            n = tseed.sa_resolve.launches
+            got = tseed.sa_resolve(dfm, p)
+            torch.cuda.synchronize()
+            assert tseed.sa_resolve.launches == n + 1
+            np.testing.assert_array_equal(
+                got.cpu().numpy(), tseed.sa_resolve_ref(dfm, p).cpu().numpy())
 
 
 @pytest.mark.cuda
@@ -270,6 +279,39 @@ def test_i16_beyond_16_bits_takes_native_kernel_on_card(card):
     want = ksw_align_desc(enc, fm.ref_string, desc, opt)
     np.testing.assert_array_equal(got, want)
     assert (want[:4, 0] == 32767).any()
+
+
+@pytest.mark.cuda
+def test_i16_at_a52_on_card(card):
+    """mem -A52 scoring (-B scaled to 208, a mismatch of +48 in the int8
+    matrix the kernel is given): an i16 batch (qlen 250-512) in the
+    registers and shared-memory buckets equals kswv_two_phase_ref and the
+    native ksw_align."""
+    fm = FMIndex.load(PREFIX)
+    dfm = DeviceFMIndex.from_host(fm, card)
+    opt = MemOptions()
+    opt.set("a", 52)
+    opt.finalize()
+    enc, desc = rescue_batch(fm.ref_string, [
+        dict(seed=25, n=48, qr=(250, 513), tr=(300, 1200), nmut=8,
+             n_every=5, plant=7, u8=False),
+        dict(seed=27, n=48, qr=(40, 129), tr=(60, 400), nmut=2,
+             n_every=5, plant=7, u8=False)])
+    encj = torch.from_numpy(enc).to(card)
+    dk = DeviceKswv(dfm, opt)
+    for lo, hi in ((0, 48), (48, 96)):      # shared stripes, registers
+        idx = np.arange(lo, hi)
+        args = dk.kswv_args(encj, desc, idx, False)
+        n0 = kswv.launches
+        got = kswv(*args)
+        assert kswv.launches == n0 + 1
+        want = kswv_two_phase_ref(*args)
+        for g, x in zip(got, want):
+            assert torch.equal(g, x)
+    got = dk.align_batch(encj, desc)
+    want = ksw_align_desc(enc, fm.ref_string, desc, opt)
+    np.testing.assert_array_equal(got, want)
+    assert (want[:, 6] >= 0).sum() > 0                # some were rescued
 
 
 def extension_batch(genome: np.ndarray, seed: int, P: int, Qmax: int,

@@ -40,14 +40,19 @@ torch.set_num_threads(1)
 PREFIX = os.path.join(FIXTURES, "ref_small.fa")
 
 # host build of the kernels' shared device code: the primitives of
-# fm_occ.cuh and the lane-group seeding body of smem_group.cuh (G lanes
-# stepped in lockstep), each behind a loop over the batch in place of the
-# launch; the group body's event counts land in smem_stats
+# fm_occ.cuh, the lane-group seeding body of smem_group.cuh (G lanes
+# stepped in lockstep) and the SA walk-and-refill loop of sa_group.cuh (a
+# warp of 32 lanes in lockstep over a host ticket counter), each behind a
+# loop over the batch in place of the launch; the group body's event counts
+# land in smem_stats, the SA loop's row reads in sa_rows
 SHIM = r'''
 #include <vector>
 static long long smem_stats[2];
 #define SMEM_STAT_HOOK(what, n) (smem_stats[what] += (n))
+static long long sa_rows;
+#define SA_ROW_HOOK() (sa_rows += 1)
 #include "smem_group.cuh"
+#include "sa_group.cuh"
 #define FMARGS const int32_t *occp, const int32_t *occ_hi, int has_hi, \
     const int64_t *counts, int64_t sent
 static FmView mk(FMARGS) {
@@ -73,13 +78,27 @@ extern "C" void h_bwd_ext(FMARGS, const int64_t *k, const int64_t *l,
 extern "C" void h_bwt_char_occ(FMARGS, const int64_t *pos, int64_t n,
                                int32_t *ch, int64_t *occ) {
   FmView f = mk(occp, occ_hi, has_hi, counts, sent);
-  for (int64_t i = 0; i < n; ++i) ch[i] = fm_bwt_char_occ(f, pos[i], occ + i);
+  for (int64_t i = 0; i < n; ++i) {
+    uint32_t r[8];
+    fm_row(f, pos[i] >> 6, r);
+    ch[i] = fm_char_occ_row(f, r, has_hi ? fm_hi(f, pos[i] >> 6) : 0u,
+                            pos[i], occ + i);
+  }
 }
-extern "C" void h_sa_entry(FMARGS, const int8_t *ms, const uint32_t *ls,
-                           const int64_t *pos, int64_t n, int64_t *out) {
-  FmView f = mk(occp, occ_hi, has_hi, counts, sent);
-  int steps;
-  for (int64_t i = 0; i < n; ++i) out[i] = fm_sa_entry(f, ms, ls, pos[i], &steps);
+extern "C" long long h_sa_group(FMARGS, const int8_t *ms,
+                                const uint32_t *ls, const int64_t *pos,
+                                int64_t n, int W, const int64_t *perm,
+                                int64_t *out) {
+  const SaBatch b{mk(occp, occ_hi, has_hi, counts, sent), ms, ls, pos, n,
+                  out};
+  SaWarp g;
+  g.perm = perm;
+  sa_rows = 0;
+  if (W == 1) sa_group_run<1>(g, b);
+  else if (W == 2) sa_group_run<2>(g, b);
+  else if (W == 4) sa_group_run<4>(g, b);
+  else return -1;
+  return sa_rows;
 }
 template <int G>
 static void group_reads(const SmemBatch &b, int lcap) {
@@ -171,12 +190,21 @@ class HostFm:
         self.call("h_bwt_char_occ", pos, ctypes.c_int64(len(pos)), ch, occ)
         return ch, occ
 
-    def sa_entry(self, pos):
+    def sa_group(self, pos, W=1, perm=None):
+        """sa_group.cuh's loop at W walks per lane over `pos`, tickets
+        resolved in the order `perm` (input order when None): (coordinates,
+        occ-row reads)."""
         pos = np.ascontiguousarray(pos, np.int64)
         out = np.zeros(len(pos), np.int64)
-        self.call("h_sa_entry", self.ms, self.ls, pos,
-                  ctypes.c_int64(len(pos)), out)
-        return out
+        if perm is not None:
+            perm = np.ascontiguousarray(perm, np.int64)
+        fn = self.lib.h_sa_group
+        fn.restype = ctypes.c_longlong
+        rows = fn(*self.fm, self._p(self.ms), self._p(self.ls),
+                  self._p(pos), ctypes.c_int64(len(pos)), ctypes.c_int(W),
+                  None if perm is None else self._p(perm), self._p(out))
+        assert rows >= 0
+        return out, rows
 
     def smem_group(self, enc, lens, msl, split_len, split_width,
                    max_mem_intv, lcap, slot_off, G):

@@ -69,6 +69,22 @@ A120 = (120, 4, 6, 1, 6, 1)           # -A120: i16 scores pass 32767
 MIN_SEED_LEN = 19
 
 
+def cli_scoring(a: int) -> tuple:
+    """The rescue scoring of `mem -A a` as DeviceKswv gives it to the
+    kernel: update_a scales the other scores by a (-B to 4a), and a and b
+    are read from the int8 score matrix, as the native ksw_align scores
+    (at -A52: b = 208 raw, a + max(b, 1) = 260, a mismatch of +48 in the
+    matrix)."""
+    opt = MemOptions()
+    opt.set("a", a)
+    opt.finalize()
+    return (opt.mat[0], -opt.mat[1], opt.o_del, opt.e_del, opt.o_ins,
+            opt.e_ins)
+
+
+A52 = cli_scoring(52)
+
+
 @functools.lru_cache(maxsize=None)
 def genome() -> np.ndarray:
     return FMIndex.load(PREFIX).ref_string
@@ -111,6 +127,9 @@ CASES = {   # name: (windows, u8 class, scoring)
     "u8_ties": ("ties", True, DEFAULT),
     "i16_ties": ("ties", False, DEFAULT),
     "i16_wide": ("wide", False, A120),
+    "i16_A52": ("i16", False, A52),
+    "i16_A52_short": ("short", False, A52),
+    "u8_A52": ("u8", True, A52),
 }
 # JAX's kswv_two_phase emulates the i16 class in int32 without saturating,
 # so it is the reference only where no score reaches 32767
@@ -416,6 +435,9 @@ HOST_DP = {
     "i16_qe_ties": ("i16_ties", False, False, 16),
     "i16_qe_ties_shared": ("i16_ties", False, True, 0),
     "i16_saturating": ("i16_wide", False, False, 0),
+    "i16_A52": ("i16_A52", False, False, 0),
+    "i16_A52_registers": ("i16_A52_short", False, False, 16),
+    "u8_A52": ("u8_A52", False, False, 8),
 }
 
 
@@ -438,6 +460,19 @@ def test_cuda_dp_source_matches_ref(host_dp, name):
         assert sweeps >= 3
     if case == "i16_wide":
         assert (want[0][:, 0] == 32767).any()
+    if CASES[case][2] == A52:
+        # -A52 as the CLI sets it: also the native ksw_align, per problem
+        win, u8, _ = CASES[case]
+        enc, *w = windows(win)
+        desc = dict(zip(("qoff", "qdir", "qcomp", "qlen", "toff", "tlen"),
+                        w), u8=np.full(len(w[0]), u8))
+        opt = MemOptions()
+        opt.set("a", 52)
+        opt.finalize()
+        dk = DeviceKswv(None, opt)
+        np.testing.assert_array_equal(
+            dk._finish(got[0], got[1]),
+            ksw_align_desc(enc, genome(), desc, opt))
     assert 1 <= sweeps <= 16
 
 

@@ -170,6 +170,47 @@ def test_long_read_pe_rescue_on_device_route(fm, rescued):
     assert out[False] == out[True]
 
 
+@pytest.mark.parametrize("a", [1, 32, 33, 52, 127])
+def test_score_matrix_is_int8(a):
+    """`mem -A a` scales -B to 4a; the score matrix holds every entry as
+    bwa-mem2's int8_t does (from -A33 on, -4a wraps), so numpy's int8
+    conversion takes it, and mat_scores gives the kernels what the native
+    ones read: match a, mismatch penalty -int8(-4a)."""
+    opt = MemOptions()
+    opt.set("a", a)
+    opt.finalize()
+    mat = np.array(opt.mat, np.int8)
+    assert mat.tolist() == opt.mat and opt.b == 4 * a
+    assert opt.mat_scores() == (a, -((-4 * a + 128) % 256 - 128))
+    assert (opt.mat_scores()[1] == 4 * a) == (a <= 32)
+
+
+def test_a52_pe_matches_host_native(fm, rescued):
+    """mem -A52 PE on the golden fixtures' reads: update_a scales -B to
+    208, beyond bwa-mem2's int8 score matrix, which holds a mismatch of
+    +48 (options.fill_scmat).  Through TorchBackend(device="cpu"), whose
+    extension and rescue kernels take a and b from that matrix, the rescue
+    batch runs on the plain kernel and the SAM equals the host-native
+    run's, which reads the same matrix."""
+    parsed = cli.parse_mem_args(["-A52", PREFIX,
+                                 os.path.join(DATA, "reads_r1.fq"),
+                                 os.path.join(DATA, "reads_r2.fq")])
+    opt, pes0 = parsed[0].finalize(parsed[1]), parsed[9]
+    opt.flag |= MEM_F_PE
+    assert (opt.a, opt.b, opt.mat[:2]) == (52, 208, [52, 48])
+    out = {}
+    n_kswv = kswv.plain_calls
+    for backend in (TorchBackend(fm, opt, device="cpu"), None):
+        reads = read_chunk(FastxReader(os.path.join(DATA, "reads_r1.fq")),
+                           FastxReader(os.path.join(DATA, "reads_r2.fq")),
+                           10**9)
+        Aligner(fm, opt, backend=backend, verbose=0).process(reads, 0,
+                                                             pes0=pes0)
+        out[backend is None] = "".join(r.sam for r in reads)
+    assert sum(map(len, rescued)) > 0 and kswv.plain_calls > n_kswv
+    assert out[False] == out[True]
+
+
 @pytest.mark.parametrize("native_rt", [True, False],
                          ids=["native_rt", "python_rt"])
 def test_long_mates_off_grid_rescue_on_host(fm, monkeypatch, native_rt):

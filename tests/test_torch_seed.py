@@ -18,8 +18,10 @@
   oracle.  The wrapper's buffers are linear in the chunk's bases
   (plan_bytes), and a chunk with a read over 32,000 bp seeds on the host
   oracle, its SAM equal to the host-native run's.
-* sa_resolve_ref equals JAX sa_lookup_kernel (and the host-built
-  fm_sa_entry, and the native rt_sa_entries) on every BWT position.
+* sa_resolve_ref equals JAX sa_lookup_kernel and the native
+  rt_sa_entries on every BWT position, and the SA kernel's walk-and-refill
+  loop (csrc/sa_group.cuh, host build) equals sa_resolve_ref there, with
+  its tickets in input and in shuffled order and as many row reads.
 Tolerance 0 throughout: everything is integer.
 """
 
@@ -403,13 +405,48 @@ def test_sa_resolve_matches_jax(fm):
 
 
 def test_fm_sa_entry_header_matches_ref(tmp_path, fm):
+    """The kernel's SA walk (sa_group.cuh, host build, one walk per lane)
+    on random positions and the sentinel == sa_resolve_ref."""
     lib = build_host_shim(str(tmp_path))
     dfm = DeviceFMIndex.from_host(fm, "cpu")
     pos = np.random.default_rng(3).integers(0, fm.ref_seq_len, 5000)
     pos = np.concatenate([pos, [int(fm.sentinel_index)]]).astype(np.int64)
     np.testing.assert_array_equal(
-        HostFm(lib, dfm).sa_entry(pos),
+        HostFm(lib, dfm).sa_group(pos)[0],
         tseed.sa_resolve_ref(dfm, torch.from_numpy(pos)).numpy())
+
+
+@pytest.fixture(scope="module")
+def sa_host(tmp_path_factory, fm):
+    """(host build of the shim, DeviceFMIndex on the CPU, every BWT
+    position, sa_resolve_ref's coordinates of them and its row reads)."""
+    lib = build_host_shim(str(tmp_path_factory.mktemp("sa_group")))
+    dfm = DeviceFMIndex.from_host(fm, "cpu")
+    pos = np.arange(fm.ref_seq_len, dtype=np.int64)
+    reads = []
+    want = tseed.sa_resolve_ref(dfm, torch.from_numpy(pos), reads).numpy()
+    return HostFm(lib, dfm), pos, want, reads[0]
+
+
+@pytest.mark.parametrize("shuffled", [False, True],
+                         ids=["input_order", "shuffled"])
+@pytest.mark.parametrize("W", tseed.sa_resolve.WALKS)
+def test_sa_group_matches_ref(sa_host, fm, W, shuffled):
+    """sa_group.cuh's walk-and-refill loop (host build: 32 lanes in
+    lockstep, W walks each) on every BWT position of the test index ==
+    sa_resolve_ref, with as many occ-row reads (counted through
+    SA_ROW_HOOK) as sa_resolve_ref's row_reads; the sentinel's walk ends
+    there at once (its coordinate is 0).  Tickets resolved in a shuffled
+    order give the same coordinates and row reads: the order in which
+    lanes are refilled changes nothing."""
+    host, pos, want, rows = sa_host
+    sent = int(fm.sentinel_index)
+    assert sent & 7 and want[sent] == 0
+    perm = np.random.default_rng(5 + W).permutation(len(pos)) \
+        if shuffled else None
+    got, n = host.sa_group(pos, W, perm)
+    np.testing.assert_array_equal(got, want)
+    assert n == rows
 
 
 def test_wrapper_dispatch(fm):
