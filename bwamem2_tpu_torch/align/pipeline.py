@@ -111,13 +111,12 @@ class Aligner:
             kw = dict(left_kernel=self.backend.left_bsw_kernel,
                       right_kernel=self.backend.right_bsw_kernel)
             max_len = max((len(e) for e in encs), default=0)
-            if (getattr(self.backend, "_bsw", None) is not None
-                    and max_len <= getattr(self.backend,
-                                           "MAX_DEVICE_READ_LEN", 0)):
-                # descriptor path active: in-cap pairs skip sequence copies.
-                # The long class (sheared-band kernel) takes any tlen, so
-                # only qlen > LONG_QCAP pairs still need materialization
-                # for the host tail kernel
+            if max_len <= self.backend.grid_read_cap(len(encs)):
+                # every read is on the chunk's read grid: the device
+                # kernels gather the pairs' sequences from descriptors, so
+                # only a pair beyond LONG_QCAP (none here) is materialized.
+                # Otherwise every pair is, and the pairs of the reads off
+                # the grid run on the host kernel (DeviceBSW._run)
                 from ..ops.bsw import LONG_QCAP
                 kw["device_caps"] = (LONG_QCAP, 1 << 62)
         with PROF("extension.bsw"):

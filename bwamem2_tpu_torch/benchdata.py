@@ -7,9 +7,11 @@ per 150 kb, each copy at 2% divergence) and telomeric/centromeric N runs,
 indexed with the port's index builder, plus 2x150 bp FR pairs (insert 420
 +- 60, 0.5% substitutions, one indel in 5% of reads).  scale 1.0 is the
 46.7 Mbp chr21 class; scale 0.25 is 11.7 Mbp, the size of a yeast genome.
-`rescue_windows` and `rescue_batch` make random mate-rescue problems on a
-genome, for holding the rescue kernel against its plain version and the
-native ksw_align.
+`sample_reads_long` samples pacbio/ont-like long reads (2-8 kb, ~10 %
+error) from the built genome, the generator of the repository's long-read
+fixture (tests/make_fixtures.py, reads_pacbio.fq).  `rescue_windows` and
+`rescue_batch` make random mate-rescue problems on a genome, for holding
+the rescue kernel against its plain version and the native ksw_align.
 
 Everything is made from fixed seeds and cached by existence under `dir`.
 """
@@ -105,9 +107,71 @@ def sample_reads_pe(prefix: str, fq1: str, fq2: str, n_pairs: int,
         f.write("".join(lines2))
 
 
+def sample_reads_long(prefix: str, fq: str, n_reads: int, seed: int = 31,
+                      lens: tuple[int, int] = (2000, 8000)) -> None:
+    """n_reads long reads from the built index's genome: length drawn from
+    [lens), per source base 4 % deleted, 3 % an inserted random base, 3 % a
+    random base in its place (the substitution may redraw the same base),
+    half of the reads reverse-complemented, qualities 10-29."""
+    from .index.fmindex import FMIndex
+    fm = FMIndex.load(prefix)
+    g = fm.ref_string[:fm.l_pac]
+    rng = np.random.default_rng(seed)
+    rc = str.maketrans("ACGT", "TGCA")
+    out = []
+    for i in range(n_reads):
+        ln = int(rng.integers(*lens))
+        p0 = int(rng.integers(0, fm.l_pac - ln))
+        src = g[p0:p0 + ln]
+        seq, j = bytearray(), 0
+        while j < ln:                      # one draw and base per step
+            r = rng.random(ln)
+            b = BASES[rng.integers(0, 4, ln)]
+            for x, c in zip(r.tolist(), b.tolist()):
+                if j == ln:
+                    break
+                if x < 0.04:               # deletion
+                    j += 1
+                elif x < 0.07:             # insertion
+                    seq.append(c)
+                else:
+                    seq.append(c if x < 0.10 else BASES[src[j]])
+                    j += 1
+        s = seq.decode()
+        if rng.random() < 0.5:
+            s = s.translate(rc)[::-1]
+        q = "".join(chr(33 + int(x)) for x in rng.integers(10, 30, len(s)))
+        out.append(f"@lr{i}\n{s}\n+\n{q}\n")
+    with open(fq, "w") as f:
+        f.write("".join(out))
+
+
+def ensure_long(dir: str, scale: float, n_reads: int) -> tuple[str, str]:
+    """ensure()'s genome and index under `dir`, and n_reads long reads
+    (sample_reads_long, made once); returns (index prefix, reads.fq)."""
+    fa = ensure_genome(dir, scale)
+    fq = os.path.join(dir, f"long{n_reads}.fq")
+    if not os.path.exists(fq):
+        print(f"[bench-data] sampling {n_reads} long reads", file=sys.stderr)
+        sample_reads_long(fa, fq, n_reads)
+    return fa, fq
+
+
 def ensure(dir: str, scale: float, n_pairs: int) -> tuple[str, str, str]:
     """Genome + index + reads under `dir` (made once); returns (index
     prefix, r1.fq, r2.fq)."""
+    fa = ensure_genome(dir, scale)
+    fq1 = os.path.join(dir, f"reads{n_pairs}_r1.fq")
+    fq2 = os.path.join(dir, f"reads{n_pairs}_r2.fq")
+    if not os.path.exists(fq2):
+        print(f"[bench-data] sampling {n_pairs} 2x{READ_LEN}bp pairs",
+              file=sys.stderr)
+        sample_reads_pe(fa, fq1, fq2, n_pairs)
+    return fa, fq1, fq2
+
+
+def ensure_genome(dir: str, scale: float) -> str:
+    """Genome + index under `dir` (made once); returns the index prefix."""
     os.makedirs(dir, exist_ok=True)
     fa = os.path.join(dir, "genome.fa")
     if not os.path.exists(fa):
@@ -118,13 +182,7 @@ def ensure(dir: str, scale: float, n_pairs: int) -> tuple[str, str, str]:
         print("[bench-data] building index", file=sys.stderr)
         from .index.build import build_index
         build_index(fa, fa)
-    fq1 = os.path.join(dir, f"reads{n_pairs}_r1.fq")
-    fq2 = os.path.join(dir, f"reads{n_pairs}_r2.fq")
-    if not os.path.exists(fq2):
-        print(f"[bench-data] sampling {n_pairs} 2x{READ_LEN}bp pairs",
-              file=sys.stderr)
-        sample_reads_pe(fa, fq1, fq2, n_pairs)
-    return fa, fq1, fq2
+    return fa
 
 
 def rescue_windows(genome: np.ndarray, seed: int, n: int, L: int,

@@ -32,6 +32,8 @@
 // What crosses lanes goes through the group interface:
 //   lane()              this lane's index
 //   shfl_up(x, k)       lane l-k's x (lanes below k keep their own)
+//   shfl_down(x, k)     lane l+k's x (lanes above G-1-k keep their own;
+//                       the sheared kernel's frame shift, shear_group.cuh)
 //   broadcast(x, s)     lane s's x (the row's target base, H at `end`)
 //   reduce_max/min(x)   over the lanes
 //   select(m, a, b)     per lane
@@ -187,6 +189,9 @@ struct BswGroup {
     BSW_D int shfl_up(int x, int k) const {
         return __shfl_up_sync(mask, x, k, G);
     }
+    BSW_D int shfl_down(int x, int k) const {
+        return __shfl_down_sync(mask, x, k, G);
+    }
     BSW_D int broadcast(int x, int s) const {
         return __shfl_sync(mask, x, s, G);
     }
@@ -266,6 +271,10 @@ struct BswGroup {
     bool leader() const { return true; }
     V shfl_up(const V &x, int k) const {
         return V::apply([&](int l) { return l >= k ? x.v[l - k] : x.v[l]; });
+    }
+    V shfl_down(const V &x, int k) const {
+        return V::apply(
+            [&](int l) { return l + k < G ? x.v[l + k] : x.v[l]; });
     }
     int broadcast(const V &x, int s) const { return x.v[s]; }
     int reduce_max(const V &x) const {

@@ -8,7 +8,9 @@ Three device stages run here:
     whose SMEMs outrun their slots or the kernel's on-chip candidate list
     are re-seeded exactly by the native host oracle (`_patch_chunk`) and
     counted as `overflow.fused_read`;
-  * banded-SW extension scoring (ops/bsw.py, csrc/bsw_extend.cu);
+  * banded-SW extension scoring (ops/bsw.py:DeviceBSW): in-cap pairs on
+    csrc/bsw_extend.cu, long pairs (qlen > 256 or tlen > 608: long reads)
+    on csrc/bsw_shear.cu;
   * mate rescue (`rescue_batch`): ops/kswv.py:DeviceKswv with the kernel
     csrc/kswv.cu, for every problem of the chunk whatever its length; a
     rescue SW that later finds no batch result runs on the host scalar
@@ -23,7 +25,13 @@ bases (SmemCollect.plan_bytes).
 
 Uploading each chunk's padded read grid (`_bsw.encj`) is what engages the
 all-native flat extension path (Aligner._flat_ext_ok), whose scoring
-rounds call DeviceBSW.run_arrays.
+rounds call DeviceBSW.run_arrays.  A chunk the flat path does not take
+(reads longer than about 720 bases at default options, every read of -x
+pacbio / -x ont2d, or a read off the grid) extends on the object path
+(align/extend.py:extend_chains), whose kernels are `left_bsw_kernel` /
+`right_bsw_kernel`, DeviceBSW's left_kernel / right_kernel: the pairs of
+a read off the grid run there on the native host kernel, counted as
+`overflow.bsw_host_tail`, every other pair on the card.
 """
 
 from __future__ import annotations
@@ -68,11 +76,6 @@ class TorchBackend:
     # for device seeding); a longer one is seeded alone on the host oracle
     GRID_MAX_READ_LEN = 32000
 
-    # the object-path extension (long reads, where the flat path does not
-    # apply) keeps the native host kernels: extend_chains' defaults
-    left_bsw_kernel = None
-    right_bsw_kernel = None
-
     def __init__(self, fm: FMIndex, opt, device=None):
         """device: "cuda" (the default) or "cpu"; CUDA without a card
         raises."""
@@ -84,6 +87,16 @@ class TorchBackend:
         self._kswv = DeviceKswv(self.dfm, opt)
         self.seeder = FusedSeeder(self.dfm)
 
+    @property
+    def left_bsw_kernel(self):
+        """The object path's extension kernels (extend_chains): DeviceBSW
+        on this thread's read grid."""
+        return self._bsw.left_kernel
+
+    @property
+    def right_bsw_kernel(self):
+        return self._bsw.right_kernel
+
     @classmethod
     def grid_read_cap(cls, N: int) -> int:
         """The longest read a grid of N rows takes: GRID_MAX_READ_LEN, or
@@ -94,6 +107,7 @@ class TorchBackend:
     def _attach_grid(self, encs):
         enc, lens = _pad_reads(encs)
         self._bsw.encj = torch.from_numpy(enc).to(self.device)
+        self._bsw.lens = lens
         return lens
 
     def collect_chunk(self, encs: list[np.ndarray], opt):

@@ -8,11 +8,12 @@ for the H100, sm_90a):
 
 Phases, each of which fails the run (non-zero exit, no result line):
   1. the card's name and power limit (nvidia-smi);
-  2. build: the five CUDA kernels (one nvcc per csrc/*.cu: bsw_extend,
-     smem_collect, sa_resolve, kswv, row_gather) and the native host
-     runtime (g++) from the checkout's sources, all started together; the
-     registers, spills and stack frame of each bsw_extend instantiation
-     (lanes x columns per lane), each kswv instantiation (u8/i16 x
+  2. build: the six CUDA kernels (one nvcc per csrc/*.cu: bsw_extend,
+     bsw_shear, smem_collect, sa_resolve, kswv, row_gather) and the native
+     host runtime (g++) from the checkout's sources, all started together;
+     the registers, spills and stack frame of each bsw_extend
+     instantiation (lanes x columns per lane), each bsw_shear
+     instantiation (slots per lane), each kswv instantiation (u8/i16 x
      register bucket or shared-memory stripes), each smem_collect
      instantiation and each sa_resolve instantiation (walks per lane),
      which must have no stack frame;
@@ -39,6 +40,13 @@ Phases, each of which fails the run (non-zero exit, no result line):
      too long for the read grid, seeded on the host; none may happen here)
      and rescue.i16_wide (i16 rescues that can saturate, in the kernel)
      are printed;
+     (d) `mem -x pacbio` (SE) on 200 reads of 2-8 kb sampled from the same
+     genome (benchdata.sample_reads_long: ~10 % error, half reverse-
+     complemented), default task size: the object-path extension, whose
+     long pairs run on bsw_shear and in-cap pairs on bsw_extend; both
+     launch, no plain version runs, no read is too long for the read grid
+     and no extension pair runs on the host kernel
+     (overflow.bsw_host_tail 0); its PROF phases are printed;
   5. kernel vs plain, exact equality, with times and bounds:
      a. bsw_extend against bsw_desc_ref at every production rung (Q in
         127/255/383 x T in 96..608) with P = 4096 real-length descriptors,
@@ -48,6 +56,12 @@ Phases, each of which fails the run (non-zero exit, no result line):
         (lanes, columns) bucket, groups per block and the instantiation's
         ptxas numbers, and the earlier one-thread design's times beside
         the kernel's;
+     e. bsw_shear against bsw_shear_desc_ref on run (d)'s own launches
+        (captured as DeviceBSW._run makes them, one per long_classes rung
+        and side and band try), each timed with CUDA events beside its
+        bound (10 operations per band cell the plain version counts, and
+        bytes), with its slot bucket, warps per block and the
+        instantiation's ptxas numbers;
      b. the smem_collect and sa_resolve wrappers against smem_collect_ref
         and sa_resolve_ref on 2,048 reads of the smoke FASTQ and on the
         first chunk of each main-path run (15,000 and 66,668 reads), with
@@ -82,10 +96,16 @@ Phases, each of which fails the run (non-zero exit, no result line):
      rows and with 2^22 rows, where the card's time outweighs the call's
      host work (the timed shape);
   7. goldens: tests/fixtures/golden_se.sam and golden_pe.sam reproduced on
-     cuda, golden_pe.sam with its rescue batch through kswv;
-  8. the SAM of runs (a) and (c) equals the port's host-native run
-     (Aligner(backend=None), one process per chunk, started after phase 4
-     and run during phases 5-7) byte for byte except @PG.
+     cuda, golden_pe.sam with its rescue batch through kswv, and
+     golden_pacbio.sam and golden_ont2d.sam (-x pacbio / -x ont2d, 25
+     reads of 2-8 kb) through bsw_shear and bsw_extend, no pair on the
+     host kernel; the same reads at -x pacbio -w 500, whose band radius
+     (past the widest register bucket, 206) runs bsw_shear's shared-memory
+     frame, their SAM held against the host-native run in phase 8;
+  8. the SAM of runs (a), (c) and (d) equals the port's host-native run
+     (Aligner(backend=None), one process per chunk of (a) and (c) and per
+     quarter of (d)'s reads, started after phase 4 and run during phases
+     5-7) byte for byte except @PG.
 The last two stdout lines are the card line and
 {"ok": true, "device": {...}}; the line before them is the per-kernel JSON.
 The run's numbers are also written to .tmp/chip_smoke/chip_smoke.json.
@@ -146,6 +166,11 @@ N_LONG = 256             # problems per class in the long-problem batch
 N_WIDE = 128             # i16 problems at a = 64, whose scores saturate
 N_SEED = 2048            # reads in the seeding kernel-vs-plain sample
 A52_PAIRS = 2000         # pairs of the -A52 main-path run (c)
+LONG_READS = 200         # 2-8 kb reads of the -x pacbio run (d)
+LONG_ORACLE_PARTS = 4    # host-native pool tasks for run (d)'s oracle
+WIDE_W = 500             # -w of the long-read fixture pass: band radius
+                         # 500 (and 1000 on retry), past the widest register
+                         # bucket (206), so bsw_shear runs its memory frame
 # the DRAM-scale seeding pass: a genome of scale 2.0 (93.4 Mbp, an occ
 # table of ~93 MB, beyond the 50 MB L2), one default-size chunk
 DRAM_SCALE = 2.0
@@ -192,13 +217,15 @@ def card_line() -> str:
 
 # ----------------------------------------------------------------- builds
 def kernels():
-    """The wrappers of the five kernels, by name."""
+    """The wrappers of the six kernels, by name."""
     from bwamem2_tpu_torch.ops.bsw_cuda import bsw_extend
+    from bwamem2_tpu_torch.ops.bsw_shear_cuda import bsw_shear
     from bwamem2_tpu_torch.ops.kswv_cuda import kswv
     from bwamem2_tpu_torch.ops.row_gather import row_gather
     from bwamem2_tpu_torch.ops.seed import sa_resolve, smem_collect
-    return dict(bsw_extend=bsw_extend, smem_collect=smem_collect,
-                sa_resolve=sa_resolve, kswv=kswv, row_gather=row_gather)
+    return dict(bsw_extend=bsw_extend, bsw_shear=bsw_shear,
+                smem_collect=smem_collect, sa_resolve=sa_resolve, kswv=kswv,
+                row_gather=row_gather)
 
 
 def ptxas_table(text: str) -> dict:
@@ -224,7 +251,8 @@ def ptxas_table(text: str) -> dict:
 
 def instances(text: str, kernel: str) -> dict:
     """{template arguments: ptxas numbers} of a kernel's instantiations:
-    (G, C) of bsw_extend_kernel<G, C>, (u8, SMAX) of kswv_kernel<U8, SMAX>
+    (G, C) of bsw_extend_kernel<G, C>, (C,) of bsw_shear_kernel<C>,
+    (u8, SMAX) of kswv_kernel<U8, SMAX>
     (SMAX 0 = shared-memory stripes), (G, LCAP) of
     smem_collect_kernel<G, LCAP>, (W,) of sa_resolve_kernel<W>."""
     import re
@@ -277,6 +305,14 @@ def build_all() -> dict:
         if name == "bsw_extend":
             for (G, C), v in inst:
                 log(f"  ptxas bsw_extend<G={G}, C={C}>: "
+                    f"{v.get('registers')} registers, {v.get('spill')} B "
+                    f"spilled, {v.get('stack')} B stack frame")
+            continue
+        if name == "bsw_shear":
+            for (C,), v in inst:
+                frame = (f"frame {32 * C}" if C else
+                         "frame in shared memory, C at run time")
+                log(f"  ptxas bsw_shear<C={C}> (32 lanes, {frame}): "
                     f"{v.get('registers')} registers, {v.get('spill')} B "
                     f"spilled, {v.get('stack')} B stack frame")
             continue
@@ -457,6 +493,70 @@ def bsw_main_path(torch, calls) -> dict:
                        ("bound_ms", max(ops_ms, mem_ms)),
                        ("bound24_ms", b24_ms), ("ops_ms", ops_ms),
                        ("mem_ms", mem_ms), ("cells", cells[0])):
+            tot[key] += v
+    return tot
+
+
+def shear_main_path(torch, calls) -> dict:
+    """bsw_shear on run (d)'s own launches (the arguments DeviceBSW._run
+    gave it, one launch per long_classes rung, longest pairs first), each
+    against bsw_shear_desc_ref (exact) and timed with CUDA events, with its
+    slot bucket, warps per block and the instantiation's ptxas numbers;
+    sums over the launches.  The bound: OPS_PER_CELL int32 operations per
+    band cell the plain version counts, against the descriptors, the query
+    codes, the target codes of the rows a pair can run and the output."""
+    from bwamem2_tpu_torch.ops.bsw import bsw_shear_desc_ref
+    from bwamem2_tpu_torch.ops.bsw_shear_cuda import bsw_shear
+    tot = dict(launches=len(calls), pairs=0, ms=0.0, plain_ms=0.0,
+               bound_ms=0.0, ops_ms=0.0, mem_ms=0.0, cells=0, err=0,
+               per_launch=[])
+    ptx = instances(bsw_shear.build_log, "bsw_shear")
+    ev = lambda: torch.cuda.Event(enable_timing=True)  # noqa: E731
+    log(f"  {'Wh':>4} {'qmax':>6} {'T':>6} {'pairs':>6} {'cells':>11} "
+        f"{'kernel_ms':>10} {'plain_ms':>10} {'bound_ms':>9} launch")
+    for args in calls:
+        got = bsw_shear.launch(*args)
+        cells: list = []
+        e0, e1 = ev(), ev()
+        e0.record()
+        want = bsw_shear_desc_ref(*args[:-1], ref_packed=args[-1],
+                                  cells=cells)
+        e1.record()
+        torch.cuda.synchronize()
+        p_ms = e0.elapsed_time(e1)
+        err = int((got - want).abs().max()) if got.numel() else 0
+        tot["err"] = max(tot["err"], err)
+        if not torch.equal(got, want):
+            bad = int((got != want).any(1).sum())
+            fail(f"bsw_shear disagrees with bsw_shear_desc_ref on {bad} of "
+                 f"run (d)'s pairs (Wh={args[10]}, T={args[11]}; max abs "
+                 f"err {err})")
+        k_ms = cuda_ms(torch, lambda: bsw_shear.launch(*args), 3)
+        P, Wh, T = args[2].shape[0], args[10], args[11]
+        qlen, tlen = args[4].long(), args[7].long()
+        qmax = int(qlen.max())
+        nbytes = (P * (DESC_BYTES + OUT_BYTES) + int(qlen.sum())
+                  + int(torch.minimum(tlen, qlen + Wh + 2).sum()))
+        ops_ms = cells[0] * OPS_PER_CELL / INT32_OPS_PER_S * 1e3
+        mem_ms = nbytes / HBM_BYTES_PER_S * 1e3
+        C, wpb, smem = bsw_shear.plan(P, Wh)
+        inst = ptx.get((0 if smem else C,), {})
+        tot["per_launch"].append(dict(
+            Wh=Wh, qmax=qmax, T=T, P=P, cells=cells[0], ms=k_ms,
+            plain_ms=p_ms, bound_ms=max(ops_ms, mem_ms), C=C,
+            warps_per_block=wpb, shared_bytes=smem,
+            registers=inst.get("registers"),
+            spill_bytes=inst.get("spill"), stack_bytes=inst.get("stack")))
+        log(f"  {Wh:>4} {qmax:>6} {T:>6} {P:>6} {cells[0]:>11} "
+            f"{k_ms:>10.4f} {p_ms:>10.1f} {max(ops_ms, mem_ms):>9.5f} "
+            f"C={C} (frame {32 * C}{' in shared memory' if smem else ''}), "
+            f"{wpb} warps/block, "
+            f"{inst.get('registers')} registers, {inst.get('spill')} B "
+            f"spilled, {inst.get('stack')} B stack frame")
+        for key, v in (("pairs", P), ("ms", k_ms), ("plain_ms", p_ms),
+                       ("bound_ms", max(ops_ms, mem_ms)),
+                       ("ops_ms", ops_ms), ("mem_ms", mem_ms),
+                       ("cells", cells[0])):
             tot[key] += v
     return tot
 
@@ -1058,27 +1158,134 @@ def drive_main(torch, card: str, tag: str, cli_args: list, fq1: str,
                 _bsw=[a for a in bsw_calls if a[1] is rescues[0][0]])
 
 
-def goldens() -> None:
+def oracle_long(prefix: str, fq: str, lo: int, hi: int, preset: str,
+                w: int | None = None):
+    """(SAM text, seconds) of reads [lo, hi) of a long-read FASTQ from the
+    host-native Aligner(backend=None) under -x preset (and -w w when
+    given), processed as one chunk at their place in the file (an SE
+    record depends only on its read and the read's index)."""
     from bwamem2_tpu_torch.align.pipeline import Aligner
+    from bwamem2_tpu_torch.index.fmindex import FMIndex
+    from bwamem2_tpu_torch.io.fastq import FastxReader, read_chunk
+    from bwamem2_tpu_torch.options import MemOptions
+    reads = read_chunk(FastxReader(fq), None, 10**12)[lo:hi]
+    for r in reads:
+        r.comment = None
+    opt = MemOptions()
+    if w is not None:
+        opt.set("w", w)
+    opt.finalize(preset)
+    t0 = time.perf_counter()
+    Aligner(FMIndex.load(prefix), opt, backend=None, verbose=0).process(
+        reads, lo)
+    return "".join(r.sam for r in reads), time.perf_counter() - t0
+
+
+def drive_long(torch, card: str, tag: str, cli_args: list, fq: str,
+               n_reads: int) -> dict:
+    """One run of `mem -x pacbio` (SE, long reads) through the CLI entry on
+    cuda, with every launch counter and PROF record set to 0 just before
+    and read just after; fails unless smem_collect, sa_resolve, bsw_extend
+    and bsw_shear launched, no plain version ran, no read was too long for
+    the read grid and no extension pair ran on the host kernel
+    (overflow.bsw_host_tail).  The arguments of its bsw_shear launches
+    are returned under "_shear" for phase 5e."""
+    from bwamem2_tpu_torch import cli
+    from bwamem2_tpu_torch.ops.bsw_shear_cuda import BswShear
+    from bwamem2_tpu_torch.utils.profiling import PROF
+    K = kernels()
+    shear_calls = []
+    orig = BswShear.launch
+
+    def spy(self, *args):
+        shear_calls.append(args)
+        return orig(self, *args)
+
+    for d in (PROF.t, PROF.n, PROF.c, PROF.ctot):
+        d.clear()
+    for k in K.values():
+        k.reset()
+    BswShear.launch = spy
+    t0 = time.perf_counter()
+    try:
+        rc = cli.main(["mem", *cli_args])
+        torch.cuda.synchronize()
+    finally:
+        BswShear.launch = orig
+    wall = time.perf_counter() - t0
+    launches = {n: k.launches for n, k in K.items()}
+    plain = {n: k.plain_calls for n, k in K.items()}
+    if rc != 0:
+        fail(f"{tag}: mem exited with {rc}")
+    for kn in ("smem_collect", "sa_resolve", "bsw_extend", "bsw_shear"):
+        if not launches[kn]:
+            fail(f"{tag}: {kn} was not launched: {launches}")
+    if any(plain.values()):
+        fail(f"{tag}: plain versions ran on cuda: {plain}")
+    tail, pairs = (PROF.c.get("overflow.bsw_host_tail", 0),
+                   PROF.ctot.get("overflow.bsw_host_tail", 0))
+    if tail or not pairs:
+        fail(f"{tag}: {tail} of {pairs} object-path extension pairs ran on "
+             f"the host kernel")
+    long_reads = PROF.c.get("overflow.long_read", 0)
+    if long_reads:
+        fail(f"{tag}: {long_reads} reads too long for the read grid")
+    fused = PROF.c.get("overflow.fused_read", 0)
+    phases = {k: round(v, 3) for k, v in sorted(PROF.t.items())}
+    log(f"  {tag}: {n_reads} reads in {wall:.2f}s = "
+        f"{n_reads / wall:.2f} reads/s, launches {launches} [{card}]")
+    log(f"    object-path extension pairs {pairs}, overflow.bsw_host_tail "
+        f"0; overflow.fused_read {fused} of {n_reads} reads (seeded on the "
+        f"host oracle); extension.bsw {phases.get('extension.bsw', 0.0):.3f}"
+        f"s, seeding.device {phases.get('seeding.device', 0.0):.3f}s "
+        f"[{card}]")
+    log(f"    PROF phases (s): {json.dumps(phases)}")
+    return dict(reads=n_reads, wall_s=round(wall, 3),
+                reads_per_s=round(n_reads / wall, 3), launches=launches,
+                extension_pairs=pairs, overflow_fused_read=fused,
+                phases_s=phases, _shear=shear_calls)
+
+
+def goldens() -> str:
+    """The goldens on cuda (phase 7); returns the SAM text of the long-read
+    fixture at -x pacbio -w WIDE_W, whose band radii (WIDE_W, 2 * WIDE_W on
+    the band-doubling retry) run bsw_shear's shared-memory frame, for
+    phase 8."""
+    from bwamem2_tpu_torch.align.pipeline import Aligner
+    from bwamem2_tpu_torch.ops.bsw_shear_cuda import BswShear
     from bwamem2_tpu_torch.index.fmindex import FMIndex
     from bwamem2_tpu_torch.io.fastq import FastxReader, read_chunk
     from bwamem2_tpu_torch.ops.backend import TorchBackend
     from bwamem2_tpu_torch.options import MEM_F_PE, MemOptions
+    from bwamem2_tpu_torch.utils.profiling import PROF
     K = {n: k for n, k in kernels().items() if n != "row_gather"}
     fx = os.path.join(REPO, "tests", "fixtures")
     data = os.path.join(REPO, "tests", "data")
     fm = FMIndex.load(os.path.join(fx, "ref_small.fa"))
-    for golden, fqs, pe in (("golden_se.sam", ("reads_se.fq",), False),
-                            ("golden_pe.sam", ("reads_r1.fq", "reads_r2.fq"),
-                             True)):
-        opt = MemOptions().finalize(None)
+    # the kernels each golden must launch: the short-read ones extend on
+    # the flat path (no bsw_shear), SE has no rescue, the long-read presets
+    # extend on the object path
+    short = {"smem_collect", "sa_resolve", "bsw_extend"}
+    long = short | {"bsw_shear"}
+    for golden, fqs, pe, preset, need in (
+            ("golden_se.sam", ("reads_se.fq",), False, None, short),
+            ("golden_pe.sam", ("reads_r1.fq", "reads_r2.fq"), True, None,
+             short | {"kswv"}),
+            ("golden_pacbio.sam", ("reads_pacbio.fq",), False, "pacbio",
+             long),
+            ("golden_ont2d.sam", ("reads_pacbio.fq",), False, "ont2d",
+             long)):
+        opt = MemOptions().finalize(preset)
         if pe:
             opt.flag |= MEM_F_PE
         ks = [FastxReader(os.path.join(data, f)) for f in fqs]
         reads = read_chunk(ks[0], ks[1] if pe else None, 10**9)
         n0 = {n: k.launches for n, k in K.items()}
+        tail0 = PROF.c.get("overflow.bsw_host_tail", 0)
         backend = TorchBackend(fm, opt)
         Aligner(fm, opt, backend=backend, verbose=0).process(reads, 0)
+        if PROF.c.get("overflow.bsw_host_tail", 0) != tail0:
+            fail(f"{golden}: extension pairs ran on the host kernel")
         if not backend._bsw.encj.is_cuda:
             fail(f"{golden}: the read grid is not on the card")
         with open(os.path.join(fx, golden)) as f:
@@ -1089,10 +1296,40 @@ def goldens() -> None:
             fail(f"{golden} differs on cuda ({bad} lines of {len(want)}, "
                  f"{len(ours)} produced)")
         n = {name: k.launches - n0[name] for name, k in K.items()}
-        # SE has no mate rescue; PE rescues through kswv
-        if not all(v for name, v in n.items() if pe or name != "kswv"):
+        if not all(n[name] for name in need):
             fail(f"{golden}: a kernel was not launched: {n}")
         log(f"  {golden}: identical ({len(want)} records, launches {n})")
+    bands = []
+    orig = BswShear.launch
+
+    def spy(self, *args):
+        bands.append(args[10])
+        return orig(self, *args)
+
+    opt = MemOptions()
+    opt.set("w", WIDE_W)
+    opt.finalize("pacbio")
+    reads = read_chunk(FastxReader(os.path.join(data, "reads_pacbio.fq")),
+                       None, 10**9)
+    for r in reads:
+        r.comment = None
+    tail0 = PROF.c.get("overflow.bsw_host_tail", 0)
+    BswShear.launch = spy
+    try:
+        Aligner(fm, opt, backend=TorchBackend(fm, opt), verbose=0).process(
+            reads, 0)
+    finally:
+        BswShear.launch = orig
+    if PROF.c.get("overflow.bsw_host_tail", 0) != tail0:
+        fail(f"-w {WIDE_W}: extension pairs ran on the host kernel")
+    frames = {wh: K["bsw_shear"].plan(1, wh)[2] for wh in set(bands)}
+    if not frames or not all(frames.values()):
+        fail(f"-w {WIDE_W}: a bsw_shear launch did not use the "
+             f"shared-memory frame (band radii {sorted(frames)})")
+    log(f"  reads_pacbio.fq at -x pacbio -w {WIDE_W} on cuda: "
+        f"{len(bands)} bsw_shear launches at band radii {sorted(frames)} "
+        f"(shared-memory frame bytes {frames}); SAM checked in phase 8")
+    return "".join(r.sam for r in reads)
 
 
 def main() -> None:
@@ -1160,8 +1397,18 @@ def main() -> None:
     run_c = drive_main(torch, card, f"(c) -A52 -K {TASK_BASES}", [
         "-A52", "-K", str(TASK_BASES), "-v", "1", "-o", sam_c, prefix, fq1c,
         fq2c], fq1c, fq2c, 2 * A52_PAIRS, TASK_BASES)
-    runs = (run_a, run_b, run_c)
-    # the kernels line counts the launches of the three runs
+    # (d): -x pacbio (SE) on LONG_READS 2-8 kb reads of the same genome:
+    # the object-path extension, long pairs on bsw_shear
+    _, fq_long = benchdata.ensure_long(
+        os.path.join(REPO, ".tmp", f"bench_scale{DATA_SCALE}"), DATA_SCALE,
+        LONG_READS)
+    sam_d = os.path.join(WORK, "main_pacbio.sam")
+    run_d = drive_long(torch, card, "(d) -x pacbio", [
+        "-x", "pacbio", "-v", "1", "-o", sam_d, prefix, fq_long], fq_long,
+        LONG_READS)
+    shear_d = run_d.pop("_shear")
+    runs = (run_a, run_b, run_c, run_d)
+    # the kernels line counts the launches of the four runs
     launches = {n: sum(r["launches"][n] for r in runs)
                 for n in run_a["launches"]}
     cap_a, cap_b = run_a.pop("_capture"), run_b.pop("_capture")
@@ -1176,11 +1423,21 @@ def main() -> None:
     import multiprocessing as mp
     opt = MemOptions().finalize(None)
     t0 = time.perf_counter()
-    with mp.get_context("spawn").Pool(min(chunks + 1,
+    cuts = [LONG_READS * k // LONG_ORACLE_PARTS
+            for k in range(LONG_ORACLE_PARTS + 1)]
+    with mp.get_context("spawn").Pool(min(chunks + 2 + LONG_ORACLE_PARTS,
                                           os.cpu_count() or 1)) as pool:
         futs = [pool.apply_async(oracle_chunk, (prefix, fq1, fq2, i))
                 for i in range(chunks)]
         fut_c = pool.apply_async(oracle_chunk, (prefix, fq1c, fq2c, 0, 52))
+        fut_d = [pool.apply_async(oracle_long, (prefix, fq_long, lo, hi,
+                                                "pacbio"))
+                 for lo, hi in zip(cuts, cuts[1:])]
+        fx = os.path.join(REPO, "tests", "fixtures")
+        fut_w = pool.apply_async(oracle_long, (
+            os.path.join(fx, "ref_small.fa"),
+            os.path.join(REPO, "tests", "data", "reads_pacbio.fq"), 0, 25,
+            "pacbio", WIDE_W))
         log(f"[5a] bsw_extend vs plain on {name}, P={P_KERNEL} per rung:")
         tot = kernel_vs_plain(torch, fm, opt)
         log(f"  all rungs identical; kernel {tot['ms']:.3f} ms (one-thread "
@@ -1198,6 +1455,14 @@ def main() -> None:
             f"ms), plain {bm['plain_ms']:.1f} ms, bound "
             f"{bm['bound_ms']:.5f} ms ({OPS_PER_CELL_24}-op model "
             f"{bm['bound24_ms']:.5f} ms) [{card}]")
+        log(f"[5e] bsw_shear vs plain on run (d)'s {len(shear_d)} "
+            f"launches [{card}]:")
+        sh = shear_main_path(torch, shear_d)
+        del shear_d
+        log(f"  all identical; kernel {sh['ms']:.4f} ms over "
+            f"{sh['launches']} launches ({sh['pairs']} pairs, {sh['cells']} "
+            f"cells), plain {sh['plain_ms']:.1f} ms, bound "
+            f"{sh['bound_ms']:.5f} ms [{card}]")
         log(f"[5b] smem_collect / sa_resolve vs plain on {name} [{card}]:")
         sd = seeding_vs_plain(torch, fm, (
             ("sample", fq1, fq2, TASK_BASES, N_SEED, None),
@@ -1247,11 +1512,20 @@ def main() -> None:
         log(f"[6] gather probe on {name} [{card}]:")
         gt = gather_phase(torch, fm)
         log("[7] goldens on cuda:")
-        goldens()
+        wide_sam = goldens()
         oracle = [f.get() for f in futs]
         oracle_c = fut_c.get()
+        oracle_d = [f.get() for f in fut_d]
+        oracle_w = fut_w.get()
+    if wide_sam != oracle_w[0]:
+        fail(f"-x pacbio -w {WIDE_W} on the long-read fixture differs from "
+             f"the host-native run")
+    log(f"[8] -x pacbio -w {WIDE_W} (fixture) SAM == host-native "
+        f"Aligner(backend=None) SAM")
     for tag, path, texts in (("(a)", sam, [o[0] for o in oracle]),
-                             ("(c) -A52", sam_c, [oracle_c[0]])):
+                             ("(c) -A52", sam_c, [oracle_c[0]]),
+                             ("(d) -x pacbio", sam_d,
+                              [o[0] for o in oracle_d])):
         ours = [ln for ln in read_sam_body(path) if not ln.startswith("@")]
         want = "".join(texts).splitlines(keepends=True)
         if ours != want:
@@ -1262,7 +1536,8 @@ def main() -> None:
             f"({len(want)} records)")
     log(f"    oracle {time.perf_counter() - t0:.1f}s, per chunk of (a) "
         + ", ".join(f"{o[1]:.1f}s" for o in oracle)
-        + f", (c) {oracle_c[1]:.1f}s")
+        + f", (c) {oracle_c[1]:.1f}s, (d) "
+        + ", ".join(f"{o[1]:.1f}s" for o in oracle_d))
 
     # the seeding kernels' times and bounds at run (b)'s first chunk, the
     # largest shape the main path gave them; errors over every pass
@@ -1290,6 +1565,17 @@ def main() -> None:
              library_note="no PyTorch call computes banded SW",
              shape=f"sum over the {bm['launches']} launches of run (b)'s "
                    f"first chunk, {bm['pairs']} pairs"),
+        dict(name="bsw_shear", route="cuda",
+             source="bwamem2_tpu_torch/csrc/bsw_shear.cu",
+             replaces="bwamem2_tpu/ops/bsw.py:572",
+             launches=launches["bsw_shear"], max_abs_err=sh["err"],
+             ms=round(sh["ms"], 4), plain_ms=round(sh["plain_ms"], 3),
+             bound_ms=round(sh["bound_ms"], 5),
+             bound_by=by(sh["ops_ms"], sh["mem_ms"]), library_ms=None,
+             library_note="no PyTorch call computes banded SW",
+             shape=f"sum over the {sh['launches']} launches of run (d) "
+                   f"(-x pacbio, {LONG_READS} reads of 2-8 kb), "
+                   f"{sh['pairs']} pairs"),
         dict(name="smem_collect", route="cuda",
              source="bwamem2_tpu_torch/csrc/smem_collect.cu",
              replaces="bwamem2_tpu/ops/seedall.py:93",
@@ -1338,9 +1624,9 @@ def main() -> None:
     ]
     result = dict(kernels=kern, card=card, first_call_s=first,
                   main_a=run_a, main_b=run_b, main_a52=run_c,
-                  launches=launches,
+                  main_pacbio=run_d, launches=launches,
                   build_s={k: round(v, 1) for k, v in secs.items()},
-                  bsw_main=bm, bsw_rungs=tot,
+                  bsw_main=bm, bsw_rungs=tot, bsw_shear=sh,
                   seeding=sd, rescue=rs, gather=gt,
                   total_s=round(time.perf_counter() - t_start, 1))
     with open(os.path.join(WORK, "chip_smoke.json"), "w") as f:

@@ -1,0 +1,441 @@
+"""Port long-pair extension (sheared band) vs the JAX package and the host.
+
+bwamem2_tpu_torch.ops.bsw.bsw_shear_desc_ref (the plain PyTorch version of
+the bsw_shear CUDA kernel) must equal, exactly (int32, tolerance 0):
+  * bwamem2_tpu's XLA kernel bsw_shear_desc_kernel, on the plain and the
+    2-bit packed genome, at w = 100 and 200, under the pacbio and the
+    default scores;
+  * the port's scalar native kernel on pacbio-like mutated pairs (the
+    sweep of tests/test_bsw_shear.py);
+  * the CUDA kernel's own lane-group body (csrc/shear_group.cuh) compiled
+    as host C++, each warp an int[32] lane vector stepped in lockstep: at
+    every slot bucket, with the frame's edge cases (tlen >> qlen, qlen <=
+    256 with tlen > 608, pairs that stop on z-drop, on a zero row maximum
+    and after their last row).
+DeviceBSW.left_kernel / right_kernel (the object path's dispatch) must
+equal the JAX package's DeviceBSW._run on the same pending pairs and read
+grid, with in-cap and long pairs mixed; the pairs of a read off the grid,
+and only those, run on the host kernel (overflow.bsw_host_tail).
+Inputs are made with numpy from fixed seeds.
+"""
+
+import ctypes
+import subprocess
+from types import SimpleNamespace
+
+import numpy as np
+import pytest
+import torch
+
+from bwamem2_tpu_torch import native as tnative
+from bwamem2_tpu_torch.align.extend import _Pair
+from bwamem2_tpu_torch.ops import bsw_shear_cuda
+from bwamem2_tpu_torch.ops.bsw import (QCAP, TCAP, DeviceBSW,
+                                       bsw_shear_desc_ref, long_classes)
+from bwamem2_tpu_torch.ops.bsw_cuda import bsw_extend
+from bwamem2_tpu_torch.ops.device_index import DeviceFMIndex
+from bwamem2_tpu_torch.options import MemOptions
+from bwamem2_tpu_torch.utils.profiling import PROF
+
+# one intra-op thread: the suite runs several xdist workers side by side,
+# each with XLA's thread pools, and torch's OpenMP regions oversubscribed
+# that way run 100x slower than on one thread
+torch.set_num_threads(1)
+
+# a b o_del e_del o_ins e_ins zdrop end_bonus
+PACBIO = (1, 1, 1, 1, 1, 1, 100, 0)
+DEFAULT = (1, 4, 6, 1, 6, 1, 100, 5)
+ZDROP10 = (1, 4, 6, 1, 6, 1, 10, 5)       # -d 10: z-drop on most pairs
+
+
+def _mutate(rng, seq, err):
+    """~err errors: 60% substitutions, 20% insertions, 20% deletions."""
+    out = []
+    for c in seq:
+        r = rng.random()
+        if r < err * 0.6:
+            out.append(rng.integers(0, 4))
+        elif r < err * 0.8:
+            out.append(rng.integers(0, 4))
+            out.append(c)
+        elif r < err:
+            continue
+        else:
+            out.append(c)
+    return np.array(out, np.uint8)
+
+
+def make_long(seed, P, qr, n_ref=30000, err=0.10, edges=False):
+    """P long descriptor pairs over a random doubled genome: the query is a
+    pacbio-like mutation of the genome from the target's start (each walk
+    direction for half the pairs), tlen = qlen + [0, 400); one in eight
+    targets is unrelated (an early stop), a few queries carry an N.  With
+    edges, the first pairs are the frame's edge cases: tlen 3x qlen, qlen
+    <= 256 with tlen > 608, tlen < qlen, tlen 1, and a query that turns
+    random a third of the way in.  Returns (ref, enc, qoff, qdir, qlen,
+    toff, tdir, tlen, h0, w=100)."""
+    rng = np.random.default_rng(seed)
+    ref = rng.integers(0, 4, n_ref).astype(np.uint8)
+    L = qr[1] + 8
+    enc = np.full((P, L), 4, np.int8)
+    qoff, qdir, qlen, tdir, tlen = (np.zeros(P, np.int32) for _ in range(5))
+    toff = np.zeros(P, np.int64)
+    for p in range(P):
+        ql = int(rng.integers(*qr))
+        tl = ql + int(rng.integers(0, 400))
+        if edges and p < 4:
+            ql, tl = ((ql, 3 * ql), (int(rng.integers(60, 257)), 2500),
+                      (ql, ql // 2), (ql, 1))[p]
+        d = 1 if p % 2 == 0 else -1
+        span = max(tl, 2 * ql) + 8
+        s = int(rng.integers(8, n_ref - span - 8))
+        src = ref[s:s + span] if d > 0 else ref[s:s + span][::-1]
+        q = _mutate(rng, src, err)[:ql]
+        if len(q) < ql:
+            q = np.concatenate([q, rng.integers(0, 4, ql - len(q))])
+        q = q.astype(np.int8)
+        if edges and p == 4:            # diverges a third of the way in
+            q[ql // 3:] = rng.integers(0, 4, ql - ql // 3)
+        if rng.random() < 0.1:
+            q[rng.integers(0, ql)] = 4
+        enc[p, :ql] = q if d > 0 else q[::-1]
+        qoff[p] = p * L + (0 if d > 0 else ql - 1)
+        toff[p] = s if d > 0 else s + span - 1
+        if rng.random() < 0.125:
+            toff[p] = int(rng.integers(span, n_ref - span))
+        qdir[p] = tdir[p] = d
+        qlen[p], tlen[p] = ql, tl
+    h0 = rng.integers(19, 400, P).astype(np.int32)
+    w = np.full(P, 100, np.int32)
+    return ref, enc, qoff, qdir, qlen, toff, tdir, tlen, h0, w
+
+
+def run_ref(d, Wh, scoring, ref=None, packed=False, cells=None):
+    t = [torch.from_numpy(np.ascontiguousarray(x)) for x in d]
+    if ref is not None:
+        t[0] = ref
+    t[9] = torch.full_like(t[9], Wh)
+    a = scoring[0]
+    Tmax = int(np.minimum(d[7], d[4] + Wh + 2).max())
+    return bsw_shear_desc_ref(*t, Wh, Tmax, *scoring, max(a, 1), packed,
+                              cells=cells).numpy()
+
+
+@pytest.mark.parametrize("scoring,Wh,packed", [
+    (PACBIO, 100, False), (DEFAULT, 100, True), (PACBIO, 200, True),
+    (DEFAULT, 200, False)],
+    ids=["pacbio_w100", "default_w100_packed", "pacbio_w200_packed",
+         "default_w200"])
+def test_ref_matches_jax_shear_kernel(monkeypatch, scoring, Wh, packed):
+    from bwamem2_tpu.ops.bsw import bsw_shear_desc_kernel
+    d = list(make_long(101 + Wh, 24, (300, 1400), edges=True))
+    ref = None
+    if packed:
+        monkeypatch.setattr(DeviceFMIndex, "REF_PACK_MIN", 16)
+        dfm = DeviceFMIndex.from_genome(d[0], "cpu")
+        assert dfm.ref_packed
+        ref = dfm.ref
+        d[0] = dfm.ref.numpy()
+    d[9] = np.full_like(d[9], Wh)
+    Qmax = int(d[4].max())
+    Tmax = int(np.minimum(d[7], d[4] + Wh + 2).max())
+    W = -(-(2 * Wh + 2) // 128) * 128        # the JAX dispatch's frame
+    want = np.asarray(bsw_shear_desc_kernel(
+        *d, Wh, W, Qmax, Tmax, *scoring, max(scoring[0], 1), packed))
+    got = run_ref(d, Wh, scoring, ref=ref, packed=packed)
+    np.testing.assert_array_equal(got, want)
+    assert (want[:, 0] > d[8]).mean() > 0.5       # real extensions
+
+
+@pytest.mark.parametrize("w", [100, 200])
+def test_ref_matches_native_on_mutated_pairs(w):
+    """Indel-heavy pairs (8-12 % error) against the port's scalar native
+    kernel on the materialized sequences."""
+    rng = np.random.default_rng(40 + w)
+    for err in (0.08, 0.12):
+        d = make_long(int(rng.integers(1 << 30)), 16, (257, 2000), err=err)
+        ref, enc, qoff, qdir, qlen, toff, tdir, tlen, h0, _ = d
+        flat = enc.reshape(-1)
+        q = [flat[qoff[i] + qdir[i] * np.arange(qlen[i])].astype(np.uint8)
+             for i in range(len(qlen))]
+        t = [ref[np.clip(toff[i] + tdir[i] * np.arange(tlen[i]), 0,
+                         len(ref) - 1)] for i in range(len(qlen))]
+        off = lambda xs: np.concatenate(  # noqa: E731
+            [[0], np.cumsum([len(x) for x in xs])])[:-1]
+        want = tnative.bsw_extend_batch(
+            np.concatenate(t), off(t), tlen, np.concatenate(q), off(q),
+            qlen, h0, w, np.array(MemOptions().finalize().mat, np.int8),
+            6, 1, 6, 1, 100, 5)
+        np.testing.assert_array_equal(run_ref(d, w, DEFAULT), want)
+
+
+@pytest.fixture(scope="module")
+def host_shear(tmp_path_factory):
+    """csrc/shear_group.cuh built as host C++: each warp is an int[32] lane
+    vector stepped in lockstep, and a per-pair loop stands in for the CUDA
+    launch.  shear_host runs the slot bucket the launch would choose for
+    Wh, or the one given (C slots per lane, in registers or, with wide, in
+    the memory frame), returns C (+ 1000 for the memory frame), and
+    records per pair why its row loop ended (0 zero row maximum, 1 z-drop,
+    2 ran every row)."""
+    d = tmp_path_factory.mktemp("shear_group")
+    shim = d / "shim.cpp"
+    shim.write_text(r"""
+static int *shear_stops;
+#define SHEAR_STOP_HOOK(p, why) (shear_stops[p] = (why))
+#include "shear_group.cuh"
+#include <vector>
+template <int C> static void run_all(const ShearBatch &b) {
+  const BswGroup<SHEAR_G> g;
+  std::vector<BswLanes<SHEAR_G>> mem(C ? 0 : SHEAR_ARRAYS * b.C);
+  for (int p = 0; p < b.P; ++p)
+    shear_group_pair<C>(g, b, p, C ? nullptr : mem.data(), 1);
+}
+extern "C" int shear_host(const int8_t *enc, int64_t n_enc,
+    const uint8_t *ref, int64_t n_ref, int packed, const int *qoff,
+    const int *qdir, const int *qlen, const int64_t *toff, const int *tdir,
+    const int *tlen, const int *h0, const int *w, int P, int Wh, int Tmax,
+    const int *sc, int C, int wide, int *out, int *stops) {
+  int ct = wide ? 0 : C;
+  if (!C && (ct = shear_bucket(Wh, &C)) < 0) return 0;
+  const ShearBatch b{enc, n_enc, ref, n_ref, packed, qoff, qdir, qlen, toff,
+                     tdir, tlen, h0, w, P, Wh, Tmax, C,
+                     {sc[0], sc[1], sc[2], sc[3], sc[4], sc[5], sc[6], sc[7],
+                      sc[8]}, out};
+  shear_stops = stops;
+  for (int p = 0; p < P; ++p) stops[p] = 2;
+  if (ct == 0) { run_all<0>(b); return 1000 + C; }
+#define SHEAR_HOST_CASE(c_) \
+  if (ct == c_) { run_all<c_>(b); return C; }
+  SHEAR_BUCKETS(SHEAR_HOST_CASE)
+  return 0;
+}
+""")
+    so = d / "shear_group.so"
+    subprocess.run(["g++", "-O2", "-std=c++17", "-shared", "-fPIC",
+                    "-I", bsw_shear_cuda.CSRC, str(shim), "-o", str(so)],
+                   check=True, capture_output=True)
+    return ctypes.CDLL(str(so))
+
+
+def run_host(lib, d, Wh, scoring, C=0, ref=None, packed=False, Tmax=None,
+             wide=False):
+    """(out int32[P, 6], bucket C (+ 1000 for the memory frame), stop
+    reason per pair)."""
+    ref_a, enc, qoff, qdir, qlen, toff, tdir, tlen, h0, _ = (
+        np.ascontiguousarray(x) for x in d)
+    if ref is not None:
+        ref_a = np.ascontiguousarray(ref)
+    P = len(qoff)
+    w = np.full(P, Wh, np.int32)
+    if Tmax is None:
+        Tmax = int(np.minimum(tlen, qlen + Wh + 2).max())
+    sc = np.array(list(scoring) + [max(scoring[0], 1)], np.int32)
+    out = np.zeros((P, 6), np.int32)
+    stops = np.zeros(P, np.int32)
+    ptr = lambda x: ctypes.c_void_p(x.ctypes.data)  # noqa: E731
+    got = lib.shear_host(ptr(enc), ctypes.c_int64(enc.size), ptr(ref_a),
+                         ctypes.c_int64(ref_a.size), ctypes.c_int(int(packed)),
+                         ptr(qoff), ptr(qdir), ptr(qlen), ptr(toff),
+                         ptr(tdir), ptr(tlen), ptr(h0), ptr(w),
+                         ctypes.c_int(P), ctypes.c_int(Wh),
+                         ctypes.c_int(Tmax), ptr(sc), ctypes.c_int(C),
+                         ctypes.c_int(int(wide)), ptr(out), ptr(stops))
+    return out, got, stops
+
+
+# name: (band radius Wh, scoring, forced C or 0 for the launch's choice,
+# expected C, + 1000 for the memory frame).  Under the presets' z-drop of
+# 100 a pair rarely z-drops (the row maximum follows a gap from the best
+# cell, whose penalty z-drop discounts), so one case runs at -d 10.  A
+# forced C above 1000 forces the memory frame with C - 1000 slots per lane.
+HOST = {
+    "w100_pacbio": (100, PACBIO, 0, 7),
+    "w100_zdrop10": (100, ZDROP10, 0, 7),
+    "w200_default": (200, DEFAULT, 0, 13),
+    "w50_default": (50, DEFAULT, 0, 7),
+    "w100_forced_13": (100, PACBIO, 13, 13),
+    "w300_pacbio": (300, PACBIO, 0, 1019),
+    "w400_default": (400, DEFAULT, 0, 1026),
+    "w500_memory_frame": (500, PACBIO, 0, 1032),
+    "w100_forced_memory_frame": (100, ZDROP10, 1007, 1007),
+}
+
+
+@pytest.mark.parametrize("name", list(HOST))
+def test_cuda_shear_source_matches_ref(host_shear, name):
+    """The kernel's group source, built with g++, equals the plain version
+    at every slot bucket, chosen from Wh and forced, and in the memory
+    frame of bands wider than the widest bucket, with the frame's edge
+    cases and pairs stopping on a zero row maximum, on z-drop and after
+    their last row."""
+    Wh, scoring, forced, C = HOST[name]
+    d = make_long(7 + Wh + forced, 20, (257, 900), edges=True)
+    got, used, stops = run_host(host_shear, d, Wh, scoring,
+                                C=forced % 1000, wide=forced > 1000)
+    assert used == C
+    np.testing.assert_array_equal(got, run_ref(d, Wh, scoring))
+    assert {0, 2} <= set(stops)
+    assert (stops == 1).sum() >= (5 if scoring is ZDROP10 else 0)
+
+
+def test_cuda_shear_source_packed_ref(host_shear, monkeypatch):
+    """The kernel's 2-bit packed genome path against the plain version's."""
+    d = make_long(23, 16, (257, 700))
+    monkeypatch.setattr(DeviceFMIndex, "REF_PACK_MIN", 16)
+    dfm = DeviceFMIndex.from_genome(d[0], "cpu")
+    assert dfm.ref_packed
+    got, _, _ = run_host(host_shear, d, 100, PACBIO, ref=dfm.ref.numpy(),
+                         packed=True)
+    np.testing.assert_array_equal(
+        got, run_ref(d, 100, PACBIO, ref=dfm.ref, packed=True))
+    np.testing.assert_array_equal(got, run_ref(d, 100, PACBIO))
+
+
+def test_cuda_shear_source_zero_row_and_row_cap(host_shear):
+    """A target of all-N after a few bases ends the pair on a zero row
+    maximum; a row cap Tmax below tlen stops the rest after Tmax rows,
+    as the plain version does."""
+    d = list(make_long(29, 12, (300, 600)))
+    ref = d[0].copy()
+    # pairs 0-3: h0 1 against a random target, so every score reaches 0
+    d[8] = d[8].copy()
+    d[8][:4] = 1
+    d[5] = d[5].copy()
+    d[5][:4] = np.arange(4) * 3000 + 12000
+    got, _, stops = run_host(host_shear, d, 100, DEFAULT, ref=ref)
+    np.testing.assert_array_equal(got, run_ref(d, 100, DEFAULT))
+    assert (stops[:4] == 0).all()
+    t = [torch.from_numpy(np.ascontiguousarray(x)) for x in d]
+    want = bsw_shear_desc_ref(*t, 100, 150, *DEFAULT, 1).numpy()
+    got, _, _ = run_host(host_shear, d, 100, DEFAULT, Tmax=150)
+    np.testing.assert_array_equal(got, want)
+
+
+def test_long_classes_cover_every_pair():
+    """eff = min(tlen, qlen + w + 2) past the static ladder (a huge -w)
+    lands in one dynamic top rung; every pair is in exactly one rung whose
+    row cap T holds it."""
+    qls = np.array([32000, 150, 8000, 300], np.int32)
+    tls = np.array([40000, 700, 8100, 5000], np.int32)
+    for w in (100, 2000):
+        out = long_classes(qls, tls, np.arange(4), w)
+        assert sorted(int(i) for _, s in out for i in s) == [0, 1, 2, 3]
+        for T, sel in out:
+            eff = np.minimum(tls[sel], qls[sel] + w + 2)
+            assert (eff <= T).all()
+
+
+def _pending(seed, fm_ref, n_reads=6, L=1500):
+    """A read grid of n_reads long reads and their extension pairs as
+    extend_chains makes them (left: qdir -1 from qbeg-1; right: qdir +1
+    from the seed's end), sequences materialized, both in-cap and long."""
+    rng = np.random.default_rng(seed)
+    n_ref = len(fm_ref)
+    grid = np.full((n_reads, L), 4, np.int8)
+    lens = np.zeros(n_reads, np.int32)
+    reads = []
+    for r in range(n_reads):
+        ln = int(rng.integers(L // 2, L))
+        s = int(rng.integers(1000, n_ref - 3 * L))
+        q = _mutate(rng, fm_ref[s:s + 2 * L], 0.08)[:ln].astype(np.int8)
+        grid[r, :ln] = q
+        lens[r] = ln
+        reads.append((s, q))
+    pend = []
+    for r, (s, q) in enumerate(reads):
+        ln = len(q)
+        for _ in range(4):
+            qb = int(rng.integers(1, ln - 30))
+            sl = int(rng.integers(15, 30))
+            rb = s + qb + int(rng.integers(-3, 4))
+            # left: the query before the seed against the target before it
+            tl = min(rb, int(rng.integers(qb // 2, qb + 700)))
+            pend.append(("L", _Pair(
+                ref=fm_ref[rb - tl:rb][::-1].copy(),
+                qer=q[:qb][::-1].astype(np.uint8).copy(), h0=sl, regid=0,
+                seqid=r, qoff=qb - 1, qdir=-1, toff=rb - 1, tdir=-1,
+                qlen=qb, tlen=tl)))
+            qe = qb + sl
+            if qe < ln:
+                re = rb + sl
+                tl = int(rng.integers((ln - qe) // 2, ln - qe + 700))
+                pend.append(("R", _Pair(
+                    ref=fm_ref[re:re + tl].copy(),
+                    qer=q[qe:].astype(np.uint8).copy(), h0=sl + 20,
+                    regid=0, seqid=r, qoff=qe, qdir=1, toff=re, tdir=1,
+                    qlen=ln - qe, tlen=tl)))
+    return grid, lens, pend
+
+
+def test_object_path_dispatch_matches_jax_run():
+    """DeviceBSW.left_kernel / right_kernel on the CPU (bsw_extend's and
+    bsw_shear's plain versions) equal the JAX package's DeviceBSW._run on
+    the same pending pairs and read grid, in-cap and long pairs mixed; a
+    read off the grid (an empty row) sends its pairs, and only those, to
+    the host kernel."""
+    import jax.numpy as jnp
+    from bwamem2_tpu.align.extend import _Pair as JPair
+    from bwamem2_tpu.ops.bsw import DeviceBSW as JDeviceBSW
+    from bwamem2_tpu.options import MemOptions as JOpt
+
+    rng = np.random.default_rng(61)
+    genome = rng.integers(0, 4, 40000).astype(np.uint8)
+    grid, lens, pend = _pending(63, genome)
+    qls = np.array([p.qlen for _, p in pend])
+    tls = np.array([p.tlen for _, p in pend])
+    fits = (qls <= QCAP) & (tls <= TCAP)
+    assert fits.sum() >= 3 and (~fits).sum() >= 10
+    assert ((qls <= QCAP) & (tls > TCAP)).any()   # long by tlen alone
+    for preset in ("pacbio", None):
+        opt = MemOptions().finalize(preset)
+        jopt = JOpt().finalize(preset)
+        dfm = DeviceFMIndex(ref=torch.from_numpy(genome), ref_packed=False,
+                            device=torch.device("cpu"))
+        bsw = DeviceBSW(dfm, opt)
+        bsw.encj = torch.from_numpy(grid)
+        bsw.lens = lens
+        # JAX's DeviceBSW reads only the genome from its index
+        jbsw = JDeviceBSW(SimpleNamespace(ref=jnp.asarray(genome),
+                                          ref_packed=False), jopt)
+        jbsw.encj = jnp.asarray(grid)
+        for side, kern in (("L", "left_kernel"), ("R", "right_kernel")):
+            sub = [p for s, p in pend if s == side]
+            jsub = [JPair(**{k: getattr(p, k) for k in p.__slots__})
+                    for p in sub]
+            n_ext, n_sh = bsw_extend.plain_calls, \
+                bsw_shear_cuda.bsw_shear.plain_calls
+            PROF.c.pop("overflow.bsw_host_tail", None)
+            got = getattr(bsw, kern)(sub, opt.w, opt)
+            assert PROF.c["overflow.bsw_host_tail"] == 0
+            assert bsw_shear_cuda.bsw_shear.plain_calls > n_sh
+            assert bsw_extend.plain_calls > n_ext
+            want = getattr(jbsw, kern)(jsub, jopt.w, jopt)
+            np.testing.assert_array_equal(got, want)
+    # read 2 off the grid: its pairs (materialized) run on the host kernel
+    opt = MemOptions().finalize("pacbio")
+    off = lens.copy()
+    off[2] = 0
+    bsw.lens = off
+    sub = [p for s, p in pend if s == "R"]
+    PROF.c.pop("overflow.bsw_host_tail", None)
+    got = bsw.right_kernel(sub, opt.w, opt)
+    assert PROF.c["overflow.bsw_host_tail"] == sum(p.seqid == 2 for p in sub)
+    bsw.lens = lens
+    np.testing.assert_array_equal(got, bsw.right_kernel(sub, opt.w, opt))
+
+
+def test_wrapper_dispatch():
+    """CPU tensors run the plain version (counted as plain calls, never as
+    launches); a tensor on any other device goes to the kernel path, which
+    refuses anything but CUDA and never reaches bsw_shear_desc_ref."""
+    d = make_long(31, 6, (300, 500))
+    t = [torch.from_numpy(np.ascontiguousarray(x)) for x in d]
+    k = bsw_shear_cuda.BswShear()
+    out = k(*t, 100, 900, *PACBIO, 1)
+    assert (k.plain_calls, k.launches) == (1, 0)
+    np.testing.assert_array_equal(out.numpy(), run_ref(d, 100, PACBIO))
+    meta = [x.to("meta") for x in t]
+    with pytest.raises(ValueError, match="CUDA"):
+        k(*meta, 100, 900, *PACBIO, 1)
+    assert (k.plain_calls, k.launches) == (1, 0)

@@ -1,6 +1,6 @@
-"""The port's seeding, extension, rescue and gather kernels against their
-plain versions (or the native host kernels) on the card (marker `cuda`;
-they skip without a GPU).
+"""The port's seeding, extension (in-cap and long pairs), rescue and
+gather kernels against their plain versions (or the native host kernels)
+on the card (marker `cuda`; they skip without a GPU).
 
 This file imports only the port, numpy and torch — no JAX — so that it
 runs on a machine with a GPU and no JAX:
@@ -8,8 +8,9 @@ runs on a machine with a GPU and no JAX:
     pytest -m cuda tests/test_torch_cuda.py
 
 The plain versions are held against the JAX package on the CPU by
-tests/test_torch_seed.py, tests/test_torch_bsw.py, tests/test_torch_kswv.py
-and tests/test_torch_gather.py; chip_smoke.py
+tests/test_torch_seed.py, tests/test_torch_bsw.py,
+tests/test_torch_bsw_shear.py, tests/test_torch_kswv.py and
+tests/test_torch_gather.py; chip_smoke.py
 repeats these checks at the main path's sizes.  Tolerance 0 (integer).
 """
 
@@ -26,8 +27,9 @@ from bwamem2_tpu_torch.io.fastq import FastxReader, read_chunk
 from bwamem2_tpu_torch.native import ksw_align_desc
 from bwamem2_tpu_torch.ops import seed as tseed
 from bwamem2_tpu_torch.ops.backend import _pad_reads
-from bwamem2_tpu_torch.ops.bsw import bsw_desc_ref
+from bwamem2_tpu_torch.ops.bsw import bsw_desc_ref, bsw_shear_desc_ref
 from bwamem2_tpu_torch.ops.bsw_cuda import bsw_extend
+from bwamem2_tpu_torch.ops.bsw_shear_cuda import bsw_shear
 from bwamem2_tpu_torch.ops.device_index import DeviceFMIndex
 from bwamem2_tpu_torch.ops.kswv import DeviceKswv, kswv_two_phase_ref
 from bwamem2_tpu_torch.ops.kswv_cuda import kswv
@@ -35,6 +37,7 @@ from bwamem2_tpu_torch.ops.row_gather import row_gather, row_gather_ref
 from bwamem2_tpu_torch.options import MemOptions
 
 from conftest import DATA, FIXTURES
+from test_torch_bsw_shear import DEFAULT, PACBIO, ZDROP10, make_long
 
 PREFIX = os.path.join(FIXTURES, "ref_small.fa")
 
@@ -365,3 +368,35 @@ def test_bsw_extend_buckets_on_card(card):
         assert bsw_extend.launches == n + 1
         want = bsw_desc_ref(dfm.ref, *t, Qmax, 608, *sc)
         assert torch.equal(got, want), Qmax
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("Wh,scoring,packed", [
+    (100, PACBIO, False), (200, DEFAULT, True), (50, ZDROP10, False),
+    (300, PACBIO, False), (400, DEFAULT, False), (600, PACBIO, False)],
+    ids=["w100_pacbio", "w200_default_packed", "w50_zdrop10",
+         "w300_pacbio", "w400_default", "w600_memory_frame"])
+def test_bsw_shear_matches_ref_on_card(card, monkeypatch, Wh, scoring,
+                                       packed):
+    """bsw_shear against bsw_shear_desc_ref on long pairs (qlen 257-3,000,
+    ~10 % error, the frame's edge cases), one launch at each slot bucket
+    (C = 7 at Wh 100 and 50, 13 at Wh 200) and three in the shared-memory
+    frame (Wh 300, 400, 600: C = 19, 26, 38)."""
+    d = list(make_long(900 + Wh, 256, (257, 3000), n_ref=60000,
+                       edges=True))
+    if packed:
+        monkeypatch.setattr(DeviceFMIndex, "REF_PACK_MIN", 16)
+    dfm = DeviceFMIndex.from_genome(d[0], card)
+    assert dfm.ref_packed == packed
+    t = [torch.from_numpy(np.ascontiguousarray(x)).to(card) for x in d[1:]]
+    t[8] = torch.full_like(t[8], Wh)
+    Tmax = int(np.minimum(d[7], d[4] + Wh + 2).max())
+    args = (dfm.ref, *t, Wh, Tmax, *scoring,
+            max(scoring[0], 1), packed)
+    n = bsw_shear.launches
+    got = bsw_shear(*args)
+    torch.cuda.synchronize()
+    assert bsw_shear.launches == n + 1
+    assert (bsw_shear.plan(256, Wh)[2] > 0) == (Wh > 206)
+    want = bsw_shear_desc_ref(*args)
+    np.testing.assert_array_equal(got.cpu().numpy(), want.cpu().numpy())

@@ -21,7 +21,9 @@ from bwamem2_tpu_torch.align.pipeline import Aligner
 from bwamem2_tpu_torch.index.fmindex import FMIndex
 from bwamem2_tpu_torch.io.fastq import FastxReader, Read, read_chunk
 from bwamem2_tpu_torch.ops.backend import TorchBackend
+from bwamem2_tpu_torch.ops.bsw import DeviceBSW
 from bwamem2_tpu_torch.ops.bsw_cuda import bsw_extend
+from bwamem2_tpu_torch.ops.bsw_shear_cuda import bsw_shear
 from bwamem2_tpu_torch.ops.kswv_cuda import kswv
 from bwamem2_tpu_torch.ops.seed import sa_resolve, smem_collect
 from bwamem2_tpu_torch.options import MEM_F_PE, MemOptions
@@ -219,10 +221,12 @@ def test_long_mates_off_grid_rescue_on_host(fm, monkeypatch, native_rt):
     is seeded alone on the host oracle (overflow.long_read) while the
     other reads go through the seeding kernel's plain version; a rescue
     whose query is a long mate stays out of the batch and runs on the host
-    (overflow.rescue_miss), the others go through rescue_batch.  The SAM
-    equals the host-native run's, through the native runtime
-    (hostrt.rescue_pre_batch) and the Python one
-    (pairing.batch_rescue_pre)."""
+    (overflow.rescue_miss), the others go through rescue_batch.  The chunk
+    extends on the object path: the long mates' pairs, and only those, on
+    the host kernel (overflow.bsw_host_tail), the 500 bp mates' long pairs
+    through bsw_shear's plain version.  The SAM equals the host-native
+    run's, through the native runtime (hostrt.rescue_pre_batch) and the
+    Python one (pairing.batch_rescue_pre)."""
     rng = np.random.default_rng(79)
     comp = {"A": "T", "C": "G", "G": "C", "T": "A"}
     reads = []
@@ -250,13 +254,28 @@ def test_long_mates_off_grid_rescue_on_host(fm, monkeypatch, native_rt):
         return orig(self, desc)
 
     monkeypatch.setattr(TorchBackend, "rescue_batch", spy)
+    # the extension pairs of the long mates, the only ones the read grid
+    # does not hold, are the only ones on the host kernel
+    off_grid = []
+    orig_run = DeviceBSW._run
+
+    def run_spy(self, pending, w, opt, end_bonus):
+        off_grid.append(sum(len(reads[p.seqid].seq) == 600
+                            for p in pending))
+        assert all((self.lens[p.seqid] == 0)
+                   == (len(reads[p.seqid].seq) == 600) for p in pending)
+        return orig_run(self, pending, w, opt, end_bonus)
+
+    monkeypatch.setattr(DeviceBSW, "_run", run_spy)
     out = {}
     for backend in (TorchBackend(fm, opt, device="cpu"), None):
         rd = [Read(name=r.name, comment=None, seq=r.seq, qual=r.qual)
               for r in reads]
-        for k in ("overflow.long_read", "overflow.rescue_miss"):
+        for k in ("overflow.long_read", "overflow.rescue_miss",
+                  "overflow.bsw_host_tail"):
             PROF.c.pop(k, None)
         n0 = smem_collect.plain_calls
+        n_shear = bsw_shear.plain_calls
         Aligner(fm, opt, backend=backend, verbose=0,
                 native_rt=native_rt or backend is None).process(rd, 0)
         out[backend is None] = "".join(r.sam for r in rd)
@@ -265,9 +284,50 @@ def test_long_mates_off_grid_rescue_on_host(fm, monkeypatch, native_rt):
             assert smem_collect.plain_calls == n0 + 1
             assert backend.read_grid_width() == 504
             assert PROF.c["overflow.rescue_miss"] > 0
+            # the object path: 500 bp mates' long pairs on bsw_shear
+            assert bsw_shear.plain_calls > n_shear
+            assert PROF.c["overflow.bsw_host_tail"] == sum(off_grid) > 0
     assert sum(map(len, seen)) > 0
     assert max(int(q.max()) for q in seen) == 500
     assert out[False] == out[True]
+
+
+PACBIO_PARTS = 5
+
+
+@pytest.mark.parametrize("part", range(PACBIO_PARTS))
+def test_pacbio_golden_on_cpu_through_shear_plain(fm, part):
+    """golden_pacbio.sam (25 reads of 2-8 kb, -x pacbio) through
+    TorchBackend(device="cpu"): the chunk takes the object path, whose
+    long pairs go through bsw_shear's plain version and in-cap pairs
+    through bsw_extend's, none to the host kernel.  Each case runs a fifth
+    of the reads as one chunk at their place in the file (an SE record
+    depends only on its read and the read's index), so the cases run side
+    by side; together they hold every record of the golden."""
+    opt = MemOptions().finalize("pacbio")
+    reads = read_chunk(FastxReader(os.path.join(DATA, "reads_pacbio.fq")),
+                       None, 10**9)
+    assert len(reads) == 25
+    lo = part * len(reads) // PACBIO_PARTS
+    hi = (part + 1) * len(reads) // PACBIO_PARTS
+    sub = reads[lo:hi]
+    names = {r.name for r in sub}
+    n = (bsw_shear.plain_calls, bsw_shear.launches, bsw_extend.plain_calls)
+    PROF.c.pop("overflow.bsw_host_tail", None)
+    pairs0 = PROF.ctot["overflow.bsw_host_tail"]
+    al = Aligner(fm, opt, backend=TorchBackend(fm, opt, device="cpu"),
+                 verbose=0)
+    al.process(sub, lo)
+    assert not al._flat_ext_ok([r.seq for r in sub], opt)
+    assert bsw_shear.plain_calls > n[0] and bsw_shear.launches == n[1]
+    assert bsw_extend.plain_calls > n[2]
+    assert PROF.c["overflow.bsw_host_tail"] == 0
+    assert PROF.ctot["overflow.bsw_host_tail"] > pairs0
+    ours = "".join(r.sam for r in sub).splitlines(keepends=True)
+    golden = [ln for ln in golden_lines("golden_pacbio.sam")
+              if ln.split("\t", 1)[0] in names]
+    assert len(ours) == len(golden) >= hi - lo
+    assert ours == golden
 
 
 def test_cli_mem_device_cpu_pe_golden(tmp_path):
