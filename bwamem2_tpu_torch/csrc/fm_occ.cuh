@@ -161,6 +161,50 @@ FM_HD void fm_backward_ext(const FmView &f, int64_t k, int64_t l, int64_t s,
     fm_ext_combine(f, k, l, s, a, sp, ep, ko, lo, so);
 }
 
+// LF step of one strand: (k', s') of the interval (k, s) extended
+// backward by the base a (0..3), tracking no RC-twin bound: k' = C[a] +
+// occ(k, a), s' = occ(k + s, a) - occ(k, a).  Two row reads
+// (bwamem2_tpu/ops/device_index.py:lf_step).
+FM_HD void fm_lf_step(const FmView &f, int64_t k, int64_t s, int a,
+                      int64_t *ko, int64_t *so) {
+    const int64_t sp = fm_occ_one(f, k, a);
+    *ko = fm_count(f, a) + sp;
+    *so = fm_occ_one(f, k + s, a) - sp;
+}
+
+// The round-1 backward walk of one (read, end column n) lane: from the
+// base at n, extend backward one column at a time while the column is a
+// base and the interval stays non-empty.  Writes the leftmost start b of
+// the longest exact match ending at n and its interval (k, s).  A lane
+// whose code is not a base, or that lies at or past the read's length,
+// gets b = n + 1 and the interval of base 0.  `row` is the read's grid
+// row (codes 0..4), `len` its length.  Returns the LF steps taken (the
+// last one is the step that emptied the interval, if any).
+// bwamem2_tpu/ops/smem.py:_round1_walk at lut_k = 0.
+FM_HD int fm_round1_walk(const FmView &f, const int8_t *row, int len, int n,
+                         int *bo, int64_t *ko, int64_t *so) {
+    const int a0 = row[n];
+    const bool valid = (unsigned)a0 < 4u && n < len;
+    const int c0 = valid ? a0 : 0;
+    int64_t k = fm_count(f, c0), s = fm_count(f, c0 + 1) - k;
+    int b = valid ? n : n + 1, steps = 0;
+    for (int col = n - 1; valid && col >= 0; --col) {
+        const int c = row[col];
+        if ((unsigned)c >= 4u) break;
+        int64_t k2, s2;
+        fm_lf_step(f, k, s, c, &k2, &s2);
+        ++steps;
+        if (s2 <= 0) break;
+        k = k2;
+        s = s2;
+        b = col;
+    }
+    *bo = b;
+    *ko = k;
+    *so = s;
+    return steps;
+}
+
 // (BWT char at pos (4 = sentinel), occ(pos, stored code)) from pos's row
 // r (and its hi word).  The code word is taken from the row's two 64-bit
 // halves by a select and a shift, never by a run-time index into r.

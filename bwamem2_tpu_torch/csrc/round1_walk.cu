@@ -1,0 +1,88 @@
+// round1_walk: the round-1 SMEM backward walk from every (read, end) lane
+// on Hopper (sm_90a).
+//
+// Replaces the JAX package's round-1 walk (jitted XLA, not Pallas):
+// bwamem2_tpu/ops/smem.py:round1_kernel / _round1_walk at lut_k = 0, the
+// first stage of ops/entry.py:seed_extend_step.  For every end column n of
+// every read, one lane walks the FM index backward from n until the
+// interval empties, the column passes 0 or a code is not a base, and
+// writes the leftmost start b(n) (int32) and the interval (k, s) (int64)
+// of [b(n), n].  Plain PyTorch version: ops/smem.py:round1_walk_ref;
+// wrapper: ops/smem.py:Round1Walk.  The lane's walk is
+// fm_occ.cuh:fm_round1_walk, which the tests compile as host C++.
+//
+// What bounds it.  Bytes: 20 B written per lane (b, k, s), the read grid
+// (1 B per lane) and lengths read once, and the occ rows the walks touch,
+// each 32-byte row once, over 3.35 TB/s.  Operations: each LF step is two
+// occ counts of one base; the least int32 work of a count is, per code
+// word (4 per row), an XOR with the base's pattern, a shift, one
+// three-input logic operation (the pair test masked by the row's prefix),
+// a popcount and an add = 5, of which 1 popcount; per row 2 for the prefix
+// mask of the partial word, 2 for the int64 checkpoint add and 3 for the
+// sentinel's test and adjustment = 7; so 2 x (4 x 5 + 7) = 54 per step,
+// plus 2 for k' = C[a] + occ, 2 for s', 1 for s' > 0, 2 for k + s and 2
+// for the next code's test and load = 63, 8 of them popcounts.  On sm_90
+// a popcount issues at 16 per clock per SM (4.18 Tops/s on 132 SMs at
+// 1.98 GHz), the other int32 operations at 64 (16.7 Tops/s), and the four
+// warp schedulers issue 128 lanes' instructions a clock (33.4 Tops/s).
+// Whether popcounts share the int32 pipe is not documented, so the
+// operations bound is the slowest of the three, not the sum of the two
+// pipes: 55 / 64 clocks per step and SM, the int32 pipe.  chip_smoke.py
+// counts the steps and distinct rows of each run's walks
+// (round1_walk_ref's `stats`) and reports the larger bound.
+//
+// Design.  One thread per lane, lanes of a read in neighbouring threads,
+// so a warp reads neighbouring grid bytes and each lane stops on its own.
+// The TPU version steps all L lanes of a read in lockstep for L steps
+// (dropping a quarter of the columns at a time) because its loop cannot
+// end early per lane; here a lane ends when its walk does, and what that
+// costs is warp divergence: a warp runs as long as its longest walk.
+// Counts and row words are picked by selects (fm_occ.cuh), so nothing is
+// indexed at run time and the kernel needs no stack frame.
+
+#include <cuda_runtime.h>
+
+#include "fm_occ.cuh"
+
+#define R1_THREADS 256
+
+namespace {
+
+__global__ void __launch_bounds__(R1_THREADS)
+round1_walk_kernel(const FmView f, const int8_t *__restrict__ enc,
+                   const int *__restrict__ lens, int64_t total, int L,
+                   int *__restrict__ b, int64_t *__restrict__ k,
+                   int64_t *__restrict__ s) {
+    const int64_t t = blockIdx.x * (int64_t)blockDim.x + threadIdx.x;
+    if (t >= total) return;
+    const int64_t r = t / L;
+    const int n = (int)(t - r * L);
+    int bo;
+    int64_t ko, so;
+    fm_round1_walk(f, enc + r * L, __ldg(lens + r), n, &bo, &ko, &so);
+    b[t] = bo;
+    k[t] = ko;
+    s[t] = so;
+}
+
+}  // namespace
+
+// Launch on `stream` (PyTorch's current stream); returns
+// cudaGetLastError() of the launch.  counts: int64[5] on the host; enc
+// int8[N, L] (codes 0..4), lens int32[N]; b int32[N, L], k and s
+// int64[N, L].
+extern "C" int round1_walk_launch(const int32_t *occp, const int32_t *occ_hi,
+                                  int has_hi, const int64_t *counts,
+                                  int64_t sentinel, const int8_t *enc,
+                                  const int *lens, int N, int L, int *b,
+                                  int64_t *k, int64_t *s, void *stream) {
+    const FmView f{occp, occ_hi, {counts[0], counts[1], counts[2],
+                                  counts[3], counts[4]},
+                   sentinel, has_hi};
+    const int64_t total = (int64_t)N * L;
+    const int64_t blocks = (total + R1_THREADS - 1) / R1_THREADS;
+    round1_walk_kernel<<<(unsigned)blocks, R1_THREADS, 0,
+                         (cudaStream_t)stream>>>(f, enc, lens, total, L, b,
+                                                  k, s);
+    return (int)cudaGetLastError();
+}

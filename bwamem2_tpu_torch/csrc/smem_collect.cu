@@ -44,8 +44,12 @@
 //     [k, k+s), 6 for l's sum of up to three int64 sizes, 2 for k' = 19.
 //   Total 8 x 10 + 2 x 16 + 19 = 131 operations, 24 of them popcounts.
 // On sm_90 a popcount issues at 16 per clock per SM, the others at 64:
-// 132 x 16 x 1.98 GHz = 4.18 Tops/s and 16.7 Tops/s.  chip_smoke.py
-// reports max(bytes, operations) with the one that bounds.
+// 132 x 16 x 1.98 GHz = 4.18 Tops/s and 16.7 Tops/s, and the four warp
+// schedulers issue 128 lanes' instructions a clock.  Whether popcounts
+// share the int32 pipe is not documented, so the operations bound is the
+// slowest of the three (107 / 64 clocks per backward_ext and SM, the
+// int32 pipe), not the sum of the two pipes.  chip_smoke.py reports
+// max(bytes, operations) with the one that bounds.
 
 #include <cuda_runtime.h>
 

@@ -6,6 +6,10 @@ from __future__ import annotations
 
 import torch
 
+# the most cards one process drives with data parallelism (one backend
+# per card), as the JAX package's CLI takes devs[:8]
+MAX_CARDS = 8
+
 
 def round_up(n: int, m: int) -> int:
     return ((n + m - 1) // m) * m
@@ -27,3 +31,15 @@ def resolve_device(device=None) -> torch.device:
     elif dev.type != "cpu":
         raise ValueError(f"unsupported device {dev}; use 'cuda' or 'cpu'")
     return dev
+
+
+def resolve_devices(device=None) -> list[torch.device]:
+    """Every device a data-parallel entry point drives: for "cuda" (the
+    default) each visible card, at most MAX_CARDS; for "cpu" or a device
+    with an index, that one device.  Raises as resolve_device does."""
+    dev = torch.device("cuda" if device is None else device)
+    if dev.type == "cuda" and dev.index is None:
+        resolve_device(dev)             # raises without a card
+        n = min(torch.cuda.device_count(), MAX_CARDS)
+        return [torch.device("cuda", i) for i in range(n)]
+    return [resolve_device(dev)]

@@ -45,6 +45,7 @@ from ..native import hostrt
 from ..utils.profiling import PROF
 from . import resolve_device, round_up
 from .bsw import DeviceBSW
+from .cuda_build import launch_tally
 from .device_index import DeviceFMIndex
 from .kswv import DeviceKswv
 from .seed import FusedSeeder
@@ -77,8 +78,11 @@ class TorchBackend:
     GRID_MAX_READ_LEN = 32000
 
     def __init__(self, fm: FMIndex, opt, device=None):
-        """device: "cuda" (the default) or "cpu"; CUDA without a card
-        raises."""
+        """device: "cuda" (the default), "cuda:i" or "cpu"; CUDA without a
+        card raises.  Everything the backend owns (the index, the read
+        grid, scratch and outputs) lives on this one device.  `launches`
+        counts the kernel launches of this backend's chunks by kernel name
+        (cuda_build.launch_tally), whichever worker thread runs them."""
         self.fm = fm
         self.opt = opt
         self.device = resolve_device(device)
@@ -86,6 +90,7 @@ class TorchBackend:
         self._bsw = DeviceBSW(self.dfm, opt)
         self._kswv = DeviceKswv(self.dfm, opt)
         self.seeder = FusedSeeder(self.dfm)
+        self.launches: dict[str, int] = {}
 
     @property
     def left_bsw_kernel(self):
@@ -105,6 +110,9 @@ class TorchBackend:
         return min(cls.GRID_MAX_READ_LEN, (2**31 - 1) // max(N, 1) // 8 * 8)
 
     def _attach_grid(self, encs):
+        """Start a chunk on this thread: its read grid on the device, and
+        this backend's tally for the thread's launches."""
+        launch_tally(self.launches)
         enc, lens = _pad_reads(encs)
         self._bsw.encj = torch.from_numpy(enc).to(self.device)
         self._bsw.lens = lens

@@ -660,3 +660,48 @@ class DeviceBSW:
 
     def right_kernel(self, pending, w, opt):
         return self._run(pending, w, opt, opt.pen_clip3)
+
+
+def _tile_descriptors(q: torch.Tensor, t: torch.Tensor, qlen, tlen):
+    """Tiles as descriptors: the q tile int[P, Qmax] becomes the read grid
+    (row p's query at flat offset p*Qmax, walked forward) and the t tile
+    int[P, Tmax] an unpacked genome (row p's target at p*Tmax).  Raises
+    unless every qlen <= Qmax and tlen <= Tmax."""
+    P, Qmax = q.shape
+    Tmax = t.shape[1]
+    if t.shape[0] != P or qlen.shape[0] != P or tlen.shape[0] != P:
+        raise ValueError(f"tiles of {P} and {t.shape[0]} rows, {qlen.shape[0]}"
+                         f" and {tlen.shape[0]} lengths")
+    if P * max(Qmax, 1) >= 1 << 31:
+        raise ValueError(f"{P} x {Qmax} query tile: the read grid's int32 "
+                         "offsets take fewer than 2^31 cells")
+    if bool(((qlen < 0) | (qlen > Qmax) | (tlen < 0) | (tlen > Tmax)).any()):
+        raise ValueError(f"lengths outside the ({Qmax}, {Tmax}) tiles")
+    dev = q.device
+    row = torch.arange(P, device=dev)
+    one = torch.ones(P, dtype=I32, device=dev)
+    return (t.reshape(-1).to(torch.uint8), q.to(torch.int8).contiguous(),
+            (row * Qmax).to(I32), one, qlen.to(I32), row * Tmax, one,
+            tlen.to(I32))
+
+
+def bsw_tiles(q, t, qlen, tlen, h0, w, mat_a: int, mat_b: int, o_del: int,
+              e_del: int, o_ins: int, e_ins: int, zdrop: int,
+              end_bonus: int, max_sc: int) -> torch.Tensor:
+    """Banded SW extension over materialized tiles (bwamem2_tpu/ops/bsw.py:
+    bsw_kernel, and the Pallas tile entry bsw_pallas): q int[P, Qmax]
+    query codes, t int[P, Tmax] target codes (4 = N or padding), qlen <=
+    Qmax, tlen <= Tmax, h0 and w int32[P].  Returns int32[P, 6]: score qle
+    tle gtle gscore max_off.  The tiles go to bsw_extend as descriptors
+    (its kernel on CUDA tensors, bsw_desc_ref on the CPU); Qmax is at most
+    BswExtend.QMAX."""
+    from .bsw_cuda import BswExtend, bsw_extend
+    Qmax, Tmax = q.shape[1], t.shape[1]
+    if Qmax > BswExtend.QMAX:
+        raise ValueError(f"bsw_tiles: Qmax={Qmax} beyond the extension "
+                         f"kernel's {BswExtend.QMAX}")
+    ref, enc, *desc = _tile_descriptors(q, t, qlen, tlen)
+    return bsw_extend(ref, enc, *desc, h0.to(I32), w.to(I32), Qmax, Tmax,
+                      mat_a, mat_b, o_del, e_del, o_ins, e_ins, zdrop,
+                      end_bonus, max_sc)
+

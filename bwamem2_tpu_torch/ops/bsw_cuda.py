@@ -47,13 +47,12 @@ class BswExtend(CudaKernel):
             return bsw_desc_ref(*args)
         return self.launch(*args)
 
-    def plan(self, P: int, Qmax: int) -> tuple[int, int, int]:
+    def plan(self, P: int, Qmax: int, dev) -> tuple[int, int, int]:
         """(lanes per pair G, columns per lane C, groups per block) of a
-        launch on the current device."""
-        fn = self.lib().bsw_plan
-        fn.restype, fn.argtypes = I32, [I32, I32, VP]
+        launch on CUDA device `dev`."""
         plan = (ctypes.c_int * 3)()
-        err = fn(Qmax, P, ctypes.addressof(plan))
+        err = self._query(dev, "bsw_plan", [I32, I32, VP], Qmax, P,
+                          ctypes.addressof(plan))
         if err:
             raise ValueError(f"bsw_extend: no launch for Qmax={Qmax} (CUDA "
                              f"error {err})")

@@ -49,13 +49,12 @@ class BswShear(CudaKernel):
             return bsw_shear_desc_ref(*args)
         return self.launch(*args)
 
-    def plan(self, P: int, Wh: int) -> tuple[int, int, int]:
+    def plan(self, P: int, Wh: int, dev) -> tuple[int, int, int]:
         """(slots per lane C, warps per block, shared-memory bytes per
-        block) of a launch on the current device."""
-        fn = self.lib().bsw_shear_plan
-        fn.restype, fn.argtypes = I32, [I32, I32, VP]
+        block) of a launch on CUDA device `dev`."""
         plan = (ctypes.c_int * 3)()
-        err = fn(Wh, P, ctypes.addressof(plan))
+        err = self._query(dev, "bsw_shear_plan", [I32, I32, VP], Wh, P,
+                          ctypes.addressof(plan))
         if err:
             raise ValueError(f"bsw_shear: no launch for Wh={Wh} (CUDA "
                              f"error {err})")
@@ -89,7 +88,7 @@ class BswShear(CudaKernel):
         out = torch.empty((P, 6), dtype=torch.int32, device=dev)
         if P == 0:
             return out
-        self.plan(P, Wh)          # raises for a band beyond every bucket
+        self.plan(P, Wh, dev)     # raises for a band beyond every bucket
         self._launch(
             dev, enc.data_ptr(), enc.numel(), ref.data_ptr(), ref.numel(),
             int(bool(ref_packed)), qoff.data_ptr(), qdir.data_ptr(),

@@ -10,7 +10,10 @@ a per-process temp file renamed into place.
 `CudaKernel` is the base of every wrapper: it owns the lazily built
 library, the build log and the two counters — `launches` (kernel launches,
 counted where the kernel is launched and nowhere else) and `plain_calls`
-(calls on CPU tensors, which run the plain PyTorch version).
+(calls on CPU tensors, which run the plain PyTorch version).  A launch is
+also added to the calling thread's tally (`launch_tally`), if one is set:
+a TorchBackend sets its own when a chunk starts on a thread, so that with
+one backend per card each backend counts the launches of its chunks.
 """
 
 from __future__ import annotations
@@ -75,11 +78,23 @@ def build_library(name: str, sources: tuple[str, ...]) -> tuple[str, str]:
 
 VP, I32, I64 = ctypes.c_void_p, ctypes.c_int, ctypes.c_int64
 
+_tally = threading.local()
+_tally_lock = threading.Lock()
+
+
+def launch_tally(counts: dict | None) -> None:
+    """Add this thread's following kernel launches to `counts` ({kernel
+    name: launches}), or to no tally (None)."""
+    _tally.counts = counts
+
 
 class CudaKernel:
     """Base of a kernel wrapper.  Subclasses set NAME, SOURCES and
-    SIGNATURE = (C function name, argtypes); the C function returns
-    cudaGetLastError() of its launch."""
+    SIGNATURE = (C function name, argtypes of every parameter, the stream
+    last); the C function returns cudaGetLastError() of its launch.  A
+    parameter without its argtype goes as a C int, so a pointer (the
+    stream) past the sixth argument would reach the launcher with its high
+    half undefined."""
 
     NAME: str = ""
     SOURCES: tuple[str, ...] = ()
@@ -103,6 +118,15 @@ class CudaKernel:
                 self._lib = lib
         return self._lib
 
+    def _query(self, dev, name: str, argtypes: list, *args) -> int:
+        """Call the library's shape or occupancy function `name` on CUDA
+        device `dev`: the runtime answers for the calling thread's current
+        device, and a pipeline worker's is not its backend's."""
+        fn = getattr(self.lib(), name)
+        fn.restype, fn.argtypes = I32, argtypes
+        with torch.cuda.device(dev):
+            return fn(*args)
+
     def _plain(self):
         with self._lock:
             self.plain_calls += 1
@@ -117,6 +141,10 @@ class CudaKernel:
             raise RuntimeError(f"{self.NAME} launch failed: CUDA error {err}")
         with self._lock:     # pipeline workers launch from several threads
             self.launches += 1
+        counts = getattr(_tally, "counts", None)
+        if counts is not None:
+            with _tally_lock:    # two workers may share a backend's tally
+                counts[self.NAME] = counts.get(self.NAME, 0) + 1
 
     def reset(self) -> None:
         with self._lock:

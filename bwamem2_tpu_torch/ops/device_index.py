@@ -111,6 +111,7 @@ class DeviceFMIndex:
     ref: torch.Tensor         # uint8[2*l_pac], or 2-bit packed (ref_packed)
     ref_packed: bool
     device: torch.device
+    n_ref: int = 0            # chars of the doubled genome (2*l_pac)
     occp: torch.Tensor | None = None      # int32[nb, 8]
     occ_hi: torch.Tensor | None = None    # int32[nb] (or [1] dummy)
     counts: torch.Tensor | None = None    # int64[5]
@@ -131,7 +132,7 @@ class DeviceFMIndex:
         dev = resolve_device(device)
         ref, packed = pack_ref(ref_string)
         return cls(ref=torch.from_numpy(ref).to(dev), ref_packed=packed,
-                   device=dev)
+                   device=dev, n_ref=int(ref_string.shape[0]))
 
     @classmethod
     def from_host(cls, fm: FMIndex, device=None) -> "DeviceFMIndex":
@@ -247,6 +248,15 @@ def occ_one(dfm: DeviceFMIndex, pos: torch.Tensor, c) -> torch.Tensor:
     z = _match_c(row[..., 4:8], c) & _prefix_masks(y)
     n = _popc32(z).sum(-1) - (c == 0).long() * _sent_in_prefix(dfm, pos, y)
     return _cp(row, hi, c) + n
+
+
+def lf_step(dfm: DeviceFMIndex, k, s, a):
+    """Backward extension of the interval (k, s) by char a, tracking only
+    (k, s): C[a] + occ(k, a) and occ(k + s, a) - occ(k, a).  Two row
+    reads."""
+    occ_sp = occ_one(dfm, k, a)
+    return (take_counts(dfm.counts, torch.as_tensor(a, device=k.device))
+            + occ_sp, occ_one(dfm, k + s, a) - occ_sp)
 
 
 def backward_ext_full(dfm: DeviceFMIndex, k, l, s, a):

@@ -46,14 +46,14 @@ class Kswv(CudaKernel):
             return kswv_two_phase_ref(*args)
         return self.launch(*args)
 
-    def plan(self, P: int, Qmax: int, u8: bool) -> tuple[int, int, int]:
+    def plan(self, P: int, Qmax: int, u8: bool, dev
+             ) -> tuple[int, int, int]:
         """(register bucket, 0 for shared-memory stripes; groups per block;
-        dynamic shared memory bytes per block) of a launch on the current
-        device."""
-        fn = self.lib().kswv_plan
-        fn.restype, fn.argtypes = I32, [I32, I32, I32, VP]
+        dynamic shared memory bytes per block) of a launch on CUDA device
+        `dev`."""
         plan = (ctypes.c_int * 3)()
-        err = fn(int(bool(u8)), Qmax, P, ctypes.addressof(plan))
+        err = self._query(dev, "kswv_plan", [I32, I32, I32, VP],
+                          int(bool(u8)), Qmax, P, ctypes.addressof(plan))
         if err:
             raise ValueError(
                 f"kswv: no launch for Qmax={Qmax} in the "
@@ -92,8 +92,7 @@ class Kswv(CudaKernel):
         out = torch.empty((2, P, 6), dtype=torch.int32, device=dev)
         if P == 0:
             return out[0], out[1]
-        with torch.cuda.device(dev):
-            self.plan(P, Qmax, u8)          # raises on a refused shape
+        self.plan(P, Qmax, u8, dev)         # raises on a refused shape
         Tpad = -(-Tmax // 8) * 8
         rowmax = torch.empty((P, Tpad), dtype=torch.int16, device=dev)
         self._launch(

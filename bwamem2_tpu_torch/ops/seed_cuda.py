@@ -74,14 +74,12 @@ class SmemCollect(CudaKernel):
                     for x in lens)
         return 24 * slots + N * (4 + 8 + 4) + 8 * (N + 1) + 4
 
-    def plan(self, lanes: int, lcap: int) -> tuple:
+    def plan(self, lanes: int, lcap: int, dev) -> tuple:
         """(blocks, threads, shared bytes per block) of a launch at this
-        lane width and list capacity on the current device."""
-        fn = self.lib().smem_collect_plan
-        fn.restype = I32
-        fn.argtypes = [I32, I32, VP]
+        lane width and list capacity on CUDA device `dev`."""
         plan = (I32 * 3)()
-        err = fn(lanes, lcap, plan)
+        err = self._query(dev, "smem_collect_plan", [I32, I32, VP], lanes,
+                          lcap, plan)
         if err:
             raise ValueError(f"smem_collect: no launch for {lanes} lanes, "
                              f"list capacity {lcap} (CUDA error {err})")
@@ -144,7 +142,7 @@ class SaResolve(CudaKernel):
     SOURCES = ("sa_resolve.cu", "sa_group.cuh", "fm_occ.cuh")
     SIGNATURE = ("sa_resolve_launch",
                  [VP, VP, I32, VP, I64, VP, VP, VP, I64, VP, I32, I32, I32,
-                  VP])
+                  VP, VP])
     WALKS = (1,)            # the walks per lane sa_resolve.cu instantiates
 
     def __init__(self, plain):
@@ -167,12 +165,9 @@ class SaResolve(CudaKernel):
         shape), or fewer where P positions fill fewer."""
         key = (torch.device(dev).index, W, threads)
         if key not in self._resident:
-            fn = self.lib().sa_resolve_resident
-            fn.restype = I32
-            fn.argtypes = [I32, I32, VP]
             blocks = I32()
-            with torch.cuda.device(dev):
-                err = fn(W, threads, ctypes.addressof(blocks))
+            err = self._query(dev, "sa_resolve_resident", [I32, I32, VP], W,
+                              threads, ctypes.addressof(blocks))
             if err:
                 raise ValueError(f"sa_resolve: no launch of {threads} "
                                  f"threads at {W} walks per lane (CUDA "

@@ -8,15 +8,16 @@ for the H100, sm_90a):
 
 Phases, each of which fails the run (non-zero exit, no result line):
   1. the card's name and power limit (nvidia-smi);
-  2. build: the six CUDA kernels (one nvcc per csrc/*.cu: bsw_extend,
-     bsw_shear, smem_collect, sa_resolve, kswv, row_gather) and the native
-     host runtime (g++) from the checkout's sources, all started together;
+  2. build: the seven CUDA kernels (one nvcc per csrc/*.cu: bsw_extend,
+     bsw_shear, smem_collect, sa_resolve, kswv, row_gather, round1_walk)
+     and the native host runtime (g++) from the checkout's sources, all
+     started together;
      the registers, spills and stack frame of each bsw_extend
      instantiation (lanes x columns per lane), each bsw_shear
      instantiation (slots per lane), each kswv instantiation (u8/i16 x
      register bucket or shared-memory stripes), each smem_collect
-     instantiation and each sa_resolve instantiation (walks per lane),
-     which must have no stack frame;
+     instantiation, each sa_resolve instantiation (walks per lane) and
+     round1_walk, the last two of which must have no stack frame;
   3. data: a synthetic 11.7 Mbp genome (scale 0.25 of the chr21 class, the
      size of a yeast genome) with repeat families and N runs, its index and
      10,000 2x150 bp pairs, made once from fixed seeds under .tmp/;
@@ -47,6 +48,14 @@ Phases, each of which fails the run (non-zero exit, no result line):
      launch, no plain version runs, no read is too long for the read grid
      and no extension pair runs on the host kernel
      (overflow.bsw_host_tail 0); its PROF phases are printed;
+     (e) round-robin: run (a)'s data through run_pipeline with one
+     TorchBackend per visible card (two on cuda:0 where one card is
+     visible; the line says which), one worker each: its SAM equals run
+     (a)'s and every backend launched smem_collect, bsw_extend and kswv on
+     its own chunks (TorchBackend.launches);
+     (f) shards: `mem --shard 0:2` and `--shard 1:2` (--out-dir) as two
+     processes at once on the card over run (a)'s data at -K 600,000 (5
+     chunks), then `merge`, whose SAM equals this process's unsharded run;
   5. kernel vs plain, exact equality, with times and bounds:
      a. bsw_extend against bsw_desc_ref at every production rung (Q in
         127/255/383 x T in 96..608) with P = 4096 real-length descriptors,
@@ -89,6 +98,16 @@ Phases, each of which fails the run (non-zero exit, no result line):
         the earlier one-thread design's time beside the kernel's;
         DeviceKswv.align_batch against the native ksw_align on the same
         problems, whose host seconds are timed;
+     f. the seed-extend step (ops/entry.py:seed_extend_step: round1_walk,
+        sa_resolve, bsw_tiles) on the card on the compile-check batch (32
+        x 128 on tests/fixtures/ref_tiny.fa) and on run (a)'s first chunk
+        at full width (15,000 reads, L = 152), its launch counters set to
+        0 just before and read just after; all five outputs equal the CPU
+        path's (plain versions), and sharded_seed_extend over make_mesh()
+        equals the one-card step; on the chunk, round1_walk, the step's
+        bsw_extend launch and its sa_resolve launch each timed against
+        its plain version on the card, beside its bound (round1_walk's
+        from the LF steps and distinct occ rows its plain version counts);
   6. the gather probe (bwamem2_tpu_torch/tools/gather_scale_probe.py) on
      cuda, its path's launch counter set to 0 before and read after; then
      row_gather against tab[idx] and torch.index_select at the probe's
@@ -175,10 +194,13 @@ WIDE_W = 500             # -w of the long-read fixture pass: band radius
 # table of ~93 MB, beyond the 50 MB L2), one default-size chunk
 DRAM_SCALE = 2.0
 # smem_collect bound model (csrc/smem_collect.cu header): the least int32
-# operations per backward_ext, the popcounts among them, and the card's
-# popcount issue rate (16 per clock per SM on sm_90)
+# operations per backward_ext and the popcounts among them
 SMEM_OPS_PER_EXT, SMEM_POPC_PER_EXT = 131, 24
+# sm_90's popcount rate (16 per clock per SM) and instruction issue (4
+# warp schedulers: 128 lanes a clock per SM), CUDA C++ Programming Guide's
+# arithmetic-instruction throughput table and Hopper tuning guide
 POPC_OPS_PER_S = 132 * 16 * 1.98e9
+ISSUE_OPS_PER_S = 132 * 128 * 1.98e9
 # smem_collect times (ms) of the earlier one-thread-per-read design (the
 # candidate lists in global scratch), measured by this script's phase 5b
 # on an NVIDIA H100 80GB HBM3 at 700.00 W, printed beside the lane-group
@@ -195,6 +217,11 @@ ONE_THREAD_SA_MS = {"sample": 0.049, "chunk (a)": 0.116,
 P_GATHER = 1 << 22       # rows of the timed row_gather calls
 PROBE_SIZES_MB = (4, 16, 64, 256, 1024, 2048, 4096)
 MAX_OVERFLOW = 0.01      # share of main-path reads allowed to the oracle
+# the --shard phase's task size: 5 chunks of run (a)'s 20,000 reads
+SHARD_TASK_BASES = 600_000
+# round1_walk bound model (csrc/round1_walk.cu header): the least int32
+# operations per LF step and the popcounts among them
+R1_OPS_PER_STEP, R1_POPC_PER_STEP = 63, 8
 
 
 def log(msg: str) -> None:
@@ -217,15 +244,16 @@ def card_line() -> str:
 
 # ----------------------------------------------------------------- builds
 def kernels():
-    """The wrappers of the six kernels, by name."""
+    """The wrappers of the seven kernels, by name."""
     from bwamem2_tpu_torch.ops.bsw_cuda import bsw_extend
     from bwamem2_tpu_torch.ops.bsw_shear_cuda import bsw_shear
     from bwamem2_tpu_torch.ops.kswv_cuda import kswv
     from bwamem2_tpu_torch.ops.row_gather import row_gather
     from bwamem2_tpu_torch.ops.seed import sa_resolve, smem_collect
+    from bwamem2_tpu_torch.ops.smem import round1_walk
     return dict(bsw_extend=bsw_extend, bsw_shear=bsw_shear,
                 smem_collect=smem_collect, sa_resolve=sa_resolve, kswv=kswv,
-                row_gather=row_gather)
+                row_gather=row_gather, round1_walk=round1_walk)
 
 
 def ptxas_table(text: str) -> dict:
@@ -328,6 +356,18 @@ def build_all() -> dict:
                 fail(f"sa_resolve: stack frames by walks per lane {frames} "
                      f"(every instantiation of {k.WALKS} must have none)")
             continue
+        if name == "round1_walk":
+            if not k.build_log:
+                continue        # built before this run: no ptxas output
+            v = ptxas_table(k.build_log).get(
+                next((f for f in ptxas_table(k.build_log)
+                      if "round1_walk_kernel" in f), ""), {})
+            log(f"  ptxas round1_walk: {v.get('registers')} registers, "
+                f"{v.get('spill')} B spilled, {v.get('stack')} B stack frame")
+            if v.get("stack") != 0:
+                fail(f"round1_walk: stack frame {v.get('stack')} B (the "
+                     "kernel must have none)")
+            continue
         for ln in k.build_log.splitlines():
             if "registers" in ln or "spill" in ln or "error" in ln.lower():
                 log(f"  ptxas {name}: {ln.strip()}")
@@ -419,7 +459,7 @@ def kernel_vs_plain(torch, fm, opt) -> dict:
             b24_ms = max(cells[0] * OPS_PER_CELL_24 / INT32_OPS_PER_S * 1e3,
                          mem_ms)
             by = "operations" if ops_ms >= mem_ms else "bytes"
-            G, C, gpb = bsw_extend.plan(P_KERNEL, Q)
+            G, C, gpb = bsw_extend.plan(P_KERNEL, Q, "cuda")
             log(f"  {Q:>4} {T:>4} {cells[0]:>11} {k_ms:>10.4f} "
                 f"{p_ms:>10.3f} {b_ms:>9.5f} {by:>10} {bad:>8} "
                 f"{G}x{C}, {gpb} groups/block")
@@ -476,7 +516,7 @@ def bsw_main_path(torch, calls) -> dict:
         mem_ms = nbytes / HBM_BYTES_PER_S * 1e3
         b24_ms = max(cells[0] * OPS_PER_CELL_24 / INT32_OPS_PER_S * 1e3,
                      mem_ms)
-        G, C, gpb = bsw_extend.plan(P, args[10])
+        G, C, gpb = bsw_extend.plan(P, args[10], args[1].device)
         inst = ptx.get((G, C), {})
         tot["per_launch"].append(dict(
             Qmax=args[10], T=args[11], P=P, cells=cells[0], ms=k_ms,
@@ -539,7 +579,7 @@ def shear_main_path(torch, calls) -> dict:
                   + int(torch.minimum(tlen, qlen + Wh + 2).sum()))
         ops_ms = cells[0] * OPS_PER_CELL / INT32_OPS_PER_S * 1e3
         mem_ms = nbytes / HBM_BYTES_PER_S * 1e3
-        C, wpb, smem = bsw_shear.plan(P, Wh)
+        C, wpb, smem = bsw_shear.plan(P, Wh, args[1].device)
         inst = ptx.get((0 if smem else C,), {})
         tot["per_launch"].append(dict(
             Wh=Wh, qmax=qmax, T=T, P=P, cells=cells[0], ms=k_ms,
@@ -582,15 +622,23 @@ def chunk_reads(fq1: str, fq2: str, task_bases: int):
     return read_chunk(FastxReader(fq1), FastxReader(fq2), task_bases)
 
 
+def int_ops_s(n_ops: float, n_popc: float) -> float:
+    """The least seconds for n_ops int32 operations, n_popc of them
+    popcounts: the slowest of the popcount rate, the int32 rate for the
+    rest and the issue rate for all.  Nothing documents whether a
+    popcount shares the int32 pipe on sm_90, so the two are not added:
+    the bound stays a floor either way."""
+    return max(n_popc / POPC_OPS_PER_S, (n_ops - n_popc) / INT32_OPS_PER_S,
+               n_ops / ISSUE_OPS_PER_S)
+
+
 def smem_bounds(nbwd: int, N: int, L: int, nsm: int) -> tuple:
     """smem_collect's (bytes ms, operations ms) for these inputs: 2 occ rows
     of 32 B per backward_ext, the grid and lengths in, the written slots
     and per-read counts out; SMEM_OPS_PER_EXT operations per backward_ext,
-    SMEM_POPC_PER_EXT of them popcounts at the popcount rate."""
+    SMEM_POPC_PER_EXT of them popcounts (int_ops_s)."""
     nbytes = nbwd * 64 + N * (L + 4) + nsm * 24 + N * 12
-    ops_s = nbwd * (SMEM_POPC_PER_EXT / POPC_OPS_PER_S
-                    + (SMEM_OPS_PER_EXT - SMEM_POPC_PER_EXT)
-                    / INT32_OPS_PER_S)
+    ops_s = int_ops_s(nbwd * SMEM_OPS_PER_EXT, nbwd * SMEM_POPC_PER_EXT)
     return nbytes / HBM_BYTES_PER_S * 1e3, ops_s * 1e3
 
 
@@ -635,7 +683,7 @@ def seeding_vs_plain(torch, fm, passes, opt) -> dict:
                 sm.lanes_for = lambda n, G=G: G
                 outs[G] = sm(*args)
                 torch.cuda.synchronize()
-                blocks, threads, smem = sm.plan(G, lcap)
+                blocks, threads, smem = sm.plan(G, lcap, "cuda")
                 inst = ptx.get((G, lcap), {})
                 per_lanes[G] = dict(
                     ms=cuda_ms(torch, lambda: sm(*args), 3), blocks=blocks,
@@ -859,7 +907,7 @@ def rescue_vs_plain(torch, fm, opt, batches) -> dict:
                       + int(desc["tlen"][idx].sum()))
             mem_ms = nbytes / HBM_BYTES_PER_S * 1e3
             cls = "u8" if u8 else "i16"
-            smax, gpb, smem = kswv.plan(len(idx), Qmax, u8)
+            smax, gpb, smem = kswv.plan(len(idx), Qmax, u8, "cuda")
             inst = ptx.get((u8, smax), {})
             old = ONE_THREAD_KSWV_MS.get((tag, cls))
             r["classes"][cls] = dict(
@@ -1246,6 +1294,283 @@ def drive_long(torch, card: str, tag: str, cli_args: list, fq: str,
                 phases_s=phases, _shear=shear_calls)
 
 
+# ------------------------------------------------- data-parallel layer
+def sam_records(text_or_path: str, is_path: bool = True) -> list[str]:
+    """The SAM records (no header line) of a file or a text."""
+    if is_path:
+        with open(text_or_path) as f:
+            text_or_path = f.read()
+    return [ln for ln in text_or_path.splitlines(keepends=True)
+            if not ln.startswith("@")]
+
+
+def round_robin(torch, card: str, prefix: str, fq1: str, fq2: str,
+                sam_a: str) -> dict:
+    """Run (a)'s data (-K TASK_BASES) through run_pipeline with one aligner
+    per visible card, or two TorchBackends on cuda:0 where one card is
+    visible, one worker per aligner, every launch counter set to 0 just
+    before and read just after.  Fails unless the SAM equals run (a)'s
+    and every backend launched smem_collect, bsw_extend and kswv on its own
+    chunks (TorchBackend.launches), with no plain version run."""
+    import io
+    from bwamem2_tpu_torch.align.pipeline import Aligner
+    from bwamem2_tpu_torch.index.fmindex import FMIndex
+    from bwamem2_tpu_torch.io.fastq import FastxReader
+    from bwamem2_tpu_torch.ops import resolve_devices
+    from bwamem2_tpu_torch.ops.backend import TorchBackend
+    from bwamem2_tpu_torch.options import MEM_F_PE, MemOptions
+    from bwamem2_tpu_torch.runtime import run_pipeline
+    devs = resolve_devices("cuda")
+    how = f"one backend per card, {len(devs)} cards"
+    if len(devs) == 1:
+        devs = devs * 2
+        how = "two backends on cuda:0 (one visible card)"
+    fm = FMIndex.load(prefix)
+    opt = MemOptions().finalize(None)
+    opt.flag |= MEM_F_PE
+    aligners = [Aligner(fm, opt, backend=TorchBackend(fm, opt, d), verbose=1)
+                for d in devs]
+    K = kernels()
+    for k in K.values():
+        k.reset()
+    out = io.StringIO()
+    t0 = time.perf_counter()
+    n = run_pipeline(aligners, FastxReader(fq1), FastxReader(fq2),
+                     TASK_BASES, out, verbose=0, n_workers=len(aligners))
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = {nm: k.launches for nm, k in K.items()}
+    plain = {nm: k.plain_calls for nm, k in K.items()}
+    per = [dict(a.backend.launches) for a in aligners]
+    if any(plain.values()):
+        fail(f"round-robin: plain versions ran on cuda: {plain}")
+    for i, t in enumerate(per):
+        for kn in ("smem_collect", "bsw_extend", "kswv"):
+            if not t.get(kn):
+                fail(f"round-robin: backend {i} ({devs[i]}) launched no "
+                     f"{kn}: {t}")
+    got, want = sam_records(out.getvalue(), False), sam_records(sam_a)
+    if got != want:
+        bad = sum(x != y for x, y in zip(got, want))
+        fail(f"round-robin: SAM differs from run (a)'s: {bad} of "
+             f"{len(want)} records ({len(got)} produced)")
+    log(f"  [4e] round-robin, {how}: {n} reads in {wall:.2f}s, SAM == run "
+        f"(a)'s ({len(want)} records); launches per backend {per} "
+        f"[{card}]")
+    return dict(how=how, devices=[str(d) for d in devs], reads=n,
+                wall_s=round(wall, 3), launches=launches, per_backend=per)
+
+
+def shard_phase(card: str, prefix: str, fq1: str, fq2: str) -> dict:
+    """`mem --shard 0:2` and `--shard 1:2` (--out-dir) as two processes at
+    once on the card over run (a)'s data at -K SHARD_TASK_BASES (at least 4
+    chunks), then `merge`; fails unless the merged SAM equals this
+    process's unsharded run at the same -K."""
+    import glob
+    import shutil
+    from bwamem2_tpu_torch import cli
+    out_dir = os.path.join(WORK, "shards")
+    shutil.rmtree(out_dir, ignore_errors=True)
+    chunks = n_chunks(fq1, fq2, SHARD_TASK_BASES)
+    if chunks < 4:
+        fail(f"shards: -K {SHARD_TASK_BASES} gives {chunks} chunks (< 4)")
+    base = ["mem", "-K", str(SHARD_TASK_BASES), "-v", "1"]
+    ref = os.path.join(WORK, "unsharded.sam")
+    t0 = time.perf_counter()
+    if cli.main([*base, "-o", ref, prefix, fq1, fq2]):
+        fail("shards: the unsharded run failed")
+    t_ref = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    procs = [subprocess.Popen(
+        [sys.executable, "-m", "bwamem2_tpu_torch.cli", *base, "--shard",
+         f"{h}:2", "--out-dir", out_dir, "-o",
+         os.path.join(WORK, f"shard{h}_header.sam"), prefix, fq1, fq2],
+        cwd=REPO, stdout=subprocess.DEVNULL, stderr=subprocess.PIPE,
+        text=True) for h in range(2)]
+    try:
+        errs = [p.communicate(timeout=600)[1] for p in procs]
+    finally:
+        for p in procs:
+            p.kill()
+    t_shards = time.perf_counter() - t0
+    for h, (p, err) in enumerate(zip(procs, errs)):
+        if p.returncode:
+            fail(f"shards: --shard {h}:2 exited with {p.returncode}:\n"
+                 f"{err[-3000:]}")
+    parts = sorted(glob.glob(os.path.join(out_dir, "part.chunk*.sam")))
+    if len(parts) != chunks:
+        fail(f"shards: {len(parts)} chunk files for {chunks} chunks")
+    merged = os.path.join(WORK, "merged.sam")
+    if cli.main(["merge", merged, *reversed(parts)]):
+        fail("shards: merge failed")
+    got, want = sam_records(merged), sam_records(ref)
+    if got != want:
+        bad = sum(x != y for x, y in zip(got, want))
+        fail(f"shards: merged SAM differs from the unsharded run: {bad} of "
+             f"{len(want)} records ({len(got)} merged)")
+    log(f"  [4f] --shard 0:2 / 1:2 (two processes on the card at once) + "
+        f"merge over {chunks} chunks (-K {SHARD_TASK_BASES}): merged SAM == "
+        f"unsharded SAM ({len(want)} records); unsharded {t_ref:.1f}s, both "
+        f"shards {t_shards:.1f}s [{card}]")
+    return dict(chunks=chunks, records=len(want), unsharded_s=round(t_ref, 2),
+                shards_s=round(t_shards, 2))
+
+
+def graft_batch(fm, n: int = 32, L: int = 128, seed: int = 0):
+    """The compile-check batch of __graft_entry__.py:_example_batch: n
+    reads of L bases cut from the genome, 3 substitutions each."""
+    import numpy as np
+    rng = np.random.default_rng(seed)
+    enc = np.full((n, L), 4, np.int32)
+    lens = np.full((n,), L, np.int32)
+    for i in range(n):
+        p = int(rng.integers(0, fm.l_pac - L))
+        enc[i] = fm.ref_string[p:p + L]
+        mut = rng.integers(0, L, 3)
+        enc[i, mut] = (enc[i, mut] + 1) % 4
+    return enc, lens
+
+
+def step_phase(torch, card: str, prefix: str, fq1: str, fq2: str) -> dict:
+    """ops/entry.py:seed_extend_step on the card on the compile-check batch
+    (32 x 128, tests/fixtures/ref_tiny.fa) and on run (a)'s first chunk at
+    full width, with every launch counter set to 0 just before and read
+    just after (round1_walk, sa_resolve and bsw_extend must launch); all
+    five outputs against the step's CPU path (plain versions), exact;
+    sharded_seed_extend over make_mesh() against the one-card step; then
+    on the chunk round1_walk, the step's bsw_tiles launch and its
+    sa_resolve launch each timed against its plain version on the card and
+    beside its bound."""
+    import numpy as np
+    from bwamem2_tpu_torch.align.seeding import encode_reads
+    from bwamem2_tpu_torch.index.fmindex import FMIndex
+    from bwamem2_tpu_torch.ops import seed
+    from bwamem2_tpu_torch.ops.backend import _pad_reads
+    from bwamem2_tpu_torch.ops.bsw_cuda import BswExtend
+    from bwamem2_tpu_torch.ops.device_index import DeviceFMIndex
+    from bwamem2_tpu_torch.ops.entry import seed_extend_step
+    from bwamem2_tpu_torch.ops.seed_cuda import SaResolve
+    from bwamem2_tpu_torch.ops.smem import round1_walk, round1_walk_ref
+    from bwamem2_tpu_torch.parallel.mesh import make_mesh, sharded_seed_extend
+    tiny = FMIndex.load(os.path.join(REPO, "tests", "fixtures", "ref_tiny.fa"))
+    fm = FMIndex.load(prefix)
+    chunk = _pad_reads(encode_reads([r.seq for r in
+                                     chunk_reads(fq1, fq2, TASK_BASES)]))
+    batches = [("compile-check batch", tiny, *graft_batch(tiny)),
+               ("chunk (a)", fm, *chunk)]
+    dfms = [DeviceFMIndex.from_host(f, "cuda") for _, f, _, _ in batches]
+    K = kernels()
+    calls = {"bsw": [], "sa": []}
+    orig_bsw, orig_sa = BswExtend.launch, SaResolve.launch
+
+    def bsw_spy(self, *args):
+        calls["bsw"].append(args)
+        return orig_bsw(self, *args)
+
+    def sa_spy(self, *args):
+        calls["sa"].append(args)
+        return orig_sa(self, *args)
+
+    for k in K.values():
+        k.reset()
+    BswExtend.launch, SaResolve.launch = bsw_spy, sa_spy
+    got, secs = [], []
+    try:
+        for d, (_, _, enc, lens) in zip(dfms, batches):
+            t0 = time.perf_counter()
+            got.append([x.cpu() for x in seed_extend_step(d, enc, lens)])
+            secs.append(time.perf_counter() - t0)
+    finally:
+        BswExtend.launch, SaResolve.launch = orig_bsw, orig_sa
+    launches = {nm: k.launches for nm, k in K.items()}
+    plain = {nm: k.plain_calls for nm, k in K.items()}
+    for kn in ("round1_walk", "sa_resolve", "bsw_extend"):
+        if launches[kn] < len(batches):
+            fail(f"seed-extend step: {kn} launched {launches[kn]} times "
+                 f"over {len(batches)} steps")
+    if any(plain.values()):
+        fail(f"seed-extend step: plain versions ran on cuda: {plain}")
+    names = ("smem_b", "smem_k", "smem_s", "coords", "ext")
+    res = dict(launches=launches, step_s=[round(x, 4) for x in secs])
+    for (tag, f, enc, lens), g, sec in zip(batches, got, secs):
+        t0 = time.perf_counter()
+        want = seed_extend_step(DeviceFMIndex.from_host(f, "cpu"), enc, lens)
+        cpu_s = time.perf_counter() - t0
+        for nm, x, y in zip(names, g, want):
+            if not torch.equal(x, y):
+                fail(f"seed-extend step, {tag}: {nm} on the card differs "
+                     f"from the CPU path in "
+                     f"{int((x != y).reshape(x.shape[0], -1).any(1).sum())}"
+                     f" reads")
+        log(f"  {tag}: {enc.shape[0]} reads x L={enc.shape[1]}: all five "
+            f"outputs == the CPU path (card {sec:.3f}s with first calls, "
+            f"CPU {cpu_s:.1f}s; {int((g[4][:, 0] > 0).sum())} seeds "
+            f"extended) [{card}]")
+    d, (_, _, enc, lens) = dfms[1], batches[1]
+    mesh = make_mesh()
+    for nm, x, y in zip(names, sharded_seed_extend(mesh, d, enc, lens),
+                        got[1]):
+        if not np.array_equal(x, y.numpy()):
+            fail(f"sharded_seed_extend over {mesh}: {nm} differs from the "
+                 f"one-card step")
+    log(f"  sharded_seed_extend over {[str(m) for m in mesh]} == the "
+        f"one-card step on chunk (a)")
+    # round1_walk on the chunk: kernel, plain version on the card, bound
+    e = torch.from_numpy(enc).cuda()
+    ln = torch.from_numpy(lens).cuda()
+    N, L = e.shape
+    k_ms = cuda_ms(torch, lambda: round1_walk(d, e, ln), 5)
+    stats: dict = {}
+    ev = [torch.cuda.Event(enable_timing=True) for _ in range(2)]
+    ev[0].record()
+    want = round1_walk_ref(d, e, ln, stats)
+    ev[1].record()
+    torch.cuda.synchronize()
+    p_ms = ev[0].elapsed_time(ev[1])
+    err = max(int((x.long() - y.long()).abs().max())
+              for x, y in zip(round1_walk(d, e, ln), want))
+    if err:
+        fail(f"round1_walk differs from round1_walk_ref on chunk (a) (max "
+             f"abs err {err})")
+    row_b = 32 + (4 if d.has_hi else 0)
+    nbytes = stats["rows"] * row_b + N * L * (1 + 20) + 4 * N
+    mem_ms = nbytes / HBM_BYTES_PER_S * 1e3
+    ops_ms = int_ops_s(stats["steps"] * R1_OPS_PER_STEP,
+                       stats["steps"] * R1_POPC_PER_STEP) * 1e3
+    r1 = dict(reads=N, L=L, lanes=N * L, steps=stats["steps"],
+              rows=stats["rows"], ms=k_ms, plain_ms=p_ms, mem_ms=mem_ms,
+              ops_ms=ops_ms, bound_ms=max(mem_ms, ops_ms),
+              bound_by="operations" if ops_ms >= mem_ms else "bytes", err=err)
+    log(f"  round1_walk on chunk (a) ({N * L} lanes, {stats['steps']} LF "
+        f"steps, {stats['rows']} distinct occ rows): kernel {k_ms:.4f} ms, "
+        f"plain {p_ms:.1f} ms, bound {r1['bound_ms']:.5f} ms by "
+        f"{r1['bound_by']} (bytes {mem_ms:.5f}, operations {ops_ms:.5f}), "
+        f"identical [{card}]")
+    # the step's bsw_tiles launch and sa_resolve launch on the chunk
+    log(f"  bsw_tiles' bsw_extend launch of the step on chunk (a):")
+    bt = bsw_main_path(torch, calls["bsw"][-1:])
+    sdfm, pos = calls["sa"][-1]
+    P = pos.numel()
+    sa_ms = cuda_ms(torch, lambda: seed.sa_resolve(sdfm, pos), 5)
+    reads: list = []
+    ev[0].record()
+    sa_want = seed.sa_resolve_ref(sdfm, pos, reads)
+    ev[1].record()
+    torch.cuda.synchronize()
+    sa_err = int((seed.sa_resolve(sdfm, pos) - sa_want).abs().max())
+    if sa_err:
+        fail(f"sa_resolve differs from its plain version on the step's "
+             f"positions (max abs err {sa_err})")
+    sa = dict(positions=P, row_reads=reads[0], ms=sa_ms,
+              plain_ms=ev[0].elapsed_time(ev[1]),
+              bound_ms=(reads[0] * 32 + P * (5 + 16)) / HBM_BYTES_PER_S * 1e3)
+    log(f"  sa_resolve on the step's {P} positions ({reads[0]} row reads): "
+        f"kernel {sa_ms:.4f} ms, plain {sa['plain_ms']:.2f} ms, bound "
+        f"{sa['bound_ms']:.5f} ms by bytes, identical [{card}]")
+    res.update(round1_walk=r1, bsw_tiles=bt, sa_resolve=sa)
+    return res
+
+
 def goldens() -> str:
     """The goldens on cuda (phase 7); returns the SAM text of the long-read
     fixture at -x pacbio -w WIDE_W, whose band radii (WIDE_W, 2 * WIDE_W on
@@ -1322,7 +1647,8 @@ def goldens() -> str:
         BswShear.launch = orig
     if PROF.c.get("overflow.bsw_host_tail", 0) != tail0:
         fail(f"-w {WIDE_W}: extension pairs ran on the host kernel")
-    frames = {wh: K["bsw_shear"].plan(1, wh)[2] for wh in set(bands)}
+    frames = {wh: K["bsw_shear"].plan(1, wh, "cuda")[2]
+              for wh in set(bands)}
     if not frames or not all(frames.values()):
         fail(f"-w {WIDE_W}: a bsw_shear launch did not use the "
              f"shared-memory frame (band radii {sorted(frames)})")
@@ -1407,8 +1733,12 @@ def main() -> None:
         "-x", "pacbio", "-v", "1", "-o", sam_d, prefix, fq_long], fq_long,
         LONG_READS)
     shear_d = run_d.pop("_shear")
-    runs = (run_a, run_b, run_c, run_d)
-    # the kernels line counts the launches of the four runs
+    log("[4e] round-robin over per-card backends, run (a)'s data:")
+    rr = round_robin(torch, card, prefix, fq1, fq2, sam)
+    log("[4f] --shard h:2 processes + merge, run (a)'s data:")
+    shards = shard_phase(card, prefix, fq1, fq2)
+    runs = (run_a, run_b, run_c, run_d, rr)
+    # the kernels line counts the launches of the five runs
     launches = {n: sum(r["launches"][n] for r in runs)
                 for n in run_a["launches"]}
     cap_a, cap_b = run_a.pop("_capture"), run_b.pop("_capture")
@@ -1438,6 +1768,9 @@ def main() -> None:
             os.path.join(fx, "ref_small.fa"),
             os.path.join(REPO, "tests", "data", "reads_pacbio.fq"), 0, 25,
             "pacbio", WIDE_W))
+        log(f"[5f] seed-extend step (round1_walk, sa_resolve, bsw_tiles) on "
+            f"{name}:")
+        st = step_phase(torch, card, prefix, fq1, fq2)
         log(f"[5a] bsw_extend vs plain on {name}, P={P_KERNEL} per rung:")
         tot = kernel_vs_plain(torch, fm, opt)
         log(f"  all rungs identical; kernel {tot['ms']:.3f} ms (one-thread "
@@ -1621,10 +1954,25 @@ def main() -> None:
              library_note="torch.index_select",
              shape=f"sum over the probe's {len(PROBE_SIZES_MB)} tables "
                    f"(4-4096 MB), P={P_GATHER} rows of 16 int32 each"),
+        dict(name="round1_walk", route="cuda",
+             source="bwamem2_tpu_torch/csrc/round1_walk.cu",
+             replaces="bwamem2_tpu/ops/smem.py:164",
+             launches=st["launches"]["round1_walk"],
+             max_abs_err=st["round1_walk"]["err"],
+             ms=round(st["round1_walk"]["ms"], 4),
+             plain_ms=round(st["round1_walk"]["plain_ms"], 3),
+             bound_ms=round(st["round1_walk"]["bound_ms"], 5),
+             bound_by=st["round1_walk"]["bound_by"], library_ms=None,
+             library_note="no PyTorch call walks an FM-index",
+             shape=f"{st['round1_walk']['lanes']} lanes (run (a)'s first "
+                   f"chunk, {st['round1_walk']['reads']} reads x L="
+                   f"{st['round1_walk']['L']}), {st['round1_walk']['steps']}"
+                   f" LF steps"),
     ]
     result = dict(kernels=kern, card=card, first_call_s=first,
                   main_a=run_a, main_b=run_b, main_a52=run_c,
-                  main_pacbio=run_d, launches=launches,
+                  main_pacbio=run_d, round_robin=rr, shards=shards,
+                  step=st, launches=launches,
                   build_s={k: round(v, 1) for k, v in secs.items()},
                   bsw_main=bm, bsw_rungs=tot, bsw_shear=sh,
                   seeding=sd, rescue=rs, gather=gt,

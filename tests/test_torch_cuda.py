@@ -226,7 +226,7 @@ def test_kswv_kernel_matches_ref_on_card(card):
         for part, placement in ((idx[idx < short["n"]], "registers"),
                                 (idx, "shared")):
             args = dk.kswv_args(encj, desc, part, u8)
-            smax, gpb, _ = kswv.plan(len(part), args[8], u8)
+            smax, gpb, _ = kswv.plan(len(part), args[8], u8, card)
             assert (smax > 0) == (placement == "registers")
             assert gpb > 1 and len(part) % gpb
             got = kswv(*args)
@@ -361,7 +361,7 @@ def test_bsw_extend_buckets_on_card(card):
                             (383, 1201, (32, 12))):
         x = extension_batch(fm.ref_string, Qmax, P, Qmax, 608)
         t = [torch.from_numpy(np.ascontiguousarray(a)).to(card) for a in x]
-        assert bsw_extend.plan(P, Qmax)[:2] == bucket
+        assert bsw_extend.plan(P, Qmax, card)[:2] == bucket
         n = bsw_extend.launches
         got = bsw_extend(dfm.ref, *t, Qmax, 608, *sc)
         torch.cuda.synchronize()
@@ -397,6 +397,193 @@ def test_bsw_shear_matches_ref_on_card(card, monkeypatch, Wh, scoring,
     got = bsw_shear(*args)
     torch.cuda.synchronize()
     assert bsw_shear.launches == n + 1
-    assert (bsw_shear.plan(256, Wh)[2] > 0) == (Wh > 206)
+    assert (bsw_shear.plan(256, Wh, card)[2] > 0) == (Wh > 206)
     want = bsw_shear_desc_ref(*args)
     np.testing.assert_array_equal(got.cpu().numpy(), want.cpu().numpy())
+
+
+def step_batch(fm, n, L, seed):
+    """n reads of L bases cut from the genome with 3 substitutions each
+    (__graft_entry__.py:_example_batch), the last ones with an N run, a
+    short length and no bases."""
+    rng = np.random.default_rng(seed)
+    enc = np.full((n, L), 4, np.int8)
+    lens = np.full((n,), L, np.int32)
+    for i in range(n):
+        p = int(rng.integers(0, fm.l_pac - L))
+        enc[i] = fm.ref_string[p:p + L]
+        mut = rng.integers(0, L, 3)
+        enc[i, mut] = (enc[i, mut] + 1) % 4
+    enc[-3, L // 3:L // 3 + 5] = 4
+    lens[-2] = L // 4
+    enc[-2, L // 4:] = 4
+    lens[-1] = 0
+    enc[-1] = 4
+    return enc, lens
+
+
+@pytest.mark.cuda
+def test_round1_walk_matches_ref_on_card(card):
+    """round1_walk's kernel against round1_walk_ref on the PE fixture's
+    reads and on edge reads."""
+    from bwamem2_tpu_torch.ops.smem import round1_walk, round1_walk_ref
+    fm = FMIndex.load(PREFIX)
+    dfm, dfm_h = (DeviceFMIndex.from_host(fm, d) for d in (card, "cpu"))
+    reads = read_chunk(FastxReader(os.path.join(DATA, "reads_r1.fq")),
+                       FastxReader(os.path.join(DATA, "reads_r2.fq")),
+                       10**9)
+    for enc, lens in (_pad_reads(encode_reads([r.seq for r in reads])),
+                      step_batch(fm, 64, 152, 3)):
+        e, ln = torch.from_numpy(enc), torch.from_numpy(lens)
+        n = round1_walk.launches
+        got = round1_walk(dfm, e.to(card), ln.to(card))
+        torch.cuda.synchronize()
+        assert round1_walk.launches == n + 1
+        for g, w in zip(got, round1_walk_ref(dfm_h, e, ln)):
+            np.testing.assert_array_equal(g.cpu().numpy(), w.numpy())
+
+
+@pytest.mark.cuda
+def test_bsw_tiles_match_ref_on_card(card):
+    """bsw_tiles (bsw_extend) on the card against the same adapter on the
+    CPU (bsw_desc_ref)."""
+    from bwamem2_tpu_torch.ops.bsw import bsw_tiles
+    rng = np.random.default_rng(11)
+    Qmax, Tmax, P = 128, 256, 2048
+    t = rng.integers(0, 4, (P, Tmax)).astype(np.int8)
+    q = t[:, :Qmax].copy()
+    mut = rng.random((P, Qmax)) < 0.05
+    q[mut] = rng.integers(0, 4, int(mut.sum()))
+    qlen = rng.integers(1, Qmax + 1, P).astype(np.int32)
+    tlen = rng.integers(1, Tmax + 1, P).astype(np.int32)
+    h0 = rng.integers(1, 60, P).astype(np.int32)
+    w = rng.choice([20, 50, 100], P).astype(np.int32)
+    args = [torch.from_numpy(x) for x in (q, t, qlen, tlen, h0, w)]
+    sc = (1, 4, 6, 1, 6, 1, 100, 5, 1)
+    got = bsw_tiles(*(a.to(card) for a in args), *sc)
+    torch.cuda.synchronize()
+    np.testing.assert_array_equal(got.cpu().numpy(),
+                                  bsw_tiles(*args, *sc).numpy())
+
+
+@pytest.mark.cuda
+def test_seed_extend_step_on_card(card):
+    """seed_extend_step on the card equals the CPU path (plain versions),
+    all five outputs, on the compile-check batch and at L = 152; and
+    sharded_seed_extend over the visible cards equals the one-card step."""
+    from bwamem2_tpu_torch.ops.entry import seed_extend_step
+    from bwamem2_tpu_torch.parallel.mesh import (make_mesh,
+                                                 sharded_seed_extend)
+    for prefix, n, L in ((os.path.join(FIXTURES, "ref_tiny.fa"), 32, 128),
+                         (PREFIX, 512, 152)):
+        fm = FMIndex.load(prefix)
+        dfm = DeviceFMIndex.from_host(fm, card)
+        enc, lens = step_batch(fm, n, L, 0)
+        got = [g.cpu().numpy() for g in seed_extend_step(dfm, enc, lens)]
+        want = seed_extend_step(DeviceFMIndex.from_host(fm, "cpu"), enc,
+                                lens)
+        for g, w in zip(got, want):
+            np.testing.assert_array_equal(g, w.numpy())
+        for g, w in zip(sharded_seed_extend(make_mesh(), dfm, enc, lens),
+                        got):
+            np.testing.assert_array_equal(g, w)
+
+
+@pytest.mark.cuda
+def test_round_robin_over_every_card(card):
+    """One TorchBackend per visible card through run_pipeline: SE equals
+    golden_se.sam and every backend launches its chunks' kernels.  With
+    one card it skips (chip_smoke.py drives two backends on one card)."""
+    from bwamem2_tpu_torch.align.pipeline import Aligner
+    from bwamem2_tpu_torch.ops import resolve_devices
+    from bwamem2_tpu_torch.ops.backend import TorchBackend
+    from bwamem2_tpu_torch.runtime import run_pipeline
+    import io
+    devs = resolve_devices("cuda")
+    if len(devs) < 2:
+        pytest.skip("one visible card")
+    fm = FMIndex.load(PREFIX)
+    opt = MemOptions().finalize()
+    aligners = [Aligner(fm, opt, backend=TorchBackend(fm, opt, d),
+                        verbose=0) for d in devs]
+    out = io.StringIO()
+    run_pipeline(aligners, FastxReader(os.path.join(DATA, "reads_se.fq")),
+                 None, 3000, out, verbose=0, n_workers=len(devs))
+    with open(os.path.join(FIXTURES, "golden_se.sam")) as f:
+        assert out.getvalue() == "".join(ln for ln in f
+                                         if not ln.startswith("@"))
+    for a in aligners:
+        assert a.backend.launches.get("smem_collect", 0) > 0, a.backend.device
+
+
+NCCL_WORKER = """
+import sys
+sys.path.insert(0, {repo!r})
+import torch
+import torch.distributed as dist
+from bwamem2_tpu_torch.align.pipeline import Aligner
+from bwamem2_tpu_torch.index.fmindex import FMIndex
+from bwamem2_tpu_torch.io.fastq import FastxReader
+from bwamem2_tpu_torch.ops.backend import TorchBackend
+from bwamem2_tpu_torch.options import MemOptions
+from bwamem2_tpu_torch.parallel.multihost import init_distributed, run_sharded
+rank, world = init_distributed()        # the default: card RANK
+assert dist.get_backend() == "nccl" and world == {world}
+assert torch.cuda.current_device() == rank
+got = [torch.zeros(1, dtype=torch.int64, device="cuda") for _ in range(world)]
+dist.all_gather(got, torch.tensor([rank + 1], device="cuda"))
+assert [int(g) for g in got] == list(range(1, world + 1)), got
+fm = FMIndex.load({prefix!r})
+opt = MemOptions().finalize()
+be = TorchBackend(fm, opt, torch.device("cuda", rank))
+run_sharded(Aligner(fm, opt, backend=be, verbose=0), FastxReader({fq!r}),
+            None, 3000, {outdir!r}, rank, world, verbose=0)
+assert be.launches.get("smem_collect", 0) > 0, be.launches
+dist.barrier()
+dist.destroy_process_group()
+"""
+
+
+@pytest.mark.cuda
+def test_nccl_shards_over_every_card(card, tmp_path):
+    """One process per visible card through init_distributed on nccl (its
+    default device: card RANK): an all_gather, then each process aligns
+    its shard of the SE fixture on its own card; the merged chunks equal
+    golden_se.sam.  With one card it skips (chip_smoke.py runs two
+    --shard processes on one card)."""
+    import glob
+    import socket
+    import subprocess
+    import sys
+    from bwamem2_tpu_torch.parallel.multihost import merge_chunks
+    world = torch.cuda.device_count()
+    if world < 2:
+        pytest.skip("one visible card")
+    s = socket.socket()
+    s.bind(("127.0.0.1", 0))
+    port = s.getsockname()[1]
+    s.close()
+    outdir = str(tmp_path / "parts")
+    repo = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    script = NCCL_WORKER.format(repo=repo, world=world, prefix=PREFIX,
+                                fq=os.path.join(DATA, "reads_se.fq"),
+                                outdir=outdir)
+    env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
+    env.update(MASTER_ADDR="127.0.0.1", MASTER_PORT=str(port),
+               WORLD_SIZE=str(world))
+    procs = [subprocess.Popen([sys.executable, "-c", script],
+                              env={**env, "RANK": str(r)},
+                              stdout=subprocess.PIPE, stderr=subprocess.PIPE)
+             for r in range(world)]
+    try:
+        outs = [p.communicate(timeout=600) for p in procs]
+    finally:
+        for p in procs:
+            p.kill()
+    for p, (so, se) in zip(procs, outs):
+        assert p.returncode == 0, se.decode()[-3000:]
+    merged = str(tmp_path / "merged.sam")
+    with open(merged, "w") as f:
+        merge_chunks(f, glob.glob(os.path.join(outdir, "part.chunk*.sam")))
+    with open(merged) as f, open(os.path.join(FIXTURES, "golden_se.sam")) as g:
+        assert f.read() == "".join(ln for ln in g if not ln.startswith("@"))

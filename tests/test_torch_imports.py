@@ -74,3 +74,12 @@ def test_importing_the_port_loads_no_jax():
     r = subprocess.run([sys.executable, "-c", code], capture_output=True,
                        text=True, env=env, cwd=REPO, timeout=300)
     assert r.returncode == 0, r.stdout + r.stderr
+
+
+def test_scan_covers_the_data_parallel_modules():
+    """The scans above reach the parallel layer and the fused step."""
+    mods = set(_modules())
+    for m in ("bwamem2_tpu_torch.parallel", "bwamem2_tpu_torch.parallel.mesh",
+              "bwamem2_tpu_torch.parallel.multihost",
+              "bwamem2_tpu_torch.ops.entry", "bwamem2_tpu_torch.ops.smem"):
+        assert m in mods, m
