@@ -7,7 +7,8 @@ Three phases over a chunk of reads:
 
 The seeding and extension kernels are pluggable (host oracle vs device);
 the `backend` object provides collect_chunk (seeding + SA coordinates as
-flat arrays) and the extension kernels.
+flat arrays; None over a sharded index, which seeds through collect_smems
+and sa_lookup) and the extension kernels.
 """
 
 from __future__ import annotations
@@ -59,8 +60,17 @@ class Aligner:
         fm = self.fm
         if self.backend is not None:
             # fused single-fetch seeding + SA on the device (ops/seed.py)
-            (smem_off, smem_m, smem_n, smem_s, occ_off,
-             coords) = self.backend.collect_chunk(encs, opt)
+            flat = self.backend.collect_chunk(encs, opt)
+            if flat is None:
+                # the per-stage path (a sharded index): SMEMs, then every
+                # read's SA positions resolved in one batch
+                smems_per_read = self.backend.collect_smems(encs, opt)
+                (allpos, smem_off, smem_m, smem_n, smem_s,
+                 occ_off) = chain_mod.sa_positions_batch(opt,
+                                                         smems_per_read)
+                coords = self.backend.sa_lookup(allpos)
+            else:
+                (smem_off, smem_m, smem_n, smem_s, occ_off, coords) = flat
             if self.native_rt and self._flat_ext_ok(encs, opt):
                 # flat survivor arrays straight into the native extension
                 with PROF("chaining"):

@@ -265,12 +265,6 @@ def main_mem(argv: list[str]) -> int:
         if shard is not None:
             # one card per shard process, dealt by shard index
             devices = [devices[shard[0] % len(devices)]]
-        elif len(devices) > 1 and os.environ.get("BWAMEM2_TPU_SHARD_INDEX"):
-            return _fatal("BWAMEM2_TPU_SHARD_INDEX asks for the genome-"
-                          "bucket sharded index, which the port does not "
-                          "have yet (the sharded-index slice); unset it to "
-                          f"replicate the index on the {len(devices)} "
-                          "cards")
 
     prefix = args[0]
     t0 = time.time()
@@ -335,16 +329,32 @@ def main_mem(argv: list[str]) -> int:
     task_size = (fixed_chunk_size if fixed_chunk_size > 0
                  else opt.chunk_size * opt.n_threads)
 
-    aligners = [Aligner(fm, opt, backend=TorchBackend(fm, opt, device=d),
-                        rg_id=rg_id, verbose=verbose) for d in devices] \
-        or [Aligner(fm, opt, backend=None, rg_id=rg_id, verbose=verbose)]
+    sharded = (len(devices) > 1 and shard is None
+               and bool(os.environ.get("BWAMEM2_TPU_SHARD_INDEX")))
+    if sharded:
+        # genome-bucket index sharding: the occ/SA tables split over all
+        # the cards, one backend whose seeding kernels read every card's
+        # shard (parallel/shard_index.py); for indexes too big for one
+        # card.  The SAM is the replicated run's.
+        aligners = [Aligner(fm, opt, backend=TorchBackend(
+            fm, opt, devices=devices, sharded=True), rg_id=rg_id,
+            verbose=verbose)]
+    else:
+        aligners = [Aligner(fm, opt, backend=TorchBackend(fm, opt,
+                                                          device=d),
+                            rg_id=rg_id, verbose=verbose)
+                    for d in devices] \
+            or [Aligner(fm, opt, backend=None, rg_id=rg_id, verbose=verbose)]
     if verbose >= 3:
         import torch
         for d in devices:
             name = (torch.cuda.get_device_name(d) if d.type == "cuda"
                     else "the CPU")
             sys.stderr.write(f"* device stages on {d} ({name})\n")
-        if len(devices) > 1:
+        if sharded:
+            sys.stderr.write(f"* index sharded over {len(devices)} cards "
+                             "(genome-bucket mode)\n")
+        elif len(devices) > 1:
             sys.stderr.write(f"* data-parallel over {len(devices)} cards\n")
     if shard is not None:
         from .parallel.multihost import run_sharded

@@ -11,6 +11,14 @@
 // backwardExt (FMI_search.cpp:1025-1052), get_sa_entry_compressed
 // (FMI_search.cpp:1103-1175), including the sentinel's phantom 'A' (its
 // slot stores code 0) and the int8 sign extension of the SA high byte.
+//
+// Two views of the tables.  FmView holds them whole (the replicated
+// index).  FmShardView holds them split by contiguous row range over up to
+// FM_MAX_SHARDS shards (the genome-bucket index, parallel/shard_index.py):
+// a row fetch takes its shard as row / rows and reads that shard's base
+// pointer, which may lie on another card (a peer load over NVLink).  The
+// primitives are templates over the view, so a kernel instantiated with
+// FmView compiles to the code it has without shards.
 #pragma once
 
 #include <stdint.h>
@@ -31,6 +39,24 @@ struct FmView {
     int has_hi;
 };
 
+#define FM_MAX_SHARDS 8
+
+struct FmShardView {
+    const int32_t *occp[FM_MAX_SHARDS];     // shard i: rows [i*rows, ...)
+    const int32_t *occ_hi[FM_MAX_SHARDS];   // read only when has_hi
+    const int8_t *sa_ms[FM_MAX_SHARDS];     // shard i: slots [i*sa_rows, ...)
+    const uint32_t *sa_ls[FM_MAX_SHARDS];
+    int64_t counts[5];
+    int64_t sentinel;
+    int has_hi;
+    uint32_t rows;          // occ rows per shard (the last one padded)
+    uint32_t sa_rows;       // SA slots per shard
+};
+
+// The view a kernel instantiation reads: FmView (0) or FmShardView (1).
+template <int SHARDED> struct FmViewOf { using type = FmView; };
+template <> struct FmViewOf<1> { using type = FmShardView; };
+
 FM_HD int fm_popc(uint32_t x) {
 #ifdef __CUDA_ARCH__
     return __popc(x);
@@ -41,7 +67,8 @@ FM_HD int fm_popc(uint32_t x) {
 
 // counts[c] by selects: a run-time index into the view would put the
 // counts in local memory on the card
-FM_HD int64_t fm_count(const FmView &f, int c) {
+template <class V>
+FM_HD int64_t fm_count(const V &f, int c) {
     return c == 0 ? f.counts[0] : c == 1 ? f.counts[1]
          : c == 2 ? f.counts[2] : c == 3 ? f.counts[3] : f.counts[4];
 }
@@ -66,6 +93,45 @@ FM_HD uint32_t fm_hi(const FmView &f, int64_t blk) {
 #endif
 }
 
+// shard s's pointer of a table, by selects (a run-time index into the
+// view would put it in local memory on the card)
+template <class T>
+FM_HD const T *fm_pick(const T *const p[FM_MAX_SHARDS], uint32_t s) {
+    return s == 0 ? p[0] : s == 1 ? p[1] : s == 2 ? p[2] : s == 3 ? p[3]
+         : s == 4 ? p[4] : s == 5 ? p[5] : s == 6 ? p[6] : p[7];
+}
+
+// The row of `blk` from its shard.  Plain loads: the shard may be another
+// card's memory, read through peer access.
+FM_HD void fm_row(const FmShardView &f, int64_t blk, uint32_t r[8]) {
+    const uint32_t s = (uint32_t)blk / f.rows;
+    const int64_t loc = blk - (int64_t)s * f.rows;
+#ifdef __CUDA_ARCH__
+    const int4 *p = reinterpret_cast<const int4 *>(fm_pick(f.occp, s))
+                    + loc * 2;
+    const int4 a = p[0], b = p[1];
+    r[0] = a.x; r[1] = a.y; r[2] = a.z; r[3] = a.w;
+    r[4] = b.x; r[5] = b.y; r[6] = b.z; r[7] = b.w;
+#else
+    const int32_t *p = fm_pick(f.occp, s) + loc * 8;
+    for (int i = 0; i < 8; ++i) r[i] = (uint32_t)p[i];
+#endif
+}
+
+FM_HD uint32_t fm_hi(const FmShardView &f, int64_t blk) {
+    const uint32_t s = (uint32_t)blk / f.rows;
+    return (uint32_t)fm_pick(f.occ_hi, s)[blk - (int64_t)s * f.rows];
+}
+
+// The SA words of sampled slot idx (sa_ms[idx], sa_ls[idx]) from its shard
+FM_HD void fm_sa_words(const FmShardView &f, int64_t idx, int *ms,
+                       uint32_t *ls) {
+    const uint32_t s = (uint32_t)idx / f.sa_rows;
+    const int64_t loc = idx - (int64_t)s * f.sa_rows;
+    *ms = fm_pick(f.sa_ms, s)[loc];
+    *ls = fm_pick(f.sa_ls, s)[loc];
+}
+
 // mask over the first clip(y - 16*wi, 0, 16) chars of code word wi
 FM_HD uint32_t fm_prefix_mask(int y, int wi) {
     int nf = y - 16 * wi;
@@ -75,7 +141,8 @@ FM_HD uint32_t fm_prefix_mask(int y, int wi) {
 
 // checkpoint count of char c: r[c] by selects (a run-time index into the
 // row would put it in local memory on the card), plus its hi byte
-FM_HD int64_t fm_cp(const FmView &f, const uint32_t r[8], uint32_t hi,
+template <class V>
+FM_HD int64_t fm_cp(const V &f, const uint32_t r[8], uint32_t hi,
                     int c) {
     int64_t v = (int64_t)(c == 0 ? r[0] : c == 1 ? r[1] : c == 2 ? r[2]
                                                                 : r[3]);
@@ -84,12 +151,14 @@ FM_HD int64_t fm_cp(const FmView &f, const uint32_t r[8], uint32_t hi,
 }
 
 // 1 when the sentinel slot lies inside [block start, pos)
-FM_HD int fm_sent_in(const FmView &f, int64_t pos, int y) {
+template <class V>
+FM_HD int fm_sent_in(const V &f, int64_t pos, int y) {
     return (pos - y) <= f.sentinel && f.sentinel < pos;
 }
 
 // occ(pos, c) for all 4 chars from one row
-FM_HD void fm_occ4(const FmView &f, int64_t pos, int64_t out[4]) {
+template <class V>
+FM_HD void fm_occ4(const V &f, int64_t pos, int64_t out[4]) {
     const int64_t blk = pos >> 6;
     const int y = (int)(pos & 63);
     uint32_t r[8];
@@ -124,7 +193,8 @@ FM_HD int fm_inblock(const uint32_t r[8], int y, int c) {
 }
 
 // occ(pos, c) for one char
-FM_HD int64_t fm_occ_one(const FmView &f, int64_t pos, int c) {
+template <class V>
+FM_HD int64_t fm_occ_one(const V &f, int64_t pos, int c) {
     const int64_t blk = pos >> 6;
     const int y = (int)(pos & 63);
     uint32_t r[8];
@@ -135,7 +205,8 @@ FM_HD int64_t fm_occ_one(const FmView &f, int64_t pos, int c) {
 }
 
 // backwardExt's arithmetic from occ(k, .) = sp and occ(k + s, .) = ep
-FM_HD void fm_ext_combine(const FmView &f, int64_t k, int64_t l, int64_t s,
+template <class V>
+FM_HD void fm_ext_combine(const V &f, int64_t k, int64_t l, int64_t s,
                           int a, const int64_t sp[4], const int64_t ep[4],
                           int64_t *ko, int64_t *lo, int64_t *so) {
     // every char's value is formed first and then picked by a select on
@@ -153,7 +224,8 @@ FM_HD void fm_ext_combine(const FmView &f, int64_t k, int64_t l, int64_t s,
 }
 
 // backwardExt: (k', l', s') of (k, l, s) extended by char a; two row reads
-FM_HD void fm_backward_ext(const FmView &f, int64_t k, int64_t l, int64_t s,
+template <class V>
+FM_HD void fm_backward_ext(const V &f, int64_t k, int64_t l, int64_t s,
                            int a, int64_t *ko, int64_t *lo, int64_t *so) {
     int64_t sp[4], ep[4];
     fm_occ4(f, k, sp);
@@ -165,7 +237,8 @@ FM_HD void fm_backward_ext(const FmView &f, int64_t k, int64_t l, int64_t s,
 // backward by the base a (0..3), tracking no RC-twin bound: k' = C[a] +
 // occ(k, a), s' = occ(k + s, a) - occ(k, a).  Two row reads
 // (bwamem2_tpu/ops/device_index.py:lf_step).
-FM_HD void fm_lf_step(const FmView &f, int64_t k, int64_t s, int a,
+template <class V>
+FM_HD void fm_lf_step(const V &f, int64_t k, int64_t s, int a,
                       int64_t *ko, int64_t *so) {
     const int64_t sp = fm_occ_one(f, k, a);
     *ko = fm_count(f, a) + sp;
@@ -181,7 +254,8 @@ FM_HD void fm_lf_step(const FmView &f, int64_t k, int64_t s, int a,
 // row (codes 0..4), `len` its length.  Returns the LF steps taken (the
 // last one is the step that emptied the interval, if any).
 // bwamem2_tpu/ops/smem.py:_round1_walk at lut_k = 0.
-FM_HD int fm_round1_walk(const FmView &f, const int8_t *row, int len, int n,
+template <class V>
+FM_HD int fm_round1_walk(const V &f, const int8_t *row, int len, int n,
                          int *bo, int64_t *ko, int64_t *so) {
     const int a0 = row[n];
     const bool valid = (unsigned)a0 < 4u && n < len;
@@ -208,7 +282,8 @@ FM_HD int fm_round1_walk(const FmView &f, const int8_t *row, int len, int n,
 // (BWT char at pos (4 = sentinel), occ(pos, stored code)) from pos's row
 // r (and its hi word).  The code word is taken from the row's two 64-bit
 // halves by a select and a shift, never by a run-time index into r.
-FM_HD int fm_char_occ_row(const FmView &f, const uint32_t r[8], uint32_t hi,
+template <class V>
+FM_HD int fm_char_occ_row(const V &f, const uint32_t r[8], uint32_t hi,
                           int64_t pos, int64_t *occ) {
     const int y = (int)(pos & 63);
     const uint64_t half = (y & 32) ? ((uint64_t)r[7] << 32 | r[6])
@@ -226,4 +301,31 @@ FM_HD int fm_char_occ_row(const FmView &f, const uint32_t r[8], uint32_t hi,
 // negative value is undefined in C++17).
 FM_HD int64_t fm_sa_value(int ms, uint32_t ls, int64_t off) {
     return (int64_t)ms * 4294967296LL + (int64_t)ls + off;
+}
+
+// The index as a launcher receives it from ops/seed_cuda.py:fm_table, one
+// int64 array: [shards, has_hi, sentinel, counts[5], rows, sa_rows,
+// occp[8], occ_hi[8], sa_ms[8], sa_ls[8]] (pointers as integers; shards 1
+// is the replicated index, whose tables are entry 0 of each list).
+#define FM_TAB_LEN 42
+
+inline FmView fm_view_of(const int64_t *t) {
+    return FmView{(const int32_t *)t[10], (const int32_t *)t[18],
+                  {t[3], t[4], t[5], t[6], t[7]}, t[2], (int)t[1]};
+}
+
+inline FmShardView fm_shard_view_of(const int64_t *t) {
+    FmShardView f;
+    for (int i = 0; i < FM_MAX_SHARDS; ++i) {
+        f.occp[i] = (const int32_t *)t[10 + i];
+        f.occ_hi[i] = (const int32_t *)t[18 + i];
+        f.sa_ms[i] = (const int8_t *)t[26 + i];
+        f.sa_ls[i] = (const uint32_t *)t[34 + i];
+    }
+    for (int c = 0; c < 5; ++c) f.counts[c] = t[3 + c];
+    f.sentinel = t[2];
+    f.has_hi = (int)t[1];
+    f.rows = (uint32_t)t[8];
+    f.sa_rows = (uint32_t)t[9];
+    return f;
 }

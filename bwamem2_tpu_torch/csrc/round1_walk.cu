@@ -38,7 +38,10 @@
 // end early per lane; here a lane ends when its walk does, and what that
 // costs is warp divergence: a warp runs as long as its longest walk.
 // Counts and row words are picked by selects (fm_occ.cuh), so nothing is
-// indexed at run time and the kernel needs no stack frame.
+// indexed at run time and the kernel needs no stack frame.  A second
+// instantiation reads the index through FmShardView (the occ rows split
+// by row range over cards, fm_occ.cuh); the launcher takes the index as
+// fm_occ.cuh's table and picks the instantiation from its shard count.
 
 #include <cuda_runtime.h>
 
@@ -48,8 +51,10 @@
 
 namespace {
 
+template <int SHARDED>
 __global__ void __launch_bounds__(R1_THREADS)
-round1_walk_kernel(const FmView f, const int8_t *__restrict__ enc,
+round1_walk_kernel(const typename FmViewOf<SHARDED>::type f,
+                   const int8_t *__restrict__ enc,
                    const int *__restrict__ lens, int64_t total, int L,
                    int *__restrict__ b, int64_t *__restrict__ k,
                    int64_t *__restrict__ s) {
@@ -68,21 +73,20 @@ round1_walk_kernel(const FmView f, const int8_t *__restrict__ enc,
 }  // namespace
 
 // Launch on `stream` (PyTorch's current stream); returns
-// cudaGetLastError() of the launch.  counts: int64[5] on the host; enc
-// int8[N, L] (codes 0..4), lens int32[N]; b int32[N, L], k and s
-// int64[N, L].
-extern "C" int round1_walk_launch(const int32_t *occp, const int32_t *occ_hi,
-                                  int has_hi, const int64_t *counts,
-                                  int64_t sentinel, const int8_t *enc,
+// cudaGetLastError() of the launch.  fm: the index as fm_occ.cuh's table
+// (host memory); enc int8[N, L] (codes 0..4), lens int32[N]; b int32[N,
+// L], k and s int64[N, L].
+extern "C" int round1_walk_launch(const int64_t *fm, const int8_t *enc,
                                   const int *lens, int N, int L, int *b,
                                   int64_t *k, int64_t *s, void *stream) {
-    const FmView f{occp, occ_hi, {counts[0], counts[1], counts[2],
-                                  counts[3], counts[4]},
-                   sentinel, has_hi};
     const int64_t total = (int64_t)N * L;
-    const int64_t blocks = (total + R1_THREADS - 1) / R1_THREADS;
-    round1_walk_kernel<<<(unsigned)blocks, R1_THREADS, 0,
-                         (cudaStream_t)stream>>>(f, enc, lens, total, L, b,
-                                                  k, s);
+    const unsigned blocks = (unsigned)((total + R1_THREADS - 1) / R1_THREADS);
+    cudaStream_t st = (cudaStream_t)stream;
+    if (fm[0] == 1)
+        round1_walk_kernel<0><<<blocks, R1_THREADS, 0, st>>>(
+            fm_view_of(fm), enc, lens, total, L, b, k, s);
+    else
+        round1_walk_kernel<1><<<blocks, R1_THREADS, 0, st>>>(
+            fm_shard_view_of(fm), enc, lens, total, L, b, k, s);
     return (int)cudaGetLastError();
 }

@@ -57,14 +57,29 @@
 #define SA_ROW_HOOK()
 #endif
 
-struct SaBatch {
-    FmView f;
+// V: FmView (the SA tables are sa_ms / sa_ls) or FmShardView (they are
+// the view's shards, and sa_ms / sa_ls are unused)
+template <class V>
+struct SaBatchOf {
+    V f;
     const int8_t *sa_ms;
     const uint32_t *sa_ls;
     const int64_t *pos;     // [P] BWT positions, P < 2^31
     int64_t P;
     int64_t *out;           // [P] reference coordinates
 };
+using SaBatch = SaBatchOf<FmView>;
+
+// the SA words of sampled slot idx
+SA_D void sa_words(const SaBatchOf<FmView> &b, int64_t idx, int &ms,
+                   uint32_t &ls) {
+    ms = b.sa_ms[idx];
+    ls = b.sa_ls[idx];
+}
+SA_D void sa_words(const SaBatchOf<FmShardView> &b, int64_t idx, int &ms,
+                   uint32_t &ls) {
+    fm_sa_words(b.f, idx, &ms, &ls);
+}
 
 // One occ row as a walk holds it between its read and its use.
 struct SaRow {
@@ -158,8 +173,8 @@ struct SaWarp {
 // SA entry in one iteration and writes it in the next, after that
 // iteration's rows are issued.  A slot is busy for its walk's steps plus
 // two iterations.
-template <int W, class Wp>
-SA_D void sa_group_run(Wp &g, const SaBatch &b) {
+template <int W, class Wp, class V>
+SA_D void sa_group_run(Wp &g, const SaBatchOf<V> &b) {
     enum { SA_WALK, SA_NEW, SA_DONE };   // slot states
     // per slot: the position's index (< 0: empty), state, position on the
     // walk and steps so far, its row between read and use, and its SA
@@ -271,8 +286,7 @@ SA_D void sa_group_run(Wp &g, const SaBatch &b) {
                     return;
                 }
                 st[w](l) = SA_DONE;
-                ms[w](l) = b.sa_ms[sp[w](l) >> 3];
-                ls[w](l) = b.sa_ls[sp[w](l) >> 3];
+                sa_words(b, sp[w](l) >> 3, ms[w](l), ls[w](l));
             });
         }
     }

@@ -35,6 +35,13 @@
 // launch (~106 steps among 1.4 million positions) is a chain of dependent
 // row reads that no schedule shortens.  The wrapper chooses W and the
 // block size (SaResolve.shape_for).
+//
+// Sharded index.  Each kernel is instantiated twice: over FmView (the
+// replicated index, the code above) and over FmShardView (the occ rows and
+// SA words split by row range over cards, fm_occ.cuh), where each row and
+// SA read picks its shard and may be a peer load over NVLink; the walks
+// and the bound are the same.  The launcher takes the index as
+// fm_occ.cuh's table and picks the instantiation from its shard count.
 
 #include <cuda_runtime.h>
 
@@ -44,9 +51,10 @@
 
 namespace {
 
-template <int W>
+template <int W, int SHARDED>
 __global__ void __launch_bounds__(SA_MAX_THREADS)
-sa_resolve_kernel(const SaBatch b, unsigned long long *next) {
+sa_resolve_kernel(const SaBatchOf<typename FmViewOf<SHARDED>::type> b,
+                  unsigned long long *next) {
     SaWarp g(next);
     sa_group_run<W>(g, b);
 }
@@ -57,7 +65,7 @@ sa_resolve_kernel(const SaBatch b, unsigned long long *next) {
 // 42,598 to 1,736,470 positions, L2- and DRAM-resident (PERF.md).
 #define SA_WALKS(X) X(1)
 
-template <int W>
+template <int W, int SHARDED>
 int sa_resident_of(int threads, int *blocks) {
     int dev = 0, nsm = 0, per_sm = 0;
     cudaError_t err = cudaGetDevice(&dev);
@@ -66,24 +74,43 @@ int sa_resident_of(int threads, int *blocks) {
                                      dev);
     if (!err)
         err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-            &per_sm, sa_resolve_kernel<W>, threads, 0);
+            &per_sm, sa_resolve_kernel<W, SHARDED>, threads, 0);
     if (err) return (int)err;
     *blocks = (per_sm < 1 ? 1 : per_sm) * nsm;
     return 0;
 }
 
+template <int SHARDED>
+int sa_launch(const SaBatchOf<typename FmViewOf<SHARDED>::type> &b, int W,
+              int blocks, int threads, unsigned long long *next,
+              cudaStream_t st) {
+#define SA_LAUNCH(WW)                                                     \
+    if (W == WW) {                                                        \
+        sa_resolve_kernel<WW, SHARDED><<<blocks, threads, 0, st>>>(b,     \
+                                                                   next); \
+        return (int)cudaGetLastError();                                   \
+    }
+    SA_WALKS(SA_LAUNCH)
+#undef SA_LAUNCH
+    return (int)cudaErrorInvalidValue;
+}
+
 }  // namespace
 
 // The blocks of `threads` threads that the current device holds at once at
-// W walks per lane (the occupancy API x SMs): the persistent grid, which
-// the wrapper cuts to the blocks the positions fill.  A CUDA error code
-// (cudaErrorInvalidValue for a W that is not instantiated or a block that
-// is not whole warps of at most SA_MAX_THREADS).
-extern "C" int sa_resolve_resident(int W, int threads, int *blocks) {
+// W walks per lane over the replicated (sharded 0) or sharded (1) index
+// (the occupancy API x SMs): the persistent grid, which the wrapper cuts to
+// the blocks the positions fill.  A CUDA error code (cudaErrorInvalidValue
+// for a W that is not instantiated or a block that is not whole warps of
+// at most SA_MAX_THREADS).
+extern "C" int sa_resolve_resident(int W, int sharded, int threads,
+                                   int *blocks) {
     if (threads < 32 || threads > SA_MAX_THREADS || threads % 32)
         return (int)cudaErrorInvalidValue;
-#define SA_RESIDENT(WW) \
-    if (W == WW) return sa_resident_of<WW>(threads, blocks);
+#define SA_RESIDENT(WW)                                                   \
+    if (W == WW)                                                          \
+        return sharded ? sa_resident_of<WW, 1>(threads, blocks)           \
+                       : sa_resident_of<WW, 0>(threads, blocks);
     SA_WALKS(SA_RESIDENT)
 #undef SA_RESIDENT
     return (int)cudaErrorInvalidValue;
@@ -92,28 +119,20 @@ extern "C" int sa_resolve_resident(int W, int threads, int *blocks) {
 // Launch `blocks` blocks on `stream` (PyTorch's current stream) after
 // zeroing the ticket counter `next` there; returns a CUDA error code
 // (cudaGetLastError() of the launch, or cudaErrorInvalidValue for a W that
-// is not instantiated).  counts: int64[5] on the host; pos and out
-// int64[P].
-extern "C" int sa_resolve_launch(const int32_t *occp, const int32_t *occ_hi,
-                                 int has_hi, const int64_t *counts,
-                                 int64_t sentinel, const int8_t *sa_ms,
-                                 const uint32_t *sa_ls, const int64_t *pos,
+// is not instantiated).  fm: the index as fm_occ.cuh's table (host
+// memory); pos and out int64[P].
+extern "C" int sa_resolve_launch(const int64_t *fm, const int64_t *pos,
                                  int64_t P, int64_t *out, int W, int blocks,
                                  int threads, unsigned long long *next,
                                  void *stream) {
-    const SaBatch b{FmView{occp, occ_hi, {counts[0], counts[1], counts[2],
-                                          counts[3], counts[4]},
-                           sentinel, has_hi},
-                    sa_ms, sa_ls, pos, P, out};
     cudaStream_t st = (cudaStream_t)stream;
     cudaError_t err = cudaMemsetAsync(next, 0, sizeof *next, st);
     if (err) return (int)err;
-#define SA_LAUNCH(WW)                                                     \
-    if (W == WW) {                                                        \
-        sa_resolve_kernel<WW><<<blocks, threads, 0, st>>>(b, next);       \
-        return (int)cudaGetLastError();                                   \
-    }
-    SA_WALKS(SA_LAUNCH)
-#undef SA_LAUNCH
-    return (int)cudaErrorInvalidValue;
+    if (fm[0] == 1)
+        return sa_launch<0>(SaBatch{fm_view_of(fm), (const int8_t *)fm[26],
+                                    (const uint32_t *)fm[34], pos, P, out},
+                            W, blocks, threads, next, st);
+    return sa_launch<1>(SaBatchOf<FmShardView>{fm_shard_view_of(fm),
+                                               nullptr, nullptr, pos, P, out},
+                        W, blocks, threads, next, st);
 }

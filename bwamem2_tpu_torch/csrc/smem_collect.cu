@@ -112,25 +112,25 @@ extern "C" int smem_collect_plan(int G, int lcap, int *plan) {
 }
 
 // Launch on `stream` (PyTorch's current stream); returns a CUDA error code
-// (the plan's, or cudaGetLastError() of the launch).  counts: int64[5] on
-// the host.  order: int32[N], the reads in the order the groups take them;
+// (the plan's, or cudaGetLastError() of the launch; cudaErrorInvalidValue
+// for a sharded index, which seeds through the per-stage kernels).  fm:
+// the index as fm_occ.cuh's table (host memory).  order: int32[N], the
+// reads in the order the groups take them;
 // slot_off: int64[N + 1]; outputs: m, n int32 and k, s int64 of
 // slot_off[N] slots, cnt int32[N], nbwd int64[N]; next: an int32 zero.
 extern "C" int smem_collect_launch(
-    const int32_t *occp, const int32_t *occ_hi, int has_hi,
-    const int64_t *counts, int64_t sentinel, const int8_t *enc,
+    const int64_t *fm, const int8_t *enc,
     const int *lens, const int *order, const int64_t *slot_off, int N, int L,
     int min_seed_len, int split_len, int64_t split_width,
     int64_t max_mem_intv, int G, int lcap, int32_t *out_m, int32_t *out_n,
     int64_t *out_k, int64_t *out_s, int *out_cnt, int64_t *out_nbwd,
     int *next, void *stream) {
+    if (fm[0] != 1) return (int)cudaErrorInvalidValue;
     int plan[3];
     const int err = smem_collect_plan(G, lcap, plan);
     if (err) return err;
     const SmemBatch b{
-        FmView{occp, occ_hi, {counts[0], counts[1], counts[2], counts[3],
-                              counts[4]}, sentinel, has_hi},
-        enc, lens, order, slot_off, N, L,
+        fm_view_of(fm), enc, lens, order, slot_off, N, L,
         SmemParams{min_seed_len, split_len, split_width, max_mem_intv},
         out_m, out_n, out_k, out_s, out_cnt, out_nbwd};
     const int blocks = plan[0] < (N + SMEM_GROUPS_PER_BLOCK - 1)

@@ -15,6 +15,18 @@ def round_up(n: int, m: int) -> int:
     return ((n + m - 1) // m) * m
 
 
+def bucket_pow2(n: int, lo: int = 256) -> int:
+    """Smallest bucket >= max(n, lo) from {lo, 1.5lo, 2lo, 3lo, 4lo, ...}:
+    the lane counts of the per-stage seeding (ops/backend.py), as the JAX
+    package buckets them (there to bound its compiles)."""
+    b = lo
+    while b < n:
+        if b + (b >> 1) >= n:
+            return b + (b >> 1)
+        b <<= 1
+    return b
+
+
 def resolve_device(device=None) -> torch.device:
     """The device an entry point runs on: "cuda" unless the caller asks
     for "cpu".  Asking for CUDA without a usable card raises: there is no

@@ -88,10 +88,16 @@ def launch_tally(counts: dict | None) -> None:
     _tally.counts = counts
 
 
+def current_tally() -> dict | None:
+    """The tally this thread's launches go to (launch_tally)."""
+    return getattr(_tally, "counts", None)
+
+
 class CudaKernel:
     """Base of a kernel wrapper.  Subclasses set NAME, SOURCES and
     SIGNATURE = (C function name, argtypes of every parameter, the stream
-    last); the C function returns cudaGetLastError() of its launch.  A
+    last), and ENTRIES, the kernel's other launchers {C function name:
+    argtypes}; a launcher returns cudaGetLastError() of its launch.  A
     parameter without its argtype goes as a C int, so a pointer (the
     stream) past the sixth argument would reach the launcher with its high
     half undefined."""
@@ -99,6 +105,7 @@ class CudaKernel:
     NAME: str = ""
     SOURCES: tuple[str, ...] = ()
     SIGNATURE: tuple[str, list] = ("", [])
+    ENTRIES: dict[str, list] = {}
 
     def __init__(self):
         self.launches = 0
@@ -112,9 +119,11 @@ class CudaKernel:
             if self._lib is None:
                 path, self.build_log = build_library(self.NAME, self.SOURCES)
                 lib = ctypes.CDLL(path)
-                fn = getattr(lib, self.SIGNATURE[0])
-                fn.restype = I32
-                fn.argtypes = self.SIGNATURE[1]
+                for name, argtypes in ((self.SIGNATURE,)
+                                       + tuple(self.ENTRIES.items())):
+                    fn = getattr(lib, name)
+                    fn.restype = I32
+                    fn.argtypes = argtypes
                 self._lib = lib
         return self._lib
 
@@ -131,12 +140,14 @@ class CudaKernel:
         with self._lock:
             self.plain_calls += 1
 
-    def _launch(self, dev, *args) -> None:
-        """Call the C launcher on PyTorch's current stream of `dev`, raise
-        on a refused launch, count it."""
+    def _launch(self, dev, *args, entry: str | None = None) -> None:
+        """Call the C launcher (SIGNATURE's, or the entry of ENTRIES named)
+        on PyTorch's current stream of `dev`, raise on a refused launch,
+        count it."""
         with torch.cuda.device(dev):
             stream = torch.cuda.current_stream(dev).cuda_stream
-            err = getattr(self.lib(), self.SIGNATURE[0])(*args, stream)
+            err = getattr(self.lib(), entry or self.SIGNATURE[0])(*args,
+                                                                 stream)
         if err:
             raise RuntimeError(f"{self.NAME} launch failed: CUDA error {err}")
         with self._lock:     # pipeline workers launch from several threads

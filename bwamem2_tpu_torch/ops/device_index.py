@@ -32,6 +32,13 @@ and backwardExt (FMI_search.cpp:1025-1052) exactly, with 64-bit counts.
 The sentinel's slot stores code 0; occ() subtracts the phantom 'A' when
 the sentinel falls inside the counted prefix of its block.
 
+Sharded index (the genome buckets of parallel/shard_index.py): occp,
+occ_hi (where has_hi), sa_ms and sa_ls split into D contiguous row ranges
+of equal length (the last padded with zero rows), one per card; counts,
+sentinel and ref replicated.  Such an index has `shards` set and its own
+occp / occ_hi / sa_ms / sa_ls unset, and every row fetch of the plain
+primitives goes through dist_rows_ref.
+
 The functions below are the plain PyTorch versions of the `__host__
 __device__` primitives in csrc/fm_occ.cuh.  torch on the CPU has no
 popcount and no unsigned 32-bit arithmetic, so they compute in int64 with
@@ -107,6 +114,20 @@ def pack_ref(ref_string: np.ndarray) -> tuple[np.ndarray, bool]:
 
 
 @dataclass
+class FmShards:
+    """The occ and SA tables split by contiguous row range: table[i] holds
+    rows [i * rows, (i + 1) * rows) of occp / occ_hi (sa_rows for sa_ms /
+    sa_ls), each on its shard's device; occ_hi is None without has_hi."""
+    occp: list
+    occ_hi: list | None
+    sa_ms: list
+    sa_ls: list
+    rows: int
+    sa_rows: int
+    nblocks: int      # occ rows of the whole table
+
+
+@dataclass
 class DeviceFMIndex:
     ref: torch.Tensor         # uint8[2*l_pac], or 2-bit packed (ref_packed)
     ref_packed: bool
@@ -119,6 +140,13 @@ class DeviceFMIndex:
     sa_ls: torch.Tensor | None = None     # int32 bits of uint32 values
     sentinel: torch.Tensor | None = None  # int64 0-d
     has_hi: bool = False
+    shards: FmShards | None = None        # set: the tables are split
+
+    @property
+    def nblocks(self) -> int:
+        """Rows of the occ table (64 BWT positions each)."""
+        return (self.occp.shape[0] if self.shards is None
+                else self.shards.nblocks)
 
     # pack the doubled genome 4 chars/byte above this (2*l_pac): at human
     # scale the u8 genome alone is 6.2 GB; packed it is 1.55 GB
@@ -176,14 +204,48 @@ def take_counts(counts: torch.Tensor, a: torch.Tensor, base: int = 0
     return counts[a.long() + base]
 
 
+def dist_rows_ref(shards: list, ids: torch.Tensor) -> torch.Tensor:
+    """Rows `ids` (int64, global row ids) of a table split by contiguous
+    row range into equal shards, on ids' device: each shard contributes
+    the rows whose ids fall in its range and zeros elsewhere, and the
+    contributions are summed (bwamem2_tpu/ops/device_index.py:_dist_rows,
+    whose all_gather / local gather / psum_scatter compute the same)."""
+    n = shards[0].shape[0]
+    out = None
+    for i, tab in enumerate(shards):
+        loc = ids.to(tab.device) - i * n
+        inr = (loc >= 0) & (loc < n)
+        rows = tab[loc.clamp(0, n - 1)]
+        inr = inr.reshape(inr.shape + (1,) * (rows.dim() - inr.dim()))
+        rows = torch.where(inr, rows, 0).to(ids.device)
+        out = rows if out is None else out + rows
+    return out
+
+
+def occ_rows(dfm: DeviceFMIndex, blk: torch.Tensor):
+    """(occp rows int32 [..., 8], occ_hi words [...] or None) of the
+    blocks `blk` (int64), from the shards when the index is split."""
+    sh = dfm.shards
+    if sh is None:
+        return dfm.occp[blk], (dfm.occ_hi[blk] if dfm.has_hi else None)
+    return (dist_rows_ref(sh.occp, blk),
+            dist_rows_ref(sh.occ_hi, blk) if dfm.has_hi else None)
+
+
+def sa_words(dfm: DeviceFMIndex, idx: torch.Tensor):
+    """(sa_ms, sa_ls) words of the sampled slots `idx` (int64)."""
+    sh = dfm.shards
+    if sh is None:
+        return dfm.sa_ms[idx], dfm.sa_ls[idx]
+    return dist_rows_ref(sh.sa_ms, idx), dist_rows_ref(sh.sa_ls, idx)
+
+
 def _row(dfm: DeviceFMIndex, pos: torch.Tensor):
     """The packed row of each position's block as int64 words in
     [0, 2^32): (row [..., 8], y [...], hi [...] or None)."""
-    blk = pos >> 6
-    y = pos & 63
-    row = dfm.occp[blk].long() & _M32
-    hi = dfm.occ_hi[blk].long() & _M32 if dfm.has_hi else None
-    return row, y, hi
+    row, hi = occ_rows(dfm, pos >> 6)
+    return (row.long() & _M32, pos & 63,
+            hi.long() & _M32 if hi is not None else None)
 
 
 def _prefix_masks(y: torch.Tensor) -> torch.Tensor:

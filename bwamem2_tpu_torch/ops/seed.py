@@ -35,7 +35,8 @@ import numpy as np
 import torch
 
 from ..utils.profiling import PROF
-from .device_index import DeviceFMIndex, backward_ext_full, bwt_char_occ
+from .device_index import (DeviceFMIndex, backward_ext_full, bwt_char_occ,
+                           sa_words)
 from .seed_cuda import SaResolve, SmemCollect
 
 I64 = torch.int64
@@ -326,9 +327,8 @@ def sa_resolve_ref(dfm: DeviceFMIndex, pos: torch.Tensor,
         done = done | hit | (step & ((sp & 7) == 0))
     if row_reads is not None:
         row_reads.append(int(off.sum()) + int(sent.sum()))
-    idx = sp >> 3
-    sa = dfm.sa_ms[idx].long() * (1 << 32) + (dfm.sa_ls[idx].long()
-                                               & 0xFFFFFFFF)
+    ms, ls = sa_words(dfm, sp >> 3)
+    sa = ms.long() * (1 << 32) + (ls.long() & 0xFFFFFFFF)
     return torch.where(sent, off, sa + off)
 
 

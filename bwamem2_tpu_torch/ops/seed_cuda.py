@@ -1,5 +1,6 @@
 """ctypes bindings of the seeding kernels: csrc/smem_collect.cu (with
-csrc/smem_group.cuh) and csrc/sa_resolve.cu (built by ops/cuda_build.py).
+csrc/smem_group.cuh) and csrc/sa_resolve.cu (built by ops/cuda_build.py),
+and the index table every seeding and SA launcher takes (fm_table).
 
 Each class is a wrapper: on CPU tensors it runs the plain PyTorch version
 it was given (ops/seed.py), on CUDA tensors it launches the kernel or
@@ -15,24 +16,64 @@ import torch
 from .cuda_build import I32, I64, VP, CudaKernel, check_tensors
 
 
-def _fm_args(dfm) -> list:
-    """The FmView arguments of a launcher: occp, occ_hi, has_hi, counts
-    (host int64[5]), sentinel.  The scalars are read from the device once
-    per index and kept on it."""
-    host = getattr(dfm, "_host_scalars", None)
-    if host is None:
-        host = ((I64 * 5)(*dfm.counts.cpu().tolist()), int(dfm.sentinel))
-        dfm._host_scalars = host
-    return [dfm.occp.data_ptr(), dfm.occ_hi.data_ptr(), int(dfm.has_hi),
-            host[0], host[1]]
+MAX_SHARDS = 8      # csrc/fm_occ.cuh:FM_MAX_SHARDS
+FM_TAB_LEN = 42     # csrc/fm_occ.cuh:FM_TAB_LEN
+
+
+def fm_table(dfm) -> ctypes.Array:
+    """The index as the seeding and SA launchers take it (csrc/fm_occ.cuh:
+    fm_view_of, fm_shard_view_of), a host int64 array: [shards, has_hi,
+    sentinel, counts[5], occ rows per shard, SA slots per shard, occp[8],
+    occ_hi[8], sa_ms[8], sa_ls[8]] (device pointers; 0 where unused).  The
+    replicated index is one shard.  Built once per index (the counts and
+    sentinel are read from the device then)."""
+    tab = getattr(dfm, "_fm_table", None)
+    if tab is not None:
+        return tab
+    counts, sentinel = dfm.counts.cpu().tolist(), int(dfm.sentinel)
+    sh = dfm.shards
+    if sh is None:
+        n, rows, sa_rows = 1, dfm.occp.shape[0], dfm.sa_ms.shape[0]
+        lists = ([dfm.occp], [dfm.occ_hi] if dfm.has_hi else [],
+                 [dfm.sa_ms], [dfm.sa_ls])
+    else:
+        n, rows, sa_rows = len(sh.occp), sh.rows, sh.sa_rows
+        lists = (sh.occp, sh.occ_hi or [], sh.sa_ms, sh.sa_ls)
+    if n > MAX_SHARDS or rows >= 1 << 32 or sa_rows >= 1 << 32:
+        raise ValueError(f"index of {n} shards of {rows} occ rows and "
+                         f"{sa_rows} SA slots: the kernels take at most "
+                         f"{MAX_SHARDS} shards of fewer than 2^32")
+    ptrs = []
+    for lst in lists:
+        p = [t.data_ptr() for t in lst]
+        ptrs += p + [0] * (MAX_SHARDS - len(p))
+    tab = (I64 * FM_TAB_LEN)(n, int(dfm.has_hi), sentinel, *counts, rows,
+                             sa_rows, *ptrs)
+    dfm._fm_table = tab
+    return tab
 
 
 def _check_index(kernel: str, dfm, dev) -> None:
-    check_tensors(kernel, dev, occp=(dfm.occp, torch.int32, 2),
-                  occ_hi=(dfm.occ_hi, torch.int32, 1))
-    if dfm.occp.shape[1] != 8 or dfm.occp.data_ptr() % 16:
-        raise ValueError(f"{kernel}: occp must be 16-byte aligned int32[nb, "
-                         f"8], got {tuple(dfm.occp.shape)}")
+    """Raise unless the index's occ tables are int32 rows of 8 words
+    aligned to 16 bytes, on `dev` (the replicated index) or each on a
+    card (a sharded one: shards may lie on other cards)."""
+    sh = dfm.shards
+    if sh is None:
+        check_tensors(kernel, dev, occp=(dfm.occp, torch.int32, 2),
+                      occ_hi=(dfm.occ_hi, torch.int32, 1))
+        tabs = [dfm.occp]
+    else:
+        tabs = list(sh.occp)
+        for i, t in enumerate(sh.occp + (sh.occ_hi or []) + sh.sa_ms
+                              + sh.sa_ls):
+            if t.device.type != "cuda" or not t.is_contiguous():
+                raise ValueError(f"{kernel}: shard table {i} is not a "
+                                 f"contiguous CUDA tensor ({t.device})")
+    for t in tabs:
+        if t.dtype != torch.int32 or t.dim() != 2 or t.shape[1] != 8 \
+                or t.data_ptr() % 16:
+            raise ValueError(f"{kernel}: occp must be 16-byte aligned "
+                             f"int32[nb, 8], got {tuple(t.shape)} {t.dtype}")
 
 
 class SmemCollect(CudaKernel):
@@ -46,8 +87,8 @@ class SmemCollect(CudaKernel):
     NAME = "smem_collect"
     SOURCES = ("smem_collect.cu", "smem_group.cuh", "fm_occ.cuh")
     SIGNATURE = ("smem_collect_launch",
-                 [VP, VP, I32, VP, I64, VP, VP, VP, VP, I32, I32, I32, I32,
-                  I64, I64, I32, I32] + [VP] * 7 + [VP])
+                 [VP, VP, VP, VP, VP, I32, I32, I32, I32, I64, I64, I32, I32]
+                 + [VP] * 7 + [VP])
     LANES = (16, 32)        # the lane widths smem_collect.cu instantiates
 
     def __init__(self, plain):
@@ -100,6 +141,10 @@ class SmemCollect(CudaKernel):
         if dev.type != "cuda":
             raise ValueError(f"smem_collect kernel needs CUDA tensors, got "
                              f"{dev}")
+        if dfm.shards is not None:
+            raise ValueError("smem_collect reads a replicated index; a "
+                             "sharded one seeds through the per-stage "
+                             "kernels (ops/smem.py)")
         _check_index("smem_collect", dfm, dev)
         check_tensors("smem_collect", dev, enc=(enc, torch.int8, 2),
                       lens=(lens, torch.int32, 1),
@@ -124,7 +169,7 @@ class SmemCollect(CudaKernel):
         order = torch.argsort(lens, descending=True, stable=True).int()
         nxt = torch.zeros(1, dtype=torch.int32, device=dev)
         self._launch(
-            dev, *_fm_args(dfm), enc.data_ptr(), lens.data_ptr(),
+            dev, fm_table(dfm), enc.data_ptr(), lens.data_ptr(),
             order.data_ptr(), slot_off.data_ptr(), N, L, int(min_seed_len),
             int(split_len), int(split_width), int(max_mem_intv), lanes,
             int(lcap), m.data_ptr(), n.data_ptr(), k.data_ptr(),
@@ -141,8 +186,7 @@ class SaResolve(CudaKernel):
     NAME = "sa_resolve"
     SOURCES = ("sa_resolve.cu", "sa_group.cuh", "fm_occ.cuh")
     SIGNATURE = ("sa_resolve_launch",
-                 [VP, VP, I32, VP, I64, VP, VP, VP, I64, VP, I32, I32, I32,
-                  VP, VP])
+                 [VP, VP, I64, VP, I32, I32, I32, VP, VP])
     WALKS = (1,)            # the walks per lane sa_resolve.cu instantiates
 
     def __init__(self, plain):
@@ -159,14 +203,17 @@ class SaResolve(CudaKernel):
         chip_smoke.py's phases 5b and 5d time 128, 256 and 512 threads."""
         return 1, 256
 
-    def plan(self, W: int, threads: int, P: int, dev) -> int:
-        """Blocks of a launch at this shape on CUDA device `dev`: the
-        resident blocks (the occupancy API, asked once per device and
-        shape), or fewer where P positions fill fewer."""
-        key = (torch.device(dev).index, W, threads)
+    def plan(self, W: int, threads: int, P: int, dev,
+             sharded: bool = False) -> int:
+        """Blocks of a launch at this shape on CUDA device `dev` over the
+        replicated or the sharded index: the resident blocks (the
+        occupancy API, asked once per device and shape), or fewer where P
+        positions fill fewer."""
+        key = (torch.device(dev).index, W, threads, sharded)
         if key not in self._resident:
             blocks = I32()
-            err = self._query(dev, "sa_resolve_resident", [I32, I32, VP], W,
+            err = self._query(dev, "sa_resolve_resident",
+                              [I32, I32, I32, VP], W, int(sharded),
                               threads, ctypes.addressof(blocks))
             if err:
                 raise ValueError(f"sa_resolve: no launch of {threads} "
@@ -187,9 +234,10 @@ class SaResolve(CudaKernel):
             raise ValueError(f"sa_resolve kernel needs CUDA tensors, got "
                              f"{dev}")
         _check_index("sa_resolve", dfm, dev)
-        check_tensors("sa_resolve", dev, pos=(pos, torch.int64, 1),
-                      sa_ms=(dfm.sa_ms, torch.int8, 1),
-                      sa_ls=(dfm.sa_ls, torch.int32, 1))
+        check_tensors("sa_resolve", dev, pos=(pos, torch.int64, 1))
+        if dfm.shards is None:
+            check_tensors("sa_resolve", dev, sa_ms=(dfm.sa_ms, torch.int8, 1),
+                          sa_ls=(dfm.sa_ls, torch.int32, 1))
         P = pos.shape[0]
         if P >= 1 << 31:
             raise ValueError(f"sa_resolve: {P} positions, the kernel's "
@@ -200,7 +248,7 @@ class SaResolve(CudaKernel):
             return out[:0]
         W, threads = self.shape_for(P)
         ptr = out.data_ptr()
-        self._launch(dev, *_fm_args(dfm), dfm.sa_ms.data_ptr(),
-                     dfm.sa_ls.data_ptr(), pos.data_ptr(), P, ptr, W,
-                     self.plan(W, threads, P, dev), threads, ptr + 8 * P)
+        self._launch(dev, fm_table(dfm), pos.data_ptr(), P, ptr, W,
+                     self.plan(W, threads, P, dev, dfm.shards is not None),
+                     threads, ptr + 8 * P)
         return out[:P]

@@ -113,6 +113,24 @@ def run_pipeline(aligner, ks1: FastxReader, ks2: FastxReader | None,
     q_in: queue.Queue = queue.Queue(maxsize=max(pipeline_depth, n_workers))
     done = object()
     skip = resume.n_done if resume is not None else 0
+    nw = max(n_workers, 1)
+    results: dict[int, list] = {}
+    res_lock = threading.Condition()
+    n_done_workers = [0]
+    worker_err: list = []
+    # set once the run fails: the reader stops putting chunks (nothing may
+    # take them any more) and closes its inputs
+    cancel = threading.Event()
+
+    def put(item) -> bool:
+        """q_in.put unless the run is cancelled first; False if it was."""
+        while not cancel.is_set():
+            try:
+                q_in.put(item, timeout=0.05)
+                return True
+            except queue.Full:
+                pass
+        return False
 
     def reader():
         n = 0
@@ -129,7 +147,8 @@ def run_pipeline(aligner, ks1: FastxReader, ks2: FastxReader | None,
                 if not copy_comment:
                     for r in reads:
                         r.comment = None
-                q_in.put((idx, n, reads))
+                if not put((idx, n, reads)):
+                    break
                 idx += 1
                 n += len(reads)
         except BaseException as e:   # propagate instead of hanging the run
@@ -137,14 +156,13 @@ def run_pipeline(aligner, ks1: FastxReader, ks2: FastxReader | None,
                 worker_err.append(e)
                 res_lock.notify_all()
         finally:
-            for _ in range(max(n_workers, 1)):
-                q_in.put(done)
-
-    results: dict[int, list] = {}
-    res_lock = threading.Condition()
-    n_done_workers = [0]
-
-    worker_err: list = []
+            for _ in range(nw):
+                if not put(done):
+                    break
+            if cancel.is_set():
+                for ks in (ks1, ks2):
+                    if ks is not None:
+                        ks.close()
 
     # Serialize each aligner's FIRST-EVER chunk: concurrent first-use
     # compiles from several worker threads (multiple device-pinned
@@ -195,7 +213,6 @@ def run_pipeline(aligner, ks1: FastxReader, ks2: FastxReader | None,
 
     t = threading.Thread(target=reader, daemon=True)
     t.start()
-    nw = max(n_workers, 1)
     workers = [threading.Thread(target=worker, daemon=True)
                for _ in range(nw)]
     for w in workers:
@@ -209,6 +226,8 @@ def run_pipeline(aligner, ks1: FastxReader, ks2: FastxReader | None,
                    and not worker_err):
                 res_lock.wait()
             if worker_err:
+                cancel.set()
+                t.join(timeout=5)
                 raise worker_err[0]
             if next_idx not in results:
                 break  # all workers done and nothing pending

@@ -1,9 +1,11 @@
 """Time parallel/mesh.py:sharded_seed_extend over one card and over every
 visible card on the same batch, to show whether the data-parallel step
-spreads its work over the cards.
+spreads its work over the cards; and the same step and `mem` over an
+index sharded over the cards (parallel/shard_index.py) beside the
+replicated ones.
 
     python bwamem2_tpu_torch/tools/mesh_probe.py [--reads 60000]
-        [--reps 5] [--data DIR]
+        [--reps 5] [--data DIR] [--mem-pairs 10000]
 
 Makes or reuses the benchdata genome of scale 0.25 (11.7 Mbp) with enough
 2x150 pairs under --data (default .tmp/bench_scale0.25), takes --reads of
@@ -15,10 +17,19 @@ also builds the kernels:
   serial: the same slices' seed_extend_step run one card after another
           from one thread (what a loop over the cards does: each step
           waits on its card between stages, so card i+1 starts late).
-All three are held equal (the five outputs), and the index's replication
-onto the cards is timed on its own.  Prints one JSON line: the card with
-its power limit, the card count, the reads and each wall time (the median
-of --reps, seconds, host clock).
+  sharded: parallel/shard_index.py:sharded_seed_extend_sharded_index
+          over every card (the index split into one shard per card, made
+          anew each call as in the JAX package, and the batch split);
+All four are held equal (the five outputs), and the index's replication
+and its sharding onto the cards are timed on their own.  Then `mem` PE on
+the first --mem-pairs pairs at -K 2,250,000 through the CLI entry, once
+with one backend per card (the replicated index) and once with
+BWAMEM2_TPU_SHARD_INDEX set (one backend over an index sharded over every
+card), each once to warm up and then timed; their SAM must be equal.
+Prints one JSON line: the card with its power limit, the card count, the
+reads, each wall time (the median of --reps for the step, one run for
+mem; seconds, host clock) and the bytes of index tables each card holds
+in either layout.
 """
 
 from __future__ import annotations
@@ -40,6 +51,7 @@ def main() -> None:
     ap.add_argument("--reads", type=int, default=60_000)
     ap.add_argument("--reps", type=int, default=5)
     ap.add_argument("--data", default=None)
+    ap.add_argument("--mem-pairs", type=int, default=10_000)
     a = ap.parse_args()
     sys.path.insert(0, REPO)
     import numpy as np
@@ -56,6 +68,8 @@ def main() -> None:
     from bwamem2_tpu_torch.parallel.mesh import (make_mesh, replicate_index,
                                                  shard_batch,
                                                  sharded_seed_extend)
+    from bwamem2_tpu_torch.parallel.shard_index import (
+        shard_index, sharded_seed_extend_sharded_index, table_bytes)
     data = a.data or os.path.join(REPO, ".tmp", "bench_scale0.25")
     prefix, fq1, fq2 = benchdata.ensure(data, 0.25, (a.reads + 1) // 2)
     fm = FMIndex.load(prefix)
@@ -75,9 +89,12 @@ def main() -> None:
     runs = {"one": lambda: sharded_seed_extend(one, dfm, enc, lens),
             "all": lambda: sharded_seed_extend(every, dfm, enc, lens),
             "serial": serial,
-            "replicate": lambda: replicate_index(every, dfm)}
+            "sharded": lambda: sharded_seed_extend_sharded_index(
+                every, dfm, enc, lens),
+            "replicate": lambda: replicate_index(every, dfm),
+            "shard": lambda: shard_index(dfm, every)}
     want = runs["one"]()
-    for name in ("all", "serial"):
+    for name in ("all", "serial", "sharded"):
         for nm, x, y in zip(("b", "k", "s", "coords", "ext"), runs[name](),
                             want):
             if not np.array_equal(x, y):
@@ -94,13 +111,57 @@ def main() -> None:
                 torch.cuda.synchronize(d)
             ts.append(time.perf_counter() - t0)
         secs[name] = statistics.median(ts)
+    rep_bytes = {}
+    for d in replicate_index(every, dfm):
+        rep_bytes[str(d.device)] = sum(
+            t.numel() * t.element_size() for t in (
+                d.occp, d.occ_hi, d.sa_ms, d.sa_ls, d.ref, d.counts))
+    shard_bytes = table_bytes(shard_index(dfm, every))
+    mem_s = mem_runs(prefix, fq1, fq2, a.mem_pairs)
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True,
                          text=True).stdout.strip().splitlines()
     print(json.dumps({"card": smi[0] if smi else None, "cards": len(every),
                       "reads": int(enc.shape[0]), "L": int(enc.shape[1]),
                       "reps": a.reps, "seconds": secs,
+                      "mem_pairs": a.mem_pairs, "mem_seconds": mem_s,
+                      "table_bytes": {"replicated": rep_bytes,
+                                      "sharded": shard_bytes},
                       "identical": True}))
+
+
+def mem_runs(prefix: str, fq1: str, fq2: str, pairs: int) -> dict:
+    """`mem` PE on the first `pairs` pairs over every card, replicated and
+    sharded, each warm (a first run builds and uploads), their SAM held
+    equal: {layout: seconds of the timed run}."""
+    import tempfile
+    from bwamem2_tpu_torch import cli
+    d = tempfile.mkdtemp(prefix="mesh_probe_")
+    fqs = []
+    for i, src in enumerate((fq1, fq2)):
+        fqs.append(os.path.join(d, f"r{i + 1}.fq"))
+        with open(src) as f, open(fqs[-1], "w") as g:
+            g.writelines(ln for _, ln in zip(range(4 * pairs), f))
+    out, secs = {}, {}
+    for layout in ("replicated", "sharded"):
+        if layout == "sharded":
+            os.environ["BWAMEM2_TPU_SHARD_INDEX"] = "1"
+        try:
+            for _ in range(2):
+                sam = os.path.join(d, f"{layout}.sam")
+                t0 = time.perf_counter()
+                if cli.main(["mem", "-K", "2250000", "-v", "1", "-o", sam,
+                             prefix, *fqs]):
+                    sys.exit(f"mesh_probe: mem ({layout}) failed")
+                secs[layout] = time.perf_counter() - t0
+        finally:
+            os.environ.pop("BWAMEM2_TPU_SHARD_INDEX", None)
+        with open(sam) as f:
+            out[layout] = [ln for ln in f if not ln.startswith("@")]
+    if out["replicated"] != out["sharded"]:
+        sys.exit("mesh_probe: the sharded mem's SAM differs from the "
+                 "replicated one's")
+    return secs
 
 
 if __name__ == "__main__":

@@ -8,16 +8,19 @@ for the H100, sm_90a):
 
 Phases, each of which fails the run (non-zero exit, no result line):
   1. the card's name and power limit (nvidia-smi);
-  2. build: the seven CUDA kernels (one nvcc per csrc/*.cu: bsw_extend,
-     bsw_shear, smem_collect, sa_resolve, kswv, row_gather, round1_walk)
-     and the native host runtime (g++) from the checkout's sources, all
-     started together;
+  2. build: the eleven CUDA kernels (one nvcc per csrc/*.cu: bsw_extend,
+     bsw_shear, smem_collect, sa_resolve, kswv, row_gather, round1_walk,
+     round1_chain, round2_forward, round2_backward, round3_replay), the
+     sharded index's peer_access.cu and the native host runtime (g++) from
+     the checkout's sources, all started together;
      the registers, spills and stack frame of each bsw_extend
      instantiation (lanes x columns per lane), each bsw_shear
      instantiation (slots per lane), each kswv instantiation (u8/i16 x
      register bucket or shared-memory stripes), each smem_collect
      instantiation, each sa_resolve instantiation (walks per lane) and
-     round1_walk, the last two of which must have no stack frame;
+     round1_walk, the last two of which must have no stack frame (each
+     over both index views, FmView and FmShardView), and each per-stage
+     seeding kernel over both views;
   3. data: a synthetic 11.7 Mbp genome (scale 0.25 of the chr21 class, the
      size of a yeast genome) with repeat families and N runs, its index and
      10,000 2x150 bp pairs, made once from fixed seeds under .tmp/;
@@ -56,6 +59,13 @@ Phases, each of which fails the run (non-zero exit, no result line):
      (f) shards: `mem --shard 0:2` and `--shard 1:2` (--out-dir) as two
      processes at once on the card over run (a)'s data at -K 600,000 (5
      chunks), then `merge`, whose SAM equals this process's unsharded run;
+     (g) sharded index: run (a)'s data through `mem` with
+     BWAMEM2_TPU_SHARD_INDEX set over the visible cards (two shards on
+     cuda:0 where one card is visible): the per-stage seeding kernels,
+     sa_resolve, bsw_extend and kswv launch, smem_collect does not, no
+     plain version runs, the SAM equals run (a)'s, and the reads taking a
+     host route (overflow.r1_pivot_cap, overflow.long_read) stay within
+     1 %; the pivots of the wide candidate tier are printed;
   5. kernel vs plain, exact equality, with times and bounds:
      a. bsw_extend against bsw_desc_ref at every production rung (Q in
         127/255/383 x T in 96..608) with P = 4096 real-length descriptors,
@@ -108,6 +118,16 @@ Phases, each of which fails the run (non-zero exit, no result line):
         bsw_extend launch and its sa_resolve launch each timed against
         its plain version on the card, beside its bound (round1_walk's
         from the LF steps and distinct occ rows its plain version counts);
+     g. round1_chain, round2_forward, round2_backward (both entries) and
+        round3_replay against their plain versions on the card on the
+        launches of run (g)'s first chunk, exact, timed with CUDA events
+        beside the bound from the steps and distinct occ rows the plain
+        versions count; sa_resolve over the two shards against the
+        replicated index on that chunk's positions, round1_walk over two
+        shards against the replicated one on run (a)'s first chunk, and
+        the seed-extend step over a 2-shard index against phase f's
+        replicated step, each exact and the first two timed; with several
+        cards, sa_resolve over one shard per card (peer loads);
   6. the gather probe (bwamem2_tpu_torch/tools/gather_scale_probe.py) on
      cuda, its path's launch counter set to 0 before and read after; then
      row_gather against tab[idx] and torch.index_select at the probe's
@@ -115,7 +135,9 @@ Phases, each of which fails the run (non-zero exit, no result line):
      rows and with 2^22 rows, where the card's time outweighs the call's
      host work (the timed shape);
   7. goldens: tests/fixtures/golden_se.sam and golden_pe.sam reproduced on
-     cuda, golden_pe.sam with its rescue batch through kswv, and
+     cuda, golden_pe.sam with its rescue batch through kswv, the SE flag
+     matrix of tests/test_golden_flags.py (-A2 against the host-native
+     run: its golden is a known deviation of bwa-mem2's vector kernel), and
      golden_pacbio.sam and golden_ont2d.sam (-x pacbio / -x ont2d, 25
      reads of 2-8 kb) through bsw_shear and bsw_extend, no pair on the
      host kernel; the same reads at -x pacbio -w 500, whose band radius
@@ -123,8 +145,8 @@ Phases, each of which fails the run (non-zero exit, no result line):
      frame, their SAM held against the host-native run in phase 8;
   8. the SAM of runs (a), (c) and (d) equals the port's host-native run
      (Aligner(backend=None), one process per chunk of (a) and (c) and per
-     quarter of (d)'s reads, started after phase 4 and run during phases
-     5-7) byte for byte except @PG.
+     quarter of (d)'s reads, run during phases 5-7; the first chunk of
+     (a), the longest, starts after phase 3) byte for byte except @PG.
 The last two stdout lines are the card line and
 {"ok": true, "device": {...}}; the line before them is the per-kernel JSON.
 The run's numbers are also written to .tmp/chip_smoke/chip_smoke.json.
@@ -244,16 +266,38 @@ def card_line() -> str:
 
 # ----------------------------------------------------------------- builds
 def kernels():
-    """The wrappers of the seven kernels, by name."""
+    """The wrappers of the eleven kernels, by name."""
     from bwamem2_tpu_torch.ops.bsw_cuda import bsw_extend
     from bwamem2_tpu_torch.ops.bsw_shear_cuda import bsw_shear
     from bwamem2_tpu_torch.ops.kswv_cuda import kswv
     from bwamem2_tpu_torch.ops.row_gather import row_gather
     from bwamem2_tpu_torch.ops.seed import sa_resolve, smem_collect
-    from bwamem2_tpu_torch.ops.smem import round1_walk
+    from bwamem2_tpu_torch.ops.smem import (round1_chain, round1_walk,
+                                            round2_backward, round2_forward,
+                                            round3_replay)
     return dict(bsw_extend=bsw_extend, bsw_shear=bsw_shear,
                 smem_collect=smem_collect, sa_resolve=sa_resolve, kswv=kswv,
-                row_gather=row_gather, round1_walk=round1_walk)
+                row_gather=row_gather, round1_walk=round1_walk,
+                round1_chain=round1_chain, round2_forward=round2_forward,
+                round2_backward=round2_backward, round3_replay=round3_replay)
+
+
+# the SE flag matrix of tests/test_golden_flags.py:SE_CASES (phase 7):
+# flags and golden; None: held against the host-native run (-A2, whose
+# golden is a known deviation of bwa-mem2's vectorized 8-bit kernel)
+SE_FLAGS = (("-a", "golden_se_a.sam"), ("-Y", "golden_se_Y.sam"),
+            ("-5", "golden_se_5.sam"), ("-T20", "golden_se_T20.sam"),
+            ("-h10", "golden_se_h10.sam"), ("-L3,7", "golden_se_L3_7.sam"),
+            ("-O5,4 -E2,1", "golden_se_O5_4E2_1.sam"),
+            ("-B2", "golden_se_B2.sam"), ("-k15", "golden_se_k15.sam"),
+            ("-r1.2", "golden_se_r1_2.sam"), ("-c100", "golden_se_c100.sam"),
+            ("-D0.3", "golden_se_D0_3.sam"), ("-A2", None),
+            ("-y10", "golden_se_y10.sam"), ("-s5", "golden_se_s5.sam"))
+# the index views a kernel is instantiated over (fm_occ.cuh: FmViewOf)
+VIEWS = ("FmView", "FmShardView")
+# the per-stage seeding kernels of the sharded index (phase 4g)
+STAGES = ("round1_chain", "round2_forward", "round2_backward",
+          "round3_replay")
 
 
 def ptxas_table(text: str) -> dict:
@@ -307,7 +351,9 @@ def build_all() -> dict:
             errs.append(f"{name}: {e}")
         secs[name] = time.perf_counter() - t0
 
+    from bwamem2_tpu_torch.parallel.shard_index import PEER
     jobs = [(f"nvcc {k.SOURCES[0]}", k.lib) for k in kernels().values()]
+    jobs.append(("nvcc peer_access.cu", PEER.lib))
     jobs.append(("g++ native runtime", get_lib))
     ts = [threading.Thread(target=timed, args=j) for j in jobs]
     for t in ts:
@@ -347,26 +393,29 @@ def build_all() -> dict:
         if name == "sa_resolve":
             if not k.build_log:
                 continue        # built before this run: no ptxas output
-            for (W,), v in inst:
-                log(f"  ptxas sa_resolve<W={W}>: {v.get('registers')} "
-                    f"registers, {v.get('spill')} B spilled, "
-                    f"{v.get('stack')} B stack frame")
-            frames = {W: v.get("stack") for (W,), v in inst}
-            if sorted(frames) != sorted(k.WALKS) or any(frames.values()):
-                fail(f"sa_resolve: stack frames by walks per lane {frames} "
-                     f"(every instantiation of {k.WALKS} must have none)")
+            for (W, sh), v in inst:
+                log(f"  ptxas sa_resolve<W={W}, {VIEWS[sh]}>: "
+                    f"{v.get('registers')} registers, {v.get('spill')} B "
+                    f"spilled, {v.get('stack')} B stack frame")
+            frames = {(W, sh): v.get("stack") for (W, sh), v in inst}
+            if sorted(frames) != sorted((W, sh) for W in k.WALKS
+                                        for sh in (0, 1)) \
+                    or any(frames.values()):
+                fail(f"sa_resolve: stack frames by walks per lane and view "
+                     f"{frames} (every instantiation of {k.WALKS} must have "
+                     "none)")
             continue
-        if name == "round1_walk":
+        if name == "round1_walk" or name in STAGES:
             if not k.build_log:
                 continue        # built before this run: no ptxas output
-            v = ptxas_table(k.build_log).get(
-                next((f for f in ptxas_table(k.build_log)
-                      if "round1_walk_kernel" in f), ""), {})
-            log(f"  ptxas round1_walk: {v.get('registers')} registers, "
-                f"{v.get('spill')} B spilled, {v.get('stack')} B stack frame")
-            if v.get("stack") != 0:
-                fail(f"round1_walk: stack frame {v.get('stack')} B (the "
-                     "kernel must have none)")
+            for (sh,), v in inst:
+                log(f"  ptxas {name}<{VIEWS[sh]}>: {v.get('registers')} "
+                    f"registers, {v.get('spill')} B spilled, "
+                    f"{v.get('stack')} B stack frame")
+            if name == "round1_walk" and (len(inst) != 2 or any(
+                    v.get("stack") for _, v in inst)):
+                fail(f"round1_walk: stack frames {inst} (the kernel must "
+                     "have none, over either view)")
             continue
         for ln in k.build_log.splitlines():
             if "registers" in ln or "spill" in ln or "error" in ln.lower():
@@ -1416,6 +1465,263 @@ def shard_phase(card: str, prefix: str, fq1: str, fq2: str) -> dict:
                 shards_s=round(t_shards, 2))
 
 
+def sharded_mem(torch, card: str, prefix: str, fq1: str, fq2: str,
+                sam_a: str) -> dict:
+    """[4g] run (a)'s reads through `mem` (the CLI entry) over a sharded
+    index: BWAMEM2_TPU_SHARD_INDEX set and the visible cards, or cuda:0
+    twice where one card is visible (two shards on one card: the same code
+    as across cards, minus NVLink), every launch counter and PROF record
+    set to 0 just before and read just after.  Fails unless the SAM equals
+    run (a)'s, the four per-stage kernels, sa_resolve, bsw_extend and kswv
+    launched and no plain version ran, and the host routes
+    (overflow.r1_pivot_cap, overflow.long_read, each of the reads) stay
+    within MAX_OVERFLOW; the pivots that took the wide candidate tier on
+    the card (seeding.cand_wide*) are printed.  The launches of the first
+    chunk's seeding are returned under "_launches" ({"kernel.method":
+    [(wrapper args)]}) for phase 5g."""
+    from bwamem2_tpu_torch import cli, ops
+    from bwamem2_tpu_torch.ops.backend import TorchBackend
+    from bwamem2_tpu_torch.utils.profiling import PROF
+    devs = ops.resolve_devices("cuda")
+    how = f"one shard per card, {len(devs)} cards"
+    if len(devs) == 1:
+        devs = devs * 2
+        how = "two shards on cuda:0 (one visible card)"
+    K = kernels()
+    # the launches of the first chunk's seeding, by wrapper method
+    methods = [(n, "launch") for n in STAGES + ("sa_resolve",)] \
+        + [("round2_backward", "resume")]
+    captured: dict = {f"{n}.{m}": [] for n, m in methods}
+    first = {"on": False, "seen": False}
+    orig = {f"{n}.{m}": getattr(type(K[n]), m) for n, m in methods}
+    orig_cs, orig_sl = TorchBackend.collect_smems, TorchBackend.sa_lookup
+
+    def spy_for(key):
+        def spy(self, *args):
+            if first["on"]:
+                captured[key].append(args)
+            return orig[key](self, *args)
+        return spy
+
+    def cs_spy(self, encs, opt):
+        first["on"] = not first["seen"]
+        first["seen"] = True
+        return orig_cs(self, encs, opt)
+
+    def sl_spy(self, positions):
+        try:
+            return orig_sl(self, positions)
+        finally:
+            first["on"] = False
+
+    sam = os.path.join(WORK, "main_sharded.sam")
+    for d in (PROF.t, PROF.n, PROF.c, PROF.ctot):
+        d.clear()
+    for k in K.values():
+        k.reset()
+    resolve = ops.resolve_devices
+    for n, m in methods:
+        setattr(type(K[n]), m, spy_for(f"{n}.{m}"))
+    TorchBackend.collect_smems, TorchBackend.sa_lookup = cs_spy, sl_spy
+    ops.resolve_devices = lambda dev=None: list(devs)
+    os.environ["BWAMEM2_TPU_SHARD_INDEX"] = "1"
+    t0 = time.perf_counter()
+    try:
+        rc = cli.main(["mem", "-K", str(TASK_BASES), "-v", "1", "-o", sam,
+                       prefix, fq1, fq2])
+        torch.cuda.synchronize()
+    finally:
+        del os.environ["BWAMEM2_TPU_SHARD_INDEX"]
+        ops.resolve_devices = resolve
+        TorchBackend.collect_smems, TorchBackend.sa_lookup = orig_cs, orig_sl
+        for n, m in methods:
+            setattr(type(K[n]), m, orig[f"{n}.{m}"])
+    wall = time.perf_counter() - t0
+    launches = {n: k.launches for n, k in K.items()}
+    plain = {n: k.plain_calls for n, k in K.items()}
+    if rc:
+        fail(f"sharded mem exited with {rc}")
+    if any(plain.values()):
+        fail(f"sharded mem ran plain versions on cuda: {plain}")
+    for n in STAGES + ("sa_resolve", "bsw_extend", "kswv"):
+        if not launches[n]:
+            fail(f"sharded mem: {n} was not launched: {launches}")
+    if launches["smem_collect"]:
+        fail("sharded mem: the fused smem_collect ran over a sharded index")
+    routes = {c: [PROF.c.get(c, 0), PROF.ctot.get(c, 0)] for c in (
+        "overflow.r1_pivot_cap", "overflow.long_read", "seeding.cand_wider1",
+        "seeding.cand_wide")}
+    for c in ("overflow.r1_pivot_cap", "overflow.long_read"):   # the host's
+        n, tot = routes[c]
+        if not tot or n > MAX_OVERFLOW * tot:
+            fail(f"sharded mem: {c} {n} of {tot} (limit {MAX_OVERFLOW:.0%})")
+    got, want = sam_records(sam), sam_records(sam_a)
+    if got != want:
+        bad = sum(x != y for x, y in zip(got, want))
+        fail(f"sharded mem: SAM differs from run (a)'s: {bad} of "
+             f"{len(want)} records ({len(got)} produced)")
+    phases = {k: round(v, 3) for k, v in sorted(PROF.t.items())}
+    n_reads = PROF.ctot.get("overflow.r1_pivot_cap", 0)
+    log(f"  [4g] sharded index, {how}: {n_reads} reads in {wall:.2f}s = "
+        f"{n_reads / wall:.1f} reads/s, SAM == run (a)'s ({len(want)} "
+        f"records); routes [n, of] {routes}; launches {launches} "
+        f"[{card}]")
+    log(f"    host phases (s): {json.dumps(phases)}")
+    return dict(how=how, devices=[str(d) for d in devs], reads=n_reads,
+                wall_s=round(wall, 3), reads_per_s=round(n_reads / wall, 1),
+                launches=launches, host_routes=routes, phases_s=phases,
+                _launches=captured)
+
+
+def stage_bounds(name: str, args, stats: dict) -> tuple:
+    """(bytes ms, operations ms) of one per-stage launch: the distinct occ
+    rows its plain version read (32 B each), the lanes' inputs and outputs,
+    and per step the operations of csrc/<name>.cu's header (a backward_ext,
+    or an LF step for round2_backward) over the card's rates."""
+    if name == "round2_backward.resume":
+        M = args[2].numel()
+        ops, popc = R1_OPS_PER_STEP, R1_POPC_PER_STEP
+        lane_b = M * (36 + 22) + stats["steps"]
+    elif name == "round2_backward":
+        M = args[6].numel()
+        ops, popc = R1_OPS_PER_STEP, R1_POPC_PER_STEP
+        lane_b = M * (8 + 24 + 22) + stats["steps"]
+    elif name == "round2_forward":
+        P, C = args[2].numel(), args[5]
+        ops, popc = SMEM_OPS_PER_EXT, SMEM_POPC_PER_EXT
+        lane_b = P * (16 + 4 + 28 * C) + stats["steps"]
+    else:
+        N, L = args[1].shape
+        cap = args[3] if name == "round1_chain" else args[5]
+        ops, popc = SMEM_OPS_PER_EXT, SMEM_POPC_PER_EXT
+        lane_b = N * (L + 8) + N * cap * (4 if name == "round1_chain"
+                                          else 24)
+    nbytes = stats["rows"] * 32 + lane_b
+    return (nbytes / HBM_BYTES_PER_S * 1e3,
+            int_ops_s(stats["steps"] * ops, stats["steps"] * popc) * 1e3)
+
+
+def stage_vs_plain(torch, card: str, captured: dict, prefix: str, fq1: str,
+                   fq2: str, step_out) -> dict:
+    """[5g] each per-stage kernel against its plain version (on the card)
+    on the launches of the sharded run's first chunk, exact, timed with
+    CUDA events beside its bound; sa_resolve over the shards against the
+    replicated index on that chunk's positions, round1_walk over the
+    shards against the replicated one on run (a)'s first chunk, the
+    seed-extend step over a 2-shard index against the replicated step
+    (phase 5f's outputs), and, with several cards, a peer read."""
+    import numpy as np
+    from bwamem2_tpu_torch.align.seeding import encode_reads
+    from bwamem2_tpu_torch.index.fmindex import FMIndex
+    from bwamem2_tpu_torch.ops import seed, smem
+    from bwamem2_tpu_torch.ops.backend import _pad_reads
+    from bwamem2_tpu_torch.ops.device_index import DeviceFMIndex
+    from bwamem2_tpu_torch.parallel.shard_index import (
+        shard_index, sharded_seed_extend_sharded_index)
+    K = kernels()
+    # (the kernel's entry, its plain version) by captured method; the
+    # resume entry's launches count toward round2_backward's line
+    pairs = {"round1_chain.launch": smem.round1_chain_ref,
+             "round2_forward.launch": smem.round2_forward_ref,
+             "round2_backward.launch": smem.round2_backward_ref,
+             "round2_backward.resume": smem.round2_backward_resume_ref,
+             "round3_replay.launch": smem.round3_replay_ref}
+    ev = [torch.cuda.Event(enable_timing=True) for _ in range(2)]
+    out = {}
+    for name in STAGES:
+        calls = [(key, args) for key in pairs if key.startswith(name + ".")
+                 for args in captured[key]]
+        r = dict(launches=len(calls), ms=0.0, plain_ms=0.0, mem_ms=0.0,
+                 ops_ms=0.0, steps=0, rows=0, err=0)
+        for key, args in calls:
+            entry = getattr(K[name], key.split(".")[1])
+            r["ms"] += cuda_ms(torch, lambda: entry(*args), 3)
+            stats: dict = {}
+            ev[0].record()
+            want = pairs[key](*args, stats=stats)
+            ev[1].record()
+            torch.cuda.synchronize()
+            r["plain_ms"] += ev[0].elapsed_time(ev[1])
+            got = entry(*args)
+            r["err"] = max([r["err"]] + [int((g.long() - w.long()).abs()
+                                             .max()) if g.numel() else 0
+                                         for g, w in zip(got, want)])
+            mem_ms, ops_ms = stage_bounds(key.replace(".launch", ""), args,
+                                          stats)
+            r["mem_ms"] += mem_ms
+            r["ops_ms"] += ops_ms
+            r["steps"] += stats["steps"]
+            r["rows"] += stats["rows"]
+        if not calls:
+            fail(f"5g: no {name} launch was captured")
+        if r["err"]:
+            fail(f"5g: {name} differs from its plain version (max abs err "
+                 f"{r['err']})")
+        r["bound_ms"] = max(r["mem_ms"], r["ops_ms"])
+        r["bound_by"] = "operations" if r["ops_ms"] >= r["mem_ms"] \
+            else "bytes"
+        log(f"  {name}: {r['launches']} launches of the first chunk "
+            f"({r['steps']} steps, {r['rows']} distinct occ rows): kernel "
+            f"{r['ms']:.4f} ms, plain {r['plain_ms']:.1f} ms, bound "
+            f"{r['bound_ms']:.5f} ms by {r['bound_by']} (bytes "
+            f"{r['mem_ms']:.5f}, operations {r['ops_ms']:.5f}), identical "
+            f"[{card}]")
+        out[name] = r
+    # sa_resolve and round1_walk through the shards vs the replicated index
+    fm = FMIndex.load(prefix)
+    rep = DeviceFMIndex.from_host(fm, "cuda")
+    dev = rep.device
+    sa = dict(ms=0.0, rep_ms=0.0, positions=0, err=0)
+    for view, pos in captured["sa_resolve.launch"]:
+        sa["ms"] += cuda_ms(torch, lambda: seed.sa_resolve(view, pos), 5)
+        sa["rep_ms"] += cuda_ms(torch, lambda: seed.sa_resolve(rep, pos), 5)
+        sa["positions"] += pos.numel()
+        sa["err"] = max(sa["err"], int((seed.sa_resolve(view, pos)
+                                        - seed.sa_resolve(rep, pos)).abs()
+                                       .max()))
+    enc, lens = _pad_reads(encode_reads([r.seq for r in chunk_reads(
+        fq1, fq2, TASK_BASES)]))
+    views = shard_index(rep, [dev, dev])
+    e, ln = torch.from_numpy(enc).to(dev), torch.from_numpy(lens).to(dev)
+    w_ms = cuda_ms(torch, lambda: smem.round1_walk(views[0], e, ln), 3)
+    w_rep = cuda_ms(torch, lambda: smem.round1_walk(rep, e, ln), 3)
+    w_err = max(int((g.long() - w.long()).abs().max()) for g, w in zip(
+        smem.round1_walk(views[0], e, ln), smem.round1_walk(rep, e, ln)))
+    if sa["err"] or w_err:
+        fail(f"5g: over 2 shards sa_resolve err {sa['err']}, round1_walk "
+             f"err {w_err} against the replicated index")
+    log(f"  sa_resolve over 2 shards on {sa['positions']} positions: "
+        f"{sa['ms']:.4f} ms (replicated {sa['rep_ms']:.4f} ms); round1_walk "
+        f"over 2 shards on chunk (a): {w_ms:.4f} ms (replicated "
+        f"{w_rep:.4f} ms); both == the replicated index [{card}]")
+    t0 = time.perf_counter()
+    got = sharded_seed_extend_sharded_index([dev, dev], rep, enc, lens)
+    st_s = time.perf_counter() - t0
+    names = ("smem_b", "smem_k", "smem_s", "coords", "ext")
+    for nm, g, w in zip(names, got, step_out):
+        if not np.array_equal(g, w.numpy()):
+            fail(f"5g: the step over a 2-shard index differs from the "
+                 f"replicated step in {nm}")
+    log(f"  the seed-extend step over a 2-shard index on chunk (a) == the "
+        f"replicated step ({st_s:.2f}s) [{card}]")
+    peer = "one card: no peer load"
+    if torch.cuda.device_count() > 1:
+        cards = [torch.device("cuda", i)
+                 for i in range(torch.cuda.device_count())]
+        pv = shard_index(rep, cards)[0]
+        pos = captured["sa_resolve.launch"][0][1]
+        if not torch.equal(seed.sa_resolve(pv, pos),
+                           seed.sa_resolve(rep, pos)):
+            fail(f"5g: sa_resolve over one shard per card ({len(cards)}) "
+                 "differs from the replicated index")
+        peer = (f"sa_resolve on cuda:0 over one shard per card "
+                f"({len(cards)} cards) == replicated")
+    log(f"  peer read: {peer}")
+    out.update(sa_resolve_sharded=sa, round1_walk_sharded=dict(
+        ms=w_ms, rep_ms=w_rep), step_sharded_s=round(st_s, 3), peer=peer)
+    return out
+
+
 def graft_batch(fm, n: int = 32, L: int = 128, seed: int = 0):
     """The compile-check batch of __graft_entry__.py:_example_batch: n
     reads of L bases cut from the genome, 3 substitutions each."""
@@ -1567,7 +1873,7 @@ def step_phase(torch, card: str, prefix: str, fq1: str, fq2: str) -> dict:
     log(f"  sa_resolve on the step's {P} positions ({reads[0]} row reads): "
         f"kernel {sa_ms:.4f} ms, plain {sa['plain_ms']:.2f} ms, bound "
         f"{sa['bound_ms']:.5f} ms by bytes, identical [{card}]")
-    res.update(round1_walk=r1, bsw_tiles=bt, sa_resolve=sa)
+    res.update(round1_walk=r1, bsw_tiles=bt, sa_resolve=sa, _out=got[1])
     return res
 
 
@@ -1624,6 +1930,36 @@ def goldens() -> str:
         if not all(n[name] for name in need):
             fail(f"{golden}: a kernel was not launched: {n}")
         log(f"  {golden}: identical ({len(want)} records, launches {n})")
+    # the SE flag matrix (tests/test_golden_flags.py:SE_CASES) on cuda;
+    # -A2 against the host-native run: its golden is bwa-mem2's vectorized
+    # 8-bit kernel, which deviates from the scalar semantics the port keeps
+    from bwamem2_tpu_torch.cli import parse_mem_args
+    prefix = os.path.join(fx, "ref_small.fa")
+    t0 = time.perf_counter()
+    for flags, golden in SE_FLAGS:
+        parsed = parse_mem_args(flags.split() + [prefix, "x"])
+        opt, pes0 = parsed[0], parsed[9]
+        opt.finalize(parsed[1])
+        runs = []
+        for be in (TorchBackend(fm, opt), None):
+            reads = read_chunk(FastxReader(os.path.join(data, "reads_se.fq")),
+                               None, 10**9)
+            Aligner(fm, opt, backend=be, verbose=0).process(reads, 0,
+                                                            pes0=pes0)
+            runs.append("".join(r.sam for r in reads).splitlines(
+                keepends=True))
+            if golden:
+                break
+        if golden:
+            with open(os.path.join(fx, golden)) as f:
+                runs.append([ln for ln in f if not ln.startswith("@")])
+        if runs[0] != runs[1]:
+            bad = sum(a != b for a, b in zip(*runs))
+            fail(f"SE flags {flags}: {bad} lines of {len(runs[1])} differ "
+                 f"on cuda from {golden or 'the host-native run'}")
+    log(f"  SE flag matrix ({len(SE_FLAGS)} flag sets) on cuda: identical "
+        f"to the goldens, -A2 to the host-native run "
+        f"({time.perf_counter() - t0:.1f}s)")
     bands = []
     orig = BswShear.launch
 
@@ -1689,6 +2025,14 @@ def main() -> None:
     fm = FMIndex.load(prefix)
     log(f"[3] data: l_pac={fm.l_pac} ({DATA_SCALE}x chr21), {N_PAIRS} "
         f"pairs, {time.perf_counter() - t0:.1f}s")
+    # the host-native oracle of run (a)'s first chunk, the longest task of
+    # phase 8's pool (one process, ~400 s), starts now and runs beside the
+    # card phases; leaving the script terminates it
+    import atexit
+    import multiprocessing as mp
+    first_oracle = mp.get_context("spawn").Pool(1)
+    atexit.register(first_oracle.terminate)
+    fut_a0 = first_oracle.apply_async(oracle_chunk, (prefix, fq1, fq2, 0))
 
     # ---- the seeding stage's first call, split, in a fresh process
     r = subprocess.run([sys.executable, os.path.abspath(__file__),
@@ -1737,8 +2081,11 @@ def main() -> None:
     rr = round_robin(torch, card, prefix, fq1, fq2, sam)
     log("[4f] --shard h:2 processes + merge, run (a)'s data:")
     shards = shard_phase(card, prefix, fq1, fq2)
-    runs = (run_a, run_b, run_c, run_d, rr)
-    # the kernels line counts the launches of the five runs
+    log("[4g] mem over a sharded index, run (a)'s data:")
+    run_g = sharded_mem(torch, card, prefix, fq1, fq2, sam)
+    stage_calls = run_g.pop("_launches")
+    runs = (run_a, run_b, run_c, run_d, rr, run_g)
+    # the kernels line counts the launches of the six runs
     launches = {n: sum(r["launches"][n] for r in runs)
                 for n in run_a["launches"]}
     cap_a, cap_b = run_a.pop("_capture"), run_b.pop("_capture")
@@ -1750,15 +2097,15 @@ def main() -> None:
     # the host-native oracle (one process per chunk) runs while the kernels
     # are held against their plain versions and the goldens run
     # (leaving the `with` terminates the pool, also when a phase fails)
-    import multiprocessing as mp
     opt = MemOptions().finalize(None)
     t0 = time.perf_counter()
     cuts = [LONG_READS * k // LONG_ORACLE_PARTS
             for k in range(LONG_ORACLE_PARTS + 1)]
-    with mp.get_context("spawn").Pool(min(chunks + 2 + LONG_ORACLE_PARTS,
+    with mp.get_context("spawn").Pool(min(chunks + 1 + LONG_ORACLE_PARTS,
                                           os.cpu_count() or 1)) as pool:
-        futs = [pool.apply_async(oracle_chunk, (prefix, fq1, fq2, i))
-                for i in range(chunks)]
+        futs = [fut_a0] + [pool.apply_async(oracle_chunk,
+                                            (prefix, fq1, fq2, i))
+                           for i in range(1, chunks)]
         fut_c = pool.apply_async(oracle_chunk, (prefix, fq1c, fq2c, 0, 52))
         fut_d = [pool.apply_async(oracle_long, (prefix, fq_long, lo, hi,
                                                 "pacbio"))
@@ -1771,6 +2118,11 @@ def main() -> None:
         log(f"[5f] seed-extend step (round1_walk, sa_resolve, bsw_tiles) on "
             f"{name}:")
         st = step_phase(torch, card, prefix, fq1, fq2)
+        log(f"[5g] per-stage seeding kernels vs plain on the sharded run's "
+            f"first chunk, and the 2-shard index on {name}:")
+        sg = stage_vs_plain(torch, card, stage_calls, prefix, fq1, fq2,
+                            st.pop("_out"))
+        del stage_calls
         log(f"[5a] bsw_extend vs plain on {name}, P={P_KERNEL} per rung:")
         tot = kernel_vs_plain(torch, fm, opt)
         log(f"  all rungs identical; kernel {tot['ms']:.3f} ms (one-thread "
@@ -1847,6 +2199,7 @@ def main() -> None:
         log("[7] goldens on cuda:")
         wide_sam = goldens()
         oracle = [f.get() for f in futs]
+        first_oracle.close()
         oracle_c = fut_c.get()
         oracle_d = [f.get() for f in fut_d]
         oracle_w = fut_w.get()
@@ -1969,10 +2322,27 @@ def main() -> None:
                    f"{st['round1_walk']['L']}), {st['round1_walk']['steps']}"
                    f" LF steps"),
     ]
+    replaces = dict(round1_chain="bwamem2_tpu/ops/smem.py:308",
+                    round2_forward="bwamem2_tpu/ops/smem.py:387",
+                    round2_backward="bwamem2_tpu/ops/smem.py:464",
+                    round3_replay="bwamem2_tpu/ops/smem.py:209")
+    for n in STAGES:
+        r = sg[n]
+        kern.append(dict(
+            name=n, route="cuda", source=f"bwamem2_tpu_torch/csrc/{n}.cu",
+            replaces=replaces[n], launches=launches[n], max_abs_err=r["err"],
+            ms=round(r["ms"], 4), plain_ms=round(r["plain_ms"], 3),
+            bound_ms=round(r["bound_ms"], 5), bound_by=r["bound_by"],
+            library_ms=None,
+            library_note="no PyTorch call walks an FM-index",
+            shape=f"sum over the {r['launches']} launches of the sharded "
+                  f"run's first chunk (run (a)'s reads, 2 shards), "
+                  f"{r['steps']} steps"))
     result = dict(kernels=kern, card=card, first_call_s=first,
                   main_a=run_a, main_b=run_b, main_a52=run_c,
                   main_pacbio=run_d, round_robin=rr, shards=shards,
-                  step=st, launches=launches,
+                  sharded_index=run_g, stages=sg, step=st,
+                  launches=launches,
                   build_s={k: round(v, 1) for k, v in secs.items()},
                   bsw_main=bm, bsw_rungs=tot, bsw_shear=sh,
                   seeding=sd, rescue=rs, gather=gt,

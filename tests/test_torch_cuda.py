@@ -587,3 +587,136 @@ def test_nccl_shards_over_every_card(card, tmp_path):
         merge_chunks(f, glob.glob(os.path.join(outdir, "part.chunk*.sam")))
     with open(merged) as f, open(os.path.join(FIXTURES, "golden_se.sam")) as g:
         assert f.read() == "".join(ln for ln in g if not ln.startswith("@"))
+
+
+# ------------------------------------------------ the sharded index
+def stage_inputs(fm):
+    """The PE fixture's read grid, its round-1 pivots (the second half at
+    min_intv 3) padded with dead pivots, their forward candidates and the
+    candidate lanes (7 pad lanes on the last, dead pivot), all on the CPU
+    from the plain versions."""
+    from bwamem2_tpu_torch.ops import smem
+    from bwamem2_tpu_torch.ops.backend import ROUND2_MAX_CAND, pivot_cap
+    reads = read_chunk(FastxReader(os.path.join(DATA, "reads_r1.fq")),
+                       FastxReader(os.path.join(DATA, "reads_r2.fq")),
+                       10**9)
+    enc, lens = (torch.from_numpy(a) for a in
+                 _pad_reads(encode_reads([r.seq for r in reads])))
+    dfm = DeviceFMIndex.from_host(fm, "cpu")
+    cap = pivot_cap(enc.shape[1])
+    npiv, px = smem.round1_chain_ref(dfm, enc, lens, cap)
+    take = npiv.long().clamp(max=cap)
+    rid = torch.repeat_interleave(torch.arange(len(take)), take).int()
+    x = px[torch.arange(cap)[None, :] < take[:, None]]
+    P = len(rid) + 64
+    ridp = torch.full((P,), -1, dtype=torch.int32)
+    ridp[:len(rid)] = rid
+    xp = torch.zeros(P, dtype=torch.int32)
+    xp[:len(x)] = x
+    mi = torch.ones(P, dtype=torch.int64)
+    mi[len(rid) // 2:len(rid)] = 3
+    fwd = smem.round2_forward_ref(dfm, enc, ridp, xp, mi, ROUND2_MAX_CAND)
+    nc = fwd[4].long().clamp(max=ROUND2_MAX_CAND)
+    piv = torch.repeat_interleave(torch.arange(P), nc)
+    slot = torch.arange(len(piv)) - torch.repeat_interleave(
+        nc.cumsum(0) - nc, nc)
+    piv = torch.cat([piv, torch.full((7,), P - 1)]).int()
+    slot = torch.cat([slot, torch.zeros(7, dtype=torch.long)]).int()
+    return dfm, enc, lens, cap, ridp, xp, mi, fwd, piv, slot
+
+
+def _equal(got, want):
+    for g, w in zip(got, want):
+        np.testing.assert_array_equal(g.cpu().numpy(), w.numpy())
+
+
+@pytest.mark.cuda
+def test_stage_kernels_match_ref_on_card(card):
+    """round1_chain, round2_forward, round2_backward (both entries, with
+    and without steps_max), round3_replay, round1_walk and sa_resolve on
+    the card against their plain versions on the CPU: over the replicated
+    index, over 2 shards on this card and, where there are several cards,
+    over one shard per card (peer loads)."""
+    from bwamem2_tpu_torch.ops import smem
+    from bwamem2_tpu_torch.ops.backend import ROUND2_MAX_CAND
+    from bwamem2_tpu_torch.parallel.shard_index import shard_index
+    fm = FMIndex.load(PREFIX)
+    dfm_h, enc, lens, cap, ridp, xp, mi, fwd, piv, slot = stage_inputs(fm)
+    L = enc.shape[1]
+    n = torch.cuda.device_count()
+    layouts = [[card], [card, card]] + ([[torch.device("cuda", i)
+                                          for i in range(n)]] if n > 1
+                                        else [])
+    pos = torch.from_numpy(np.random.default_rng(5).integers(
+        0, int(dfm_h.counts[4]), 50000))
+    want = dict(
+        r1=smem.round1_chain_ref(dfm_h, enc, lens, cap),
+        r3=smem.round3_replay_ref(dfm_h, enc, lens, 20, 20, L // 20 + 1),
+        fwd=fwd,
+        bwd8=smem.round2_backward_ref(dfm_h, enc, ridp, xp, fwd[1], fwd[3],
+                                      piv, slot, mi, 8),
+        bwd=smem.round2_backward_ref(dfm_h, enc, ridp, xp, fwd[1], fwd[3],
+                                     piv, slot, mi),
+        walk=smem.round1_walk_ref(dfm_h, enc, lens),
+        sa=[tseed.sa_resolve_ref(dfm_h, pos)])
+    live = want["bwd8"][4].nonzero()[:, 0]
+    lp = piv[live].long()
+    res = [ridp[lp], xp[lp], mi[lp]] + [w[live] for w in want["bwd8"][:3]]
+    want["resume"] = smem.round2_backward_resume_ref(dfm_h, enc, *res, L - 8)
+    for devs in layouts:
+        d = (DeviceFMIndex.from_host(fm, card) if len(devs) == 1
+             else shard_index(dfm_h, devs)[0])
+        c = lambda *a: [x.to(card) for x in a]  # noqa: E731
+        e, ln = c(enc, lens)
+        got = dict(
+            r1=smem.round1_chain(d, e, ln, cap),
+            r3=smem.round3_replay(d, e, ln, 20, 20, L // 20 + 1),
+            fwd=smem.round2_forward(d, e, *c(ridp, xp, mi), ROUND2_MAX_CAND),
+            bwd8=smem.round2_backward(d, e, *c(ridp, xp, fwd[1], fwd[3],
+                                               piv, slot, mi), 8),
+            bwd=smem.round2_backward(d, e, *c(ridp, xp, fwd[1], fwd[3], piv,
+                                              slot, mi)),
+            resume=smem.round2_backward.resume(d, e, *c(*res[:5]),
+                                               res[5].to(card), L - 8),
+            walk=smem.round1_walk(d, e, ln),
+            sa=[tseed.sa_resolve(d, pos.to(card))])
+        torch.cuda.synchronize()
+        for k in want:
+            _equal(got[k], want[k])
+
+
+@pytest.mark.cuda
+def test_sharded_mem_and_step_on_cards(card):
+    """mem SE over a sharded backend (one shard per card, or two on this
+    card with one card) equals golden_se.sam, with every per-stage kernel
+    and sa_resolve launched and no plain version run; the seed-extend step
+    over a sharded index equals the replicated step."""
+    from bwamem2_tpu_torch.align.pipeline import Aligner
+    from bwamem2_tpu_torch.ops import smem
+    from bwamem2_tpu_torch.ops.backend import TorchBackend
+    from bwamem2_tpu_torch.ops.entry import seed_extend_step
+    from bwamem2_tpu_torch.parallel.shard_index import (
+        sharded_seed_extend_sharded_index)
+    n = torch.cuda.device_count()
+    devs = ([torch.device("cuda", i) for i in range(n)] if n > 1
+            else [card, card])
+    fm = FMIndex.load(PREFIX)
+    opt = MemOptions().finalize()
+    reads = read_chunk(FastxReader(os.path.join(DATA, "reads_se.fq")), None,
+                       10**9)
+    kern = (smem.round1_chain, smem.round2_forward, smem.round2_backward,
+            smem.round3_replay, tseed.sa_resolve)
+    for k in kern:
+        k.reset()
+    be = TorchBackend(fm, opt, devices=devs, sharded=True)
+    Aligner(fm, opt, backend=be, verbose=0).process(reads, 0)
+    assert all(k.launches >= len(devs) and not k.plain_calls for k in kern)
+    with open(os.path.join(FIXTURES, "golden_se.sam")) as f:
+        want = [ln for ln in f if not ln.startswith("@")]
+    assert "".join(r.sam for r in reads).splitlines(keepends=True) == want
+    dfm = DeviceFMIndex.from_host(fm, card)
+    enc, lens = step_batch(fm, 512, 152, 1)
+    rep = [g.cpu().numpy() for g in seed_extend_step(dfm, enc, lens)]
+    for g, w in zip(sharded_seed_extend_sharded_index(devs, dfm, enc, lens),
+                    rep):
+        np.testing.assert_array_equal(g, w)

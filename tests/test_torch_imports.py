@@ -77,9 +77,11 @@ def test_importing_the_port_loads_no_jax():
 
 
 def test_scan_covers_the_data_parallel_modules():
-    """The scans above reach the parallel layer and the fused step."""
+    """The scans above reach the parallel layer, the fused step, the
+    per-stage seeding and the sharded index."""
     mods = set(_modules())
     for m in ("bwamem2_tpu_torch.parallel", "bwamem2_tpu_torch.parallel.mesh",
               "bwamem2_tpu_torch.parallel.multihost",
-              "bwamem2_tpu_torch.ops.entry", "bwamem2_tpu_torch.ops.smem"):
+              "bwamem2_tpu_torch.ops.entry", "bwamem2_tpu_torch.ops.smem",
+              "bwamem2_tpu_torch.parallel.shard_index"):
         assert m in mods, m

@@ -53,7 +53,9 @@ from bwamem2_tpu_torch.ops.device_index import DeviceFMIndex
 from bwamem2_tpu_torch.ops.kswv_cuda import kswv
 from bwamem2_tpu_torch.ops.row_gather import row_gather
 from bwamem2_tpu_torch.ops.seed import sa_resolve, smem_collect
-from bwamem2_tpu_torch.ops.smem import round1_walk
+from bwamem2_tpu_torch.ops.smem import (round1_chain, round1_walk,
+                                        round2_backward, round2_forward,
+                                        round3_replay)
 from bwamem2_tpu_torch.options import MEM_F_PE, MemOptions
 from bwamem2_tpu_torch.parallel.mesh import (make_mesh, merge_shards,
                                              shard_batch,
@@ -370,14 +372,16 @@ def test_cli_shard_out_dir_merge(tmp_path):
 
 def test_cli_data_parallel_over_devices(tmp_path, monkeypatch, capfd):
     """With more than one device the CLI builds one TorchBackend per
-    device; here two CPU devices stand in for two cards.  The
-    genome-bucket mode is refused, and --resume with --shard."""
+    device; here two CPU devices stand in for two cards.  With
+    BWAMEM2_TPU_SHARD_INDEX it builds one backend over both, sharded
+    (tests/test_torch_shard_index.py runs that mode to the goldens);
+    --resume with --shard is refused."""
     made = []
     orig = TorchBackend.__init__
 
-    def spy(self, fm, opt, device=None):
-        made.append(device)
-        orig(self, fm, opt, device)
+    def spy(self, fm, opt, device=None, **kw):
+        made.append(kw or device)
+        orig(self, fm, opt, device, **kw)
 
     monkeypatch.setattr(TorchBackend, "__init__", spy)
     monkeypatch.setattr(ops, "resolve_devices",
@@ -389,8 +393,12 @@ def test_cli_data_parallel_over_devices(tmp_path, monkeypatch, capfd):
     assert "* data-parallel over 2 cards" in capfd.readouterr().err
     assert body(out) == golden_body("golden_se.sam")
     monkeypatch.setenv("BWAMEM2_TPU_SHARD_INDEX", "1")
-    assert cli.main(["mem", "--device", "cpu", "-o", out, PREFIX, SE]) == 1
-    assert "sharded-index slice" in capfd.readouterr().err
+    made.clear()
+    assert cli.main(["mem", "--device", "cpu", "-K", "8000", "-o", out,
+                     PREFIX, SE]) == 0
+    assert made == [dict(devices=[torch.device("cpu")] * 2, sharded=True)]
+    assert "index sharded over 2 cards" in capfd.readouterr().err
+    assert body(out) == golden_body("golden_se.sam")
     assert cli.main(["mem", "--device", "cpu", "--resume", "--shard", "0:2",
                      "-o", out, PREFIX, SE]) == 1
     assert "no --shard" in capfd.readouterr().err
@@ -540,18 +548,27 @@ def test_backend_chunk_sets_its_tally(fm):
 
 
 @pytest.mark.parametrize("kernel", [bsw_extend, bsw_shear, kswv, row_gather,
-                                    smem_collect, sa_resolve, round1_walk],
+                                    smem_collect, sa_resolve, round1_walk,
+                                    round1_chain, round2_forward,
+                                    round2_backward, round3_replay],
                          ids=lambda k: k.NAME)
 def test_launcher_signature_types_every_parameter(kernel):
-    """Each wrapper's ctypes argtypes cover every parameter of its C
-    launcher, the stream included: ctypes passes an untyped Python int as
-    a C int, so a stream handle on the stack would arrive with its high
-    half undefined (and a handle past 2^31 would not convert)."""
+    """Each wrapper's ctypes argtypes cover every parameter of each of its
+    C launchers (SIGNATURE and ENTRIES), the stream included: ctypes
+    passes an untyped Python int as a C int, so a stream handle on the
+    stack would arrive with its high half undefined (and a handle past
+    2^31 would not convert)."""
     import re
     with open(os.path.join(cuda_build.CSRC, kernel.SOURCES[0])) as f:
         src = f.read()
-    m = re.search(r'extern "C" int ' + kernel.SIGNATURE[0] + r"\(([^)]*)\)",
-                  src)
-    params = [p for p in m.group(1).split(",") if p.strip()]
-    assert params[-1].split()[-1] == "*stream"
-    assert len(kernel.SIGNATURE[1]) == len(params)
+    entries = {kernel.SIGNATURE[0]: kernel.SIGNATURE[1], **kernel.ENTRIES}
+    for name, argtypes in entries.items():
+        m = re.search(r'extern "C" int ' + name + r"\(([^)]*)\)", src)
+        params = [p for p in m.group(1).split(",") if p.strip()]
+        assert params[-1].split()[-1] == "*stream"
+        assert len(argtypes) == len(params), name
+        for p, a in zip(params, argtypes):
+            # pointers as pointers, int64_t as int64, int as int
+            want = (cuda_build.VP if "*" in p else cuda_build.I64
+                    if "int64_t" in p else cuda_build.I32)
+            assert a is want, (name, p)
