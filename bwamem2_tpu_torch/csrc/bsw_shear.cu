@@ -16,119 +16,166 @@
 // int32[P, 6]: score qle tle gtle gscore max_off, what bsw_extend gives for
 // the same pair.
 //
-// Design: one warp per pair (shear_group.cuh).  The pair's DP state is a
-// frame of F = 32*C >= 2*Wh + 3 band offsets in registers, C slots per
-// lane, which moves one column along the query per row: H, E and the
-// query codes shift one slot left per row (a register move and one
-// shfl_down at each lane's edge), and the row's work is bsw_extend's row
-// over the frame instead of the query, so a row costs O(w), not O(qlen).
-// C is chosen per launch from Wh (SHEAR_BUCKETS: 7 at the default w = 100,
-// 13 on the band-doubling retry at 200); a wider band (Wh > 206) runs the
-// same body with its frame in shared memory (one warp per block, 640 B per
-// slot per lane, Wh up to 5806), and a launch beyond that is refused.  The row loop runs in the kernel;
-// a pair stops on a zero row maximum, on z-drop, or after its last row (by
-// row qlen + w its band is empty).  Warps per block are ceil(P / (SMs x
-// 8)), at most 4, so a small launch still spreads over every SM; the
-// dispatch (ops/bsw.py:DeviceBSW.long_order) launches each rung's pairs by
-// descending row count.
+// Design (shear_group.cuh has the bodies).  A call's pairs go to at most
+// two launches, one of each body, each pair with its own row count: the
+// caller orders them (ops/bsw.py:DeviceBSW.long_order) with the pairs
+// whose every value fits 16 bits first (ops/bsw_shear_cuda.py:
+// BswShear.fits16, the one test), each part by descending row count.
+//   * pairs [0, n16) run bsw_shear_s16_kernel<R>: two 16-bit slots per
+//     register, the DPX 16x2 forms (two cells an instruction);
+//   * pairs [n16, P) run bsw_shear_kernel<C>: C int32 slots per lane.
+// One warp per pair, SHEAR_WPB warps a block, a block for every
+// SHEAR_WPB pairs in order: the block scheduler starts the next block
+// (the next longest pairs) on an SM as soon as one of its blocks ends, so
+// no SM idles behind another's tail and a launch holds a call's pairs at
+// once.  (A persistent grid whose warps took the pairs from a ticket
+// counter ran run (d)'s calls ~12 % slower on an H100.)  The two bodies
+// are separate kernels, so that each is built for its own registers.  C
+// and R come from Wh (SHEAR_BUCKETS: at the default w = 100 C 7, R 4; on
+// the band-doubling retry at 200 C 13, R 7).  A wider band (Wh > 206)
+// runs bsw_shear_wide_kernel: the int32 body with its frame in shared
+// memory (one warp per block, 640 B per slot per lane, Wh up to 5806); a
+// launch beyond that is refused.  A pair stops on a zero row maximum, on
+// z-drop, or after its last row (by row qlen + w its band is empty).
 //
 // What bounds it: the same integer DP as bsw_extend.cu, counted the same
 // way: 10 int32 operations per band cell (bsw_extend.cu's header) over the
 // cells the band covers (bsw_shear_desc_ref's `cells`), at the card's
 // INT32 issue rate, against the bytes moved (descriptors, qlen + tlen code
 // bytes, the output).  chip_smoke.py reports that bound beside the
-// measured time.  What the design spends beyond it: every lane runs all C
-// of its slots each row (the band is 2w+1 of F slots), the frame shift (3
-// registers per slot and 3 shuffles per row), the F scan, four reductions
-// and two broadcasts per row; and one pair's rows run one after another,
-// so a launch lasts at least as long as its longest pair.
+// measured time.  The 16-bit body spends more than 5 instructions per cell
+// (two cells per DPX instruction), so the 10-operation model stays the
+// lower bound of both bodies.  What the design spends beyond it: every
+// lane runs all of its slots each row (the band is 2w+1 of F slots), the
+// frame shift, the F scan and the reductions each row; and a pair's rows
+// run one after another.
+//
+// SASS instructions per frame slot (tools/shear_sass.py: the slope of a
+// body's row-loop instruction count between two slot counts, cuobjdump
+// -sass of the sm_90a build, rarely taken blocks included): before this
+// design (one int32 kernel, a launch per row rung) 30.17 (C 7 -> 13);
+// now the int32 body 30.5 (C 7 -> 13; in bsw_shear_kernel<C> itself
+// 30.17) and the 16-bit body 21.0 (R 4 -> 7, two slots a register).
+
+#include <climits>
 
 #include <cuda_runtime.h>
 
 #include "shear_group.cuh"
 
-#define SHEAR_WARPS_MAX 4       // warps (pairs) per block at most
+#define SHEAR_WPB 4   // warps (pairs) per block of the register kernels
 
 namespace {
 
-// CT: a register bucket's slots per lane, or 0 for the shared-memory
-// frame (b.C slots per lane, one warp per block).
-template <int CT>
-__global__ void __launch_bounds__(SHEAR_G * SHEAR_WARPS_MAX)
+// The register buckets: the int32 body, C slots per lane.
+template <int C>
+__global__ void __launch_bounds__(SHEAR_G * SHEAR_WPB)
 bsw_shear_kernel(const ShearBatch b) {
-    const int p = blockIdx.x * (blockDim.x / SHEAR_G) + threadIdx.x / SHEAR_G;
-    if (p >= b.P) return;          // the whole warp returns
-    const BswGroup<SHEAR_G> g;
-    if constexpr (CT > 0) {
-        shear_group_pair<CT>(g, b, p);
-    } else {
-        extern __shared__ int shear_frame[];
-        shear_group_pair<0>(g, b, p, shear_frame + g.lane(), SHEAR_G);
-    }
+    const int p = b.p0 + blockIdx.x * SHEAR_WPB + threadIdx.x / SHEAR_G;
+    if (p < b.P) shear_pair_i32<C>(BswGroup<SHEAR_G>(), b, p);
 }
 
-// Target blocks per SM when warps per block are chosen for a small batch.
-constexpr int SHEAR_BLOCKS_PER_SM = 8;
+// The 16-bit body, R registers of two slots per lane.
+template <int R>
+__global__ void __launch_bounds__(SHEAR_G * SHEAR_WPB)
+bsw_shear_s16_kernel(const ShearBatch b) {
+    const int p = b.p0 + blockIdx.x * SHEAR_WPB + threadIdx.x / SHEAR_G;
+    if (p < b.P) shear_pair_s16<R>(BswGroup<SHEAR_G>(), b, p);
+}
+
+// The memory frame: b.C slots per lane, one warp per block.
+__global__ void __launch_bounds__(SHEAR_G)
+bsw_shear_wide_kernel(const ShearBatch b) {
+    extern __shared__ int shear_frame[];
+    shear_pair_i32<0>(BswGroup<SHEAR_G>(), b, b.p0 + blockIdx.x,
+                      shear_frame + threadIdx.x, SHEAR_G);
+}
 
 }  // namespace
 
-// The launch's shape for P pairs at band radius Wh: plan[0] C (slots per
-// lane), plan[1] warps per block, plan[2] shared-memory bytes per block (0
-// for a register bucket).  Returns a CUDA error code
-// (cudaErrorInvalidValue when no frame holds 2*Wh + 3 slots).
-extern "C" int bsw_shear_plan(int Wh, int P, int *plan) {
+// The launch of `n` pairs at band radius Wh in the 16-bit body (s16) or
+// the int32 one: plan[0] C (int32 slots per lane), plan[1] R (16-bit
+// registers per lane, 0 for the memory frame), plan[2] blocks, plan[3]
+// threads per block, plan[4] shared-memory bytes per block (dynamic: the
+// memory frame's).  Returns a CUDA error code (cudaErrorInvalidValue when
+// no frame holds 2*Wh + 3 slots, or for the 16-bit body beyond the
+// register buckets).
+extern "C" int bsw_shear_plan(int Wh, int n, int s16, int *plan) {
     int C = 0;
     const int ct = shear_bucket(Wh, &C);
-    if (ct < 0) return (int)cudaErrorInvalidValue;
-    int dev = 0, nsm = 0;
-    cudaError_t err = cudaGetDevice(&dev);
-    if (!err)
-        err = cudaDeviceGetAttribute(&nsm, cudaDevAttrMultiProcessorCount,
-                                     dev);
-    if (err) return (int)err;
-    const int64_t spread = (int64_t)nsm * SHEAR_BLOCKS_PER_SM;
-    int wpb = (int)((P + spread - 1) / spread);
-    wpb = wpb < 1 ? 1 : (wpb > SHEAR_WARPS_MAX ? SHEAR_WARPS_MAX : wpb);
+    if (ct < 0 || n < 0 || (ct == 0 && s16))
+        return (int)cudaErrorInvalidValue;
+    int R = 0;
+#define SHEAR_R(c, r) \
+    if (ct == c) R = r;
+    SHEAR_BUCKETS(SHEAR_R)
+#undef SHEAR_R
+    const int wpb = ct ? SHEAR_WPB : 1;
+    const int64_t blocks = ((int64_t)n + wpb - 1) / wpb;
+    if (blocks > INT_MAX) return (int)cudaErrorInvalidValue;
     plan[0] = C;
-    plan[1] = ct > 0 ? wpb : 1;
-    plan[2] = ct > 0 ? 0 : SHEAR_ARRAYS * SHEAR_G * C * (int)sizeof(int);
+    plan[1] = R;
+    plan[2] = (int)(blocks > 0 ? blocks : 1);
+    plan[3] = wpb * SHEAR_G;
+    plan[4] = ct ? 0 : SHEAR_ARRAYS * SHEAR_G * C * (int)sizeof(int);
     return 0;
 }
 
-// Launch on `stream` (PyTorch's current stream); returns a CUDA error code
-// (the plan's, or cudaGetLastError() of the launch) so the wrapper can
-// raise on a refused launch.  out: int32[P, 6].
+// Launch pairs [p0, P) in the 16-bit body (s16) or the int32 one on
+// `stream` (PyTorch's current stream); returns a CUDA error code (the
+// plan's, or cudaGetLastError() of the launch) so the wrapper can raise on
+// a refused launch.  out: int32[P, 6], rows [p0, P) written.
 extern "C" int bsw_shear_launch(
     const int8_t *enc, int64_t n_enc, const uint8_t *ref, int64_t n_ref,
     int ref_packed, const int *qoff, const int *qdir, const int *qlen,
     const int64_t *toff, const int *tdir, const int *tlen, const int *h0,
-    const int *w, int P, int Wh, int Tmax, int a, int b, int o_del,
-    int e_del, int o_ins, int e_ins, int zdrop, int end_bonus, int max_sc,
-    int *out, void *stream) {
-    int plan[3];
-    const int err = bsw_shear_plan(Wh, P, plan);
-    if (err) return err;
+    const int *w, int p0, int P, int s16, int Wh, int Tmax, int a, int b,
+    int o_del, int e_del, int o_ins, int e_ins, int zdrop, int end_bonus,
+    int max_sc, int *out, void *stream) {
+    if (p0 < 0 || p0 > P) return (int)cudaErrorInvalidValue;
+    int plan[5];
+    const int err = bsw_shear_plan(Wh, P - p0, s16, plan);
+    if (err || p0 == P) return err;
+    cudaStream_t st = (cudaStream_t)stream;
     const ShearBatch batch{enc,  n_enc, ref,  n_ref, ref_packed, qoff,
                            qdir, qlen,  toff, tdir,  tlen,       h0,
-                           w,    P,     Wh,   Tmax,  plan[0],
+                           w,    p0,    P,    Wh,    Tmax,       plan[0],
                            {a, b, o_del, e_del, o_ins, e_ins, zdrop,
                             end_bonus, max_sc},
                            out};
-    const int wpb = plan[1];
-    const int blocks = (P + wpb - 1) / wpb;
-    cudaStream_t st = (cudaStream_t)stream;
-    if (plan[2]) {                 // the shared-memory frame
-        cudaError_t e = cudaFuncSetAttribute(
-            bsw_shear_kernel<0>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-            plan[2]);
+    if (plan[1] == 0) {            // the memory frame
+        const cudaError_t e = cudaFuncSetAttribute(
+            bsw_shear_wide_kernel,
+            cudaFuncAttributeMaxDynamicSharedMemorySize, plan[4]);
         if (e) return (int)e;
-        bsw_shear_kernel<0><<<blocks, SHEAR_G, plan[2], st>>>(batch);
+        bsw_shear_wide_kernel<<<plan[2], plan[3], plan[4], st>>>(batch);
         return (int)cudaGetLastError();
     }
-#define SHEAR_LAUNCH(c)                                                   \
-    if (plan[0] == c)                                                     \
-        bsw_shear_kernel<c><<<blocks, wpb * SHEAR_G, 0, st>>>(batch);
+#define SHEAR_LAUNCH(c, r)                                               \
+    if (plan[0] == c) {                                                  \
+        if (s16)                                                         \
+            bsw_shear_s16_kernel<r><<<plan[2], plan[3], 0, st>>>(batch); \
+        else                                                             \
+            bsw_shear_kernel<c><<<plan[2], plan[3], 0, st>>>(batch);     \
+    }
     SHEAR_BUCKETS(SHEAR_LAUNCH)
 #undef SHEAR_LAUNCH
     return (int)cudaGetLastError();
 }
+
+#ifdef SHEAR_SASS_PROBE
+// Each body alone at two slot counts, for tools/shear_sass.py's count of
+// SASS instructions per slot (built only with -DSHEAR_SASS_PROBE).
+template <int C>
+__global__ void shear_probe_i32(const ShearBatch b) {
+    shear_pair_i32<C>(BswGroup<SHEAR_G>(), b, blockIdx.x);
+}
+template <int R>
+__global__ void shear_probe_s16(const ShearBatch b) {
+    shear_pair_s16<R>(BswGroup<SHEAR_G>(), b, blockIdx.x);
+}
+template __global__ void shear_probe_i32<7>(const ShearBatch);
+template __global__ void shear_probe_i32<13>(const ShearBatch);
+template __global__ void shear_probe_s16<4>(const ShearBatch);
+template __global__ void shear_probe_s16<7>(const ShearBatch);
+#endif

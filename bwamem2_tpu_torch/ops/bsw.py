@@ -24,10 +24,10 @@ Two dispatches, the same kernels:
     (hostrt.extension_batch, the flat path): every pair is in-cap;
   * `DeviceBSW.left_kernel` / `right_kernel`, the object path
     (align/extend.py:extend_chains, for chunks the flat path does not
-    take: long reads): in-cap pairs as above, longer ones per
-    `long_classes` rung to `bsw_shear_cuda.bsw_shear`, and the pairs of a
-    read the read grid does not hold to the native host kernel, counted
-    as `overflow.bsw_host_tail`.
+    take: long reads): in-cap pairs as above, longer ones in one call of
+    `bsw_shear_cuda.bsw_shear` (`DeviceBSW.long_order`), and
+    the pairs of a read the read grid does not hold to the native host
+    kernel, counted as `overflow.bsw_host_tail`.
 In-cap pairs split over the fixed (Q, T) shape ladder and every rung group
 goes, longest pairs first, to `bsw_cuda.bsw_extend`.  Each wrapper runs
 its CUDA kernel for a read grid on the GPU and its plain version for one on
@@ -52,17 +52,28 @@ QCAP, TCAP = 256, 608
 # run on the sheared-band kernel; rows stop at min(tlen, qlen + w + 2) (the
 # first empty-band row ends the pair), so tlen needs no cap
 LONG_QCAP = 32768
+# the JAX package's row rungs of the long class (its static T shapes); the
+# port gives a call's long pairs to bsw_shear at once (DeviceBSW.
+# long_order), and the tests split them by these rungs to hold that
+# against per-rung calls
 LONG_T_LADDER = (768, 1536, 3072, 6144, 12288, 24576, LONG_QCAP + 512)
 
 
+def long_rows(qls: np.ndarray, tls: np.ndarray, w: int) -> np.ndarray:
+    """The rows a long pair can run, min(tlen, qlen + w + 2): a pair stops
+    at its first empty band, by row qlen + w."""
+    return np.minimum(np.asarray(tls, np.int64),
+                      np.asarray(qls, np.int64) + w + 2)
+
+
 def long_classes(qls: np.ndarray, tls: np.ndarray, idxs, w: int) -> list:
-    """(T, idx_array) groups for the sheared long class, keyed by the
-    effective row count min(tlen, qlen + w + 2): rows past the last
-    possible in-band row never run, so a tlen >> qlen pair is cheap.  T
-    caps the rung's rows; the frame does not depend on qlen, so no query
-    rung is needed."""
+    """(T, idx_array) groups of the JAX package's sheared long class,
+    keyed by the effective row count min(tlen, qlen + w + 2): rows past
+    the last possible in-band row never run, so a tlen >> qlen pair is
+    cheap.  T caps the rung's rows; the frame does not depend on qlen, so
+    no query rung is needed."""
     idxs = np.asarray(idxs)
-    eff = np.minimum(tls[idxs], qls[idxs] + w + 2)
+    eff = long_rows(qls[idxs], tls[idxs], w)
     rung = np.searchsorted(LONG_T_LADDER, eff)
     out = []
     for r in range(len(LONG_T_LADDER) + 1):
@@ -540,15 +551,16 @@ class DeviceBSW:
         return out
 
     @staticmethod
-    def long_order(qls: np.ndarray, tls: np.ndarray, w: int) -> list:
-        """The long_classes rungs, each as (T, pair indices by descending
-        row count min(tlen, qlen + w + 2), ties in descriptor order): one
-        launch each, longest pairs first."""
-        out = []
-        for T, idxs in long_classes(qls, tls, np.arange(len(qls)), w):
-            eff = np.minimum(tls[idxs], qls[idxs] + w + 2)
-            out.append((T, idxs[np.argsort(-eff, kind="stable")]))
-        return out
+    def long_order(qls: np.ndarray, tls: np.ndarray, w: int,
+                   fit: np.ndarray) -> tuple:
+        """(pair indices, their row counts min(tlen, qlen + w + 2)) in the
+        order of a call's bsw_shear launches: the pairs that fit 16 bits
+        (`fit`) first, each part by descending row count, ties in
+        descriptor order, so that each launch starts its longest pairs
+        first."""
+        rows = long_rows(qls, tls, w)
+        idxs = np.lexsort((-rows, ~np.asarray(fit, bool)))
+        return idxs, rows[idxs]
 
     def _put(self, desc: dict, idxs: np.ndarray):
         """The descriptors of pairs idxs on the grid's device: qoff (the
@@ -589,25 +601,26 @@ class DeviceBSW:
 
     def _enqueue_long(self, desc: dict, sel: np.ndarray, w: int, opt,
                       end_bonus: int) -> list:
-        """Launch bsw_shear on the long pairs sel, one launch per
-        long_classes rung at the band radius Wh = w; returns [(pair
-        indices, result rows)]."""
+        """Launch bsw_shear on the long pairs sel at the band radius Wh = w
+        and the row cap of the longest pair: one launch for the pairs that
+        fit 16 bits (BswShear.fits16), one for the rest, each longest
+        first (long_order); returns [(pair indices, result rows)]."""
         from .bsw_shear_cuda import bsw_shear
-        flights = []
         if not len(sel):
-            return flights
-        for T, idxs in self.long_order(desc["qlen"][sel],
-                                       desc["tlen"][sel], w):
-            idxs = sel[idxs]
-            res = bsw_shear(
-                self.dfm.ref, self.encj, *self._put(desc, idxs),
-                torch.full((len(idxs),), w, dtype=I32,
-                           device=self.encj.device), w, T,
-                *opt.mat_scores(), opt.o_del, opt.e_del, opt.o_ins,
-                opt.e_ins, opt.zdrop, end_bonus, self.max_sc,
-                self.dfm.ref_packed)
-            flights.append((idxs, res))
-        return flights
+            return []
+        qls = desc["qlen"][sel]
+        scores = (*opt.mat_scores(), opt.o_del, opt.e_del, opt.o_ins,
+                  opt.e_ins)
+        fit = bsw_shear.fits16(qls, desc["h0"][sel], w, *scores,
+                               self.max_sc)
+        order, rows = self.long_order(qls, desc["tlen"][sel], w, fit)
+        idxs = sel[order]
+        res = bsw_shear(
+            self.dfm.ref, self.encj, *self._put(desc, idxs),
+            torch.full((len(idxs),), w, dtype=I32, device=self.encj.device),
+            w, int(rows.max()), *scores, opt.zdrop, end_bonus, self.max_sc,
+            self.dfm.ref_packed, n16=int(fit.sum()))
+        return [(idxs, res)]
 
     def _run(self, pending, w: int, opt, end_bonus: int) -> np.ndarray:
         """Score the object path's pending pairs (align/extend.py:_Pair):

@@ -6,18 +6,21 @@ CUDA tensors it launches the kernel or raises — it never falls back.
 `bsw_shear.launches` counts kernel launches, `bsw_shear.plain_calls` the
 CPU calls.
 
-The kernel runs one warp per pair with the pair's sheared frame in
-registers: 32 lanes x C slots, C the least bucket of SHEAR_BUCKETS whose
-frame holds 2*Wh + 3 slots; a band wider than the widest bucket (Wh >
-206) keeps the frame in shared memory instead.  `bsw_shear.plan` reports
-a launch's shape: slots per lane C, warps per block and shared-memory
-bytes per block (0 for a register bucket).
+A call's pairs go to at most two launches, one per body: the first
+`n16` pairs (which must fit 16 bits, `fits16`: the caller orders them
+first) to the 16-bit body, the rest to the int32 body; each launch runs
+one warp per pair, its blocks in the order given (the dispatch gives each
+part by descending row count).  The frame's slots per lane come from Wh
+(csrc/shear_group.cuh:SHEAR_BUCKETS); a band wider than the widest
+bucket (Wh > 206) keeps the frame in shared memory instead, in the int32
+body.  `bsw_shear.plan` reports a launch's shape.
 """
 
 from __future__ import annotations
 
 import ctypes
 
+import numpy as np
 import torch
 
 from .bsw import bsw_shear_desc_ref
@@ -33,37 +36,61 @@ class BswShear(CudaKernel):
     SOURCES = ("bsw_shear.cu", "shear_group.cuh", "bsw_group.cuh",
                "bsw_common.cuh")
     SIGNATURE = ("bsw_shear_launch",
-                 [VP, I64, VP, I64, I32] + [VP] * 8 + [I32] * 12
+                 [VP, I64, VP, I64, I32] + [VP] * 8 + [I32] * 14
                  + [VP, VP])
+    REG_WH_MAX = 206       # the widest register bucket's band radius
 
     def __call__(self, ref, enc, qoff, qdir, qlen, toff, tdir, tlen, h0, w,
                  Wh: int, Tmax: int, mat_a: int, mat_b: int, o_del: int,
                  e_del: int, o_ins: int, e_ins: int, zdrop: int,
-                 end_bonus: int, max_sc: int,
-                 ref_packed: bool = False) -> torch.Tensor:
+                 end_bonus: int, max_sc: int, ref_packed: bool = False,
+                 n16: int = 0) -> torch.Tensor:
         args = (ref, enc, qoff, qdir, qlen, toff, tdir, tlen, h0, w, Wh,
                 Tmax, mat_a, mat_b, o_del, e_del, o_ins, e_ins, zdrop,
                 end_bonus, max_sc, ref_packed)
         if enc.device.type == "cpu":
             self._plain()
             return bsw_shear_desc_ref(*args)
-        return self.launch(*args)
+        return self.launch(*args, n16=n16)
 
-    def plan(self, P: int, Wh: int, dev) -> tuple[int, int, int]:
-        """(slots per lane C, warps per block, shared-memory bytes per
-        block) of a launch on CUDA device `dev`."""
-        plan = (ctypes.c_int * 3)()
-        err = self._query(dev, "bsw_shear_plan", [I32, I32, VP], Wh, P,
-                          ctypes.addressof(plan))
+    def plan(self, n: int, Wh: int, dev, s16: bool = False) -> tuple:
+        """(C int32 slots per lane, R 16-bit registers per lane, blocks,
+        threads per block, shared-memory bytes per block) of a launch of n
+        pairs in the 16-bit body (s16) or the int32 one on CUDA device
+        `dev`; R = 0 and shared bytes > 0 for the shared-memory frame."""
+        plan = (ctypes.c_int * 5)()
+        err = self._query(dev, "bsw_shear_plan", [I32, I32, I32, VP], Wh, n,
+                          int(bool(s16)), ctypes.addressof(plan))
         if err:
-            raise ValueError(f"bsw_shear: no launch for Wh={Wh} (CUDA "
-                             f"error {err})")
+            raise ValueError(f"bsw_shear: no launch for Wh={Wh}"
+                             f"{' in 16 bits' if s16 else ''} (CUDA error "
+                             f"{err})")
         return tuple(plan)
+
+    @classmethod
+    def fits16(cls, qlen: np.ndarray, h0: np.ndarray, Wh: int, mat_a: int,
+               mat_b: int, o_del: int, e_del: int, o_ins: int, e_ins: int,
+               max_sc: int) -> np.ndarray:
+        """Per pair: it may run in the 16-bit body (the only test; the
+        kernel trusts the caller's n16).  Every H is at most h0 + qlen *
+        max_sc and M = H + score one score more, so h0 + (qlen + 1) *
+        max_sc <= 32767; the scores are signed bytes (a <= 127, -128 <= -b
+        <= 127) and the gap terms small (a row's F may start R * e_ins
+        below 0); and the band fits a register bucket (Wh <= 206)."""
+        ok = (Wh <= cls.REG_WH_MAX and 0 <= mat_a <= 127
+              and -127 <= mat_b <= 128 and max_sc >= 0
+              and min(o_del, e_del, o_ins, e_ins) >= 0
+              and o_del + e_del <= 1024 and o_ins + e_ins <= 1024)
+        h0 = np.asarray(h0, np.int64)
+        return ok & (h0 >= 0) & (
+            h0 + (np.asarray(qlen, np.int64) + 1) * max_sc <= 32767)
 
     def launch(self, ref, enc, qoff, qdir, qlen, toff, tdir, tlen, h0, w,
                Wh, Tmax, mat_a, mat_b, o_del, e_del, o_ins, e_ins, zdrop,
-               end_bonus, max_sc, ref_packed=False) -> torch.Tensor:
-        """Launch the CUDA kernel on the current stream (no sync)."""
+               end_bonus, max_sc, ref_packed=False, n16=0) -> torch.Tensor:
+        """Launch the CUDA kernels on the current stream (no sync): pairs
+        [0, n16) in the 16-bit body, the rest in the int32 body, one
+        launch each where it has pairs."""
         dev = enc.device
         if dev.type != "cuda":
             raise ValueError(f"bsw_shear kernel needs CUDA tensors, got {dev}")
@@ -80,22 +107,28 @@ class BswShear(CudaKernel):
                                  f"entries, expected {P}")
         if Wh < 0:
             raise ValueError(f"bsw_shear: band radius Wh={Wh} < 0")
+        if not 0 <= n16 <= P:
+            raise ValueError(f"bsw_shear: n16={n16} outside [0, {P}]")
         shift = max(mat_b, 1)
         if not (0 <= mat_a + shift <= 255 and shift - mat_b <= 255):
             # the per-row score table holds score + max(b, 1) in one byte
             raise ValueError(f"bsw_shear: scores a={mat_a} b={mat_b} do "
                              "not fit the biased byte table")
         out = torch.empty((P, 6), dtype=torch.int32, device=dev)
-        if P == 0:
-            return out
-        self.plan(P, Wh, dev)     # raises for a band beyond every bucket
-        self._launch(
-            dev, enc.data_ptr(), enc.numel(), ref.data_ptr(), ref.numel(),
-            int(bool(ref_packed)), qoff.data_ptr(), qdir.data_ptr(),
-            qlen.data_ptr(), toff.data_ptr(), tdir.data_ptr(),
-            tlen.data_ptr(), h0.data_ptr(), w.data_ptr(), P, Wh, Tmax,
-            mat_a, mat_b, o_del, e_del, o_ins, e_ins, zdrop, end_bonus,
-            max_sc, out.data_ptr())
+        for s16, p0, p1 in ((1, 0, n16), (0, n16, P)):
+            if p1 == p0:
+                continue
+            # raises for a band beyond every bucket, or in 16 bits beyond
+            # the register buckets
+            self.plan(p1 - p0, Wh, dev, bool(s16))
+            self._launch(
+                dev, enc.data_ptr(), enc.numel(), ref.data_ptr(),
+                ref.numel(), int(bool(ref_packed)), qoff.data_ptr(),
+                qdir.data_ptr(), qlen.data_ptr(), toff.data_ptr(),
+                tdir.data_ptr(), tlen.data_ptr(), h0.data_ptr(),
+                w.data_ptr(), p0, p1, s16, Wh, Tmax, mat_a, mat_b, o_del,
+                e_del, o_ins, e_ins, zdrop, end_bonus, max_sc,
+                out.data_ptr())
         return out
 
 

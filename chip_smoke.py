@@ -15,7 +15,9 @@ Phases, each of which fails the run (non-zero exit, no result line):
      the checkout's sources, all started together;
      the registers, spills and stack frame of each bsw_extend
      instantiation (lanes x columns per lane), each bsw_shear
-     instantiation (slots per lane), each kswv instantiation (u8/i16 x
+     instantiation (int32 slots and 16-bit registers per lane, and the
+     shared-memory frame; none may spill or have a stack frame), each
+     kswv instantiation (u8/i16 x
      register bucket or shared-memory stripes), each smem_collect
      instantiation, each sa_resolve instantiation (walks per lane) and
      round1_walk, the last two of which must have no stack frame (each
@@ -76,11 +78,13 @@ Phases, each of which fails the run (non-zero exit, no result line):
         ptxas numbers, and the earlier one-thread design's times beside
         the kernel's;
      e. bsw_shear against bsw_shear_desc_ref on run (d)'s own launches
-        (captured as DeviceBSW._run makes them, one per long_classes rung
-        and side and band try), each timed with CUDA events beside its
-        bound (10 operations per band cell the plain version counts, and
-        bytes), with its slot bucket, warps per block and the
-        instantiation's ptxas numbers;
+        (captured as DeviceBSW._run makes them: one call per side and
+        band try, a launch per body it uses), each timed with CUDA events
+        beside its bound (10 operations per band cell the plain version
+        counts, and bytes), with the share of its pairs in each body
+        (16-bit, int32), its launch shape and the instantiations' ptxas
+        numbers, and the call's longest pair launched alone in the body it
+        took: its rows and microseconds a row;
      b. the smem_collect and sa_resolve wrappers against smem_collect_ref
         and sa_resolve_ref on 2,048 reads of the smoke FASTQ and on the
         first chunk of each main-path run (15,000 and 66,668 reads), with
@@ -324,7 +328,7 @@ def ptxas_table(text: str) -> dict:
 def instances(text: str, kernel: str) -> dict:
     """{template arguments: ptxas numbers} of a kernel's instantiations:
     (G, C) of bsw_extend_kernel<G, C>, (C,) of bsw_shear_kernel<C>,
-    (u8, SMAX) of kswv_kernel<U8, SMAX>
+    (R,) of bsw_shear_s16_kernel<R>, (u8, SMAX) of kswv_kernel<U8, SMAX>
     (SMAX 0 = shared-memory stripes), (G, LCAP) of
     smem_collect_kernel<G, LCAP>, (W,) of sa_resolve_kernel<W>."""
     import re
@@ -383,12 +387,26 @@ def build_all() -> dict:
                     f"spilled, {v.get('stack')} B stack frame")
             continue
         if name == "bsw_shear":
-            for (C,), v in inst:
-                frame = (f"frame {32 * C}" if C else
-                         "frame in shared memory, C at run time")
-                log(f"  ptxas bsw_shear<C={C}> (32 lanes, {frame}): "
-                    f"{v.get('registers')} registers, {v.get('spill')} B "
-                    f"spilled, {v.get('stack')} B stack frame")
+            if not k.build_log:
+                continue        # built before this run: no ptxas output
+            wide = [v for n, v in ptxas_table(k.build_log).items()
+                    if "bsw_shear_wide_kernel" in n]
+            s16 = sorted(instances(k.build_log, "bsw_shear_s16").items())
+            rows = [(f"bsw_shear<C={C}> (int32, frame {32 * C})", v)
+                    for (C,), v in inst]
+            rows += [(f"bsw_shear_s16<R={r}> (16-bit, frame {64 * r})", v)
+                     for (r,), v in s16]
+            rows += [("bsw_shear_wide (int32, frame in shared memory, C at "
+                      "run time)", v) for v in wide]
+            for label, v in rows:
+                log(f"  ptxas {label}: {v.get('registers')} registers, "
+                    f"{v.get('spill')} B spilled, {v.get('stack')} B stack "
+                    "frame")
+            if len(inst) != 2 or len(s16) != 2 or len(wide) != 1 or any(
+                    v.get("spill") or v.get("stack") for _, v in rows):
+                fail(f"bsw_shear: instantiations {rows} (two register "
+                     "buckets in each body and the shared-memory frame, "
+                     "none spilling or with a stack frame)")
             continue
         if name == "sa_resolve":
             if not k.build_log:
@@ -587,24 +605,32 @@ def bsw_main_path(torch, calls) -> dict:
 
 
 def shear_main_path(torch, calls) -> dict:
-    """bsw_shear on run (d)'s own launches (the arguments DeviceBSW._run
-    gave it, one launch per long_classes rung, longest pairs first), each
-    against bsw_shear_desc_ref (exact) and timed with CUDA events, with its
-    slot bucket, warps per block and the instantiation's ptxas numbers;
-    sums over the launches.  The bound: OPS_PER_CELL int32 operations per
-    band cell the plain version counts, against the descriptors, the query
-    codes, the target codes of the rows a pair can run and the output."""
-    from bwamem2_tpu_torch.ops.bsw import bsw_shear_desc_ref
+    """bsw_shear on run (d)'s own calls (the arguments DeviceBSW._run gave
+    it: the pairs that fit 16 bits first, n16 of them, each part by
+    descending row count; a launch per body with pairs), each against
+    bsw_shear_desc_ref (exact) and timed with CUDA events beside its
+    bound, with the share of its pairs in each body, its launch shapes
+    and the instantiations' ptxas numbers; the call's longest pair
+    launched alone in the body it took, its rows and microseconds a row;
+    sums over the calls.  The bound: OPS_PER_CELL int32 operations per
+    band cell the plain version counts, against the descriptors, the
+    query codes, the target codes of the rows a pair can run and the
+    output."""
+    from bwamem2_tpu_torch.ops.bsw import bsw_shear_desc_ref, long_rows
     from bwamem2_tpu_torch.ops.bsw_shear_cuda import bsw_shear
-    tot = dict(launches=len(calls), pairs=0, ms=0.0, plain_ms=0.0,
+    tot = dict(calls=len(calls), launches=0, pairs=0, ms=0.0, plain_ms=0.0,
                bound_ms=0.0, ops_ms=0.0, mem_ms=0.0, cells=0, err=0,
-               per_launch=[])
-    ptx = instances(bsw_shear.build_log, "bsw_shear")
+               routes=dict(s16=0, int32=0), per_call=[])
+    ptx = {(True,) + k: v for k, v in
+           instances(bsw_shear.build_log, "bsw_shear_s16").items()}
+    ptx.update({(False,) + k: v for k, v in
+                instances(bsw_shear.build_log, "bsw_shear").items()})
     ev = lambda: torch.cuda.Event(enable_timing=True)  # noqa: E731
-    log(f"  {'Wh':>4} {'qmax':>6} {'T':>6} {'pairs':>6} {'cells':>11} "
-        f"{'kernel_ms':>10} {'plain_ms':>10} {'bound_ms':>9} launch")
-    for args in calls:
-        got = bsw_shear.launch(*args)
+    log(f"  {'call':>4} {'Wh':>4} {'pairs':>6} {'16-bit':>6} {'int32':>5} "
+        f"{'cells':>11} {'kernel_ms':>10} {'plain_ms':>10} {'bound_ms':>9} "
+        "longest pair (rows, us/row, body), launches")
+    for n, (args, kw) in enumerate(calls, 1):
+        got = bsw_shear.launch(*args, **kw)
         cells: list = []
         e0, e1 = ev(), ev()
         e0.record()
@@ -618,35 +644,60 @@ def shear_main_path(torch, calls) -> dict:
         if not torch.equal(got, want):
             bad = int((got != want).any(1).sum())
             fail(f"bsw_shear disagrees with bsw_shear_desc_ref on {bad} of "
-                 f"run (d)'s pairs (Wh={args[10]}, T={args[11]}; max abs "
-                 f"err {err})")
-        k_ms = cuda_ms(torch, lambda: bsw_shear.launch(*args), 3)
-        P, Wh, T = args[2].shape[0], args[10], args[11]
+                 f"run (d)'s pairs (call {n}, Wh={args[10]}; max abs err "
+                 f"{err})")
+        k_ms = cuda_ms(torch, lambda: bsw_shear.launch(*args, **kw), 3)
+        P, Wh = args[2].shape[0], args[10]
+        n16 = kw.get("n16", 0)
         qlen, tlen = args[4].long(), args[7].long()
-        qmax = int(qlen.max())
+        rows = long_rows(qlen.cpu().numpy(), tlen.cpu().numpy(), Wh)
+        routes = dict(s16=n16, int32=P - n16)
+        # the longest pair alone, in its body
+        j = int(rows.argmax())
+        one = (*args[:2], *(t[j:j + 1] for t in args[2:10]), *args[10:])
+        body = "16-bit" if j < n16 else "int32"
+        one_ms = cuda_ms(torch, lambda: bsw_shear.launch(
+            *one, n16=int(j < n16)), 3)
+        us_row = one_ms * 1e3 / max(int(rows[j]), 1)
         nbytes = (P * (DESC_BYTES + OUT_BYTES) + int(qlen.sum())
                   + int(torch.minimum(tlen, qlen + Wh + 2).sum()))
         ops_ms = cells[0] * OPS_PER_CELL / INT32_OPS_PER_S * 1e3
         mem_ms = nbytes / HBM_BYTES_PER_S * 1e3
-        C, wpb, smem = bsw_shear.plan(P, Wh, args[1].device)
-        inst = ptx.get((0 if smem else C,), {})
-        tot["per_launch"].append(dict(
-            Wh=Wh, qmax=qmax, T=T, P=P, cells=cells[0], ms=k_ms,
-            plain_ms=p_ms, bound_ms=max(ops_ms, mem_ms), C=C,
-            warps_per_block=wpb, shared_bytes=smem,
-            registers=inst.get("registers"),
-            spill_bytes=inst.get("spill"), stack_bytes=inst.get("stack")))
-        log(f"  {Wh:>4} {qmax:>6} {T:>6} {P:>6} {cells[0]:>11} "
-            f"{k_ms:>10.4f} {p_ms:>10.1f} {max(ops_ms, mem_ms):>9.5f} "
-            f"C={C} (frame {32 * C}{' in shared memory' if smem else ''}), "
-            f"{wpb} warps/block, "
-            f"{inst.get('registers')} registers, {inst.get('spill')} B "
-            f"spilled, {inst.get('stack')} B stack frame")
+        shapes = []
+        for s16, m in ((True, n16), (False, P - n16)):
+            if not m:
+                continue
+            C, R, blocks, threads, smem = bsw_shear.plan(
+                m, Wh, args[1].device, s16)
+            inst = ptx.get((s16, R if s16 else C), {}) if R else {}
+            shapes.append(dict(
+                body="16-bit" if s16 else "int32", pairs=m, C=C, R=R,
+                blocks=blocks, threads=threads, shared_bytes=smem,
+                registers=inst.get("registers"),
+                spill_bytes=inst.get("spill"),
+                stack_bytes=inst.get("stack")))
+        tot["per_call"].append(dict(
+            call=n, Wh=Wh, P=P, routes=routes, cells=cells[0], ms=k_ms,
+            plain_ms=p_ms, bound_ms=max(ops_ms, mem_ms),
+            longest_rows=int(rows[j]), longest_ms=one_ms,
+            longest_us_per_row=us_row, longest_body=body, launches=shapes))
+        shape = "; ".join(
+            f"{s['body']} C={s['C']} R={s['R']}, {s['blocks']} blocks x "
+            f"{s['threads']}, {s['registers']} registers" if s["R"] else
+            f"int32 C={s['C']} shared-memory frame {s['shared_bytes']} B, "
+            f"{s['blocks']} blocks" for s in shapes)
+        log(f"  {n:>4} {Wh:>4} {P:>6} {routes['s16']:>6} "
+            f"{routes['int32']:>5} {cells[0]:>11} {k_ms:>10.4f} "
+            f"{p_ms:>10.1f} {max(ops_ms, mem_ms):>9.5f} "
+            f"({int(rows[j])}, {us_row:.4f}, {body}), {shape}")
+        tot["launches"] += len(shapes)
         for key, v in (("pairs", P), ("ms", k_ms), ("plain_ms", p_ms),
                        ("bound_ms", max(ops_ms, mem_ms)),
                        ("ops_ms", ops_ms), ("mem_ms", mem_ms),
                        ("cells", cells[0])):
             tot[key] += v
+        for key, v in routes.items():
+            tot["routes"][key] += v
     return tot
 
 
@@ -1294,9 +1345,9 @@ def drive_long(torch, card: str, tag: str, cli_args: list, fq: str,
     shear_calls = []
     orig = BswShear.launch
 
-    def spy(self, *args):
-        shear_calls.append(args)
-        return orig(self, *args)
+    def spy(self, *args, **kw):
+        shear_calls.append((args, kw))
+        return orig(self, *args, **kw)
 
     for d in (PROF.t, PROF.n, PROF.c, PROF.ctot):
         d.clear()
@@ -1963,9 +2014,9 @@ def goldens() -> str:
     bands = []
     orig = BswShear.launch
 
-    def spy(self, *args):
+    def spy(self, *args, **kw):
         bands.append(args[10])
-        return orig(self, *args)
+        return orig(self, *args, **kw)
 
     opt = MemOptions()
     opt.set("w", WIDE_W)
@@ -1983,7 +2034,7 @@ def goldens() -> str:
         BswShear.launch = orig
     if PROF.c.get("overflow.bsw_host_tail", 0) != tail0:
         fail(f"-w {WIDE_W}: extension pairs ran on the host kernel")
-    frames = {wh: K["bsw_shear"].plan(1, wh, "cuda")[2]
+    frames = {wh: K["bsw_shear"].plan(1, wh, "cuda")[4]
               for wh in set(bands)}
     if not frames or not all(frames.values()):
         fail(f"-w {WIDE_W}: a bsw_shear launch did not use the "
@@ -2141,13 +2192,15 @@ def main() -> None:
             f"{bm['bound_ms']:.5f} ms ({OPS_PER_CELL_24}-op model "
             f"{bm['bound24_ms']:.5f} ms) [{card}]")
         log(f"[5e] bsw_shear vs plain on run (d)'s {len(shear_d)} "
-            f"launches [{card}]:")
+            f"calls [{card}]:")
         sh = shear_main_path(torch, shear_d)
         del shear_d
         log(f"  all identical; kernel {sh['ms']:.4f} ms over "
-            f"{sh['launches']} launches ({sh['pairs']} pairs, {sh['cells']} "
-            f"cells), plain {sh['plain_ms']:.1f} ms, bound "
-            f"{sh['bound_ms']:.5f} ms [{card}]")
+            f"{sh['launches']} launches of {sh['calls']} calls "
+            f"({sh['pairs']} pairs: {sh['routes']['s16']} 16-bit, "
+            f"{sh['routes']['int32']} int32; {sh['cells']} cells), plain "
+            f"{sh['plain_ms']:.1f} ms, bound {sh['bound_ms']:.5f} ms "
+            f"[{card}]")
         log(f"[5b] smem_collect / sa_resolve vs plain on {name} [{card}]:")
         sd = seeding_vs_plain(torch, fm, (
             ("sample", fq1, fq2, TASK_BASES, N_SEED, None),
@@ -2259,9 +2312,9 @@ def main() -> None:
              bound_ms=round(sh["bound_ms"], 5),
              bound_by=by(sh["ops_ms"], sh["mem_ms"]), library_ms=None,
              library_note="no PyTorch call computes banded SW",
-             shape=f"sum over the {sh['launches']} launches of run (d) "
-                   f"(-x pacbio, {LONG_READS} reads of 2-8 kb), "
-                   f"{sh['pairs']} pairs"),
+             shape=f"sum over the {sh['calls']} calls ({sh['launches']} "
+                   f"launches) of run (d) (-x pacbio, {LONG_READS} reads "
+                   f"of 2-8 kb), {sh['pairs']} pairs"),
         dict(name="smem_collect", route="cuda",
              source="bwamem2_tpu_torch/csrc/smem_collect.cu",
              replaces="bwamem2_tpu/ops/seedall.py:93",

@@ -7,15 +7,19 @@ the bsw_shear CUDA kernel) must equal, exactly (int32, tolerance 0):
     default scores;
   * the port's scalar native kernel on pacbio-like mutated pairs (the
     sweep of tests/test_bsw_shear.py);
-  * the CUDA kernel's own lane-group body (csrc/shear_group.cuh) compiled
-    as host C++, each warp an int[32] lane vector stepped in lockstep: at
-    every slot bucket, with the frame's edge cases (tlen >> qlen, qlen <=
-    256 with tlen > 608, pairs that stop on z-drop, on a zero row maximum
-    and after their last row).
+  * the CUDA kernel's own bodies (csrc/shear_group.cuh) compiled as host
+    C++, each warp a lane vector of 32 ints stepped in lockstep: the int32
+    body and the 16-bit body (the DPX 16x2 operations emulated half by
+    half), at every slot bucket, with the frame's edge cases (tlen >>
+    qlen, qlen <= 256 with tlen > 608, pairs that stop on z-drop, on a
+    zero row maximum and after their last row), at the 16-bit body's
+    edge, and with the pairs run in a shuffled order.
 DeviceBSW.left_kernel / right_kernel (the object path's dispatch) must
 equal the JAX package's DeviceBSW._run on the same pending pairs and read
 grid, with in-cap and long pairs mixed; the pairs of a read off the grid,
-and only those, run on the host kernel (overflow.bsw_host_tail).
+and only those, run on the host kernel (overflow.bsw_host_tail).  Its one
+bsw_shear call per extension call must equal the JAX package's calls per
+long_classes rung, through the plain version.
 Inputs are made with numpy from fixed seeds.
 """
 
@@ -171,13 +175,16 @@ def test_ref_matches_native_on_mutated_pairs(w):
 
 @pytest.fixture(scope="module")
 def host_shear(tmp_path_factory):
-    """csrc/shear_group.cuh built as host C++: each warp is an int[32] lane
-    vector stepped in lockstep, and a per-pair loop stands in for the CUDA
-    launch.  shear_host runs the slot bucket the launch would choose for
-    Wh, or the one given (C slots per lane, in registers or, with wide, in
-    the memory frame), returns C (+ 1000 for the memory frame), and
-    records per pair why its row loop ended (0 zero row maximum, 1 z-drop,
-    2 ran every row)."""
+    """csrc/shear_group.cuh built as host C++: each warp is a lane vector
+    of 32 ints stepped in lockstep, and a loop over the pairs stands in
+    for the CUDA launches.  shear_host runs the slot bucket the launch would
+    choose for Wh, or the one given (C int32 slots per lane, in registers
+    or, with wide, in the memory frame): pairs [0, n16) in the 16-bit
+    body, the rest in the int32 body, as the wrapper's two launches do;
+    the pairs run in the order perm gives, when one is given.  It returns C (+
+    1000 for the memory frame) and records per pair why its row loop
+    ended (0 zero row maximum, 1 z-drop, 2 ran every row) and the body
+    that ran it (0 int32, 1 16-bit)."""
     d = tmp_path_factory.mktemp("shear_group")
     shim = d / "shim.cpp"
     shim.write_text(r"""
@@ -185,28 +192,47 @@ static int *shear_stops;
 #define SHEAR_STOP_HOOK(p, why) (shear_stops[p] = (why))
 #include "shear_group.cuh"
 #include <vector>
-template <int C> static void run_all(const ShearBatch &b) {
+template <int C, int R>
+static void run_reg(const ShearBatch &b, int n16, const int64_t *perm,
+                    int *route) {
   const BswGroup<SHEAR_G> g;
-  std::vector<BswLanes<SHEAR_G>> mem(C ? 0 : SHEAR_ARRAYS * b.C);
-  for (int p = 0; p < b.P; ++p)
-    shear_group_pair<C>(g, b, p, C ? nullptr : mem.data(), 1);
+  for (int t = 0; t < b.P; ++t) {
+    const int p = perm ? (int)perm[t] : t;
+    if (p < n16) {
+      shear_pair_s16<R>(g, b, p);
+      route[p] = 1;
+    } else {
+      shear_pair_i32<C>(g, b, p);
+      route[p] = 0;
+    }
+  }
+}
+static void run_wide(const ShearBatch &b, const int64_t *perm, int *route) {
+  const BswGroup<SHEAR_G> g;
+  std::vector<BswLanes<SHEAR_G>> mem(SHEAR_ARRAYS * b.C);
+  for (int t = 0; t < b.P; ++t) {
+    const int p = perm ? (int)perm[t] : t;
+    shear_pair_i32<0>(g, b, p, mem.data(), 1);
+    route[p] = 0;
+  }
 }
 extern "C" int shear_host(const int8_t *enc, int64_t n_enc,
     const uint8_t *ref, int64_t n_ref, int packed, const int *qoff,
     const int *qdir, const int *qlen, const int64_t *toff, const int *tdir,
     const int *tlen, const int *h0, const int *w, int P, int Wh, int Tmax,
-    const int *sc, int C, int wide, int *out, int *stops) {
+    const int *sc, int C, int wide, int n16, const int64_t *perm, int *out,
+    int *stops, int *route) {
   int ct = wide ? 0 : C;
   if (!C && (ct = shear_bucket(Wh, &C)) < 0) return 0;
   const ShearBatch b{enc, n_enc, ref, n_ref, packed, qoff, qdir, qlen, toff,
-                     tdir, tlen, h0, w, P, Wh, Tmax, C,
+                     tdir, tlen, h0, w, 0, P, Wh, Tmax, C,
                      {sc[0], sc[1], sc[2], sc[3], sc[4], sc[5], sc[6], sc[7],
                       sc[8]}, out};
   shear_stops = stops;
   for (int p = 0; p < P; ++p) stops[p] = 2;
-  if (ct == 0) { run_all<0>(b); return 1000 + C; }
-#define SHEAR_HOST_CASE(c_) \
-  if (ct == c_) { run_all<c_>(b); return C; }
+  if (ct == 0) { run_wide(b, perm, route); return 1000 + C; }
+#define SHEAR_HOST_CASE(c_, r_) \
+  if (ct == c_) { run_reg<c_, r_>(b, n16, perm, route); return C; }
   SHEAR_BUCKETS(SHEAR_HOST_CASE)
   return 0;
 }
@@ -218,30 +244,47 @@ extern "C" int shear_host(const int8_t *enc, int64_t n_enc,
     return ctypes.CDLL(str(so))
 
 
+def fit16(d, Wh, scoring):
+    """The wrapper's 16-bit test (BswShear.fits16) on pairs d."""
+    return bsw_shear_cuda.BswShear.fits16(d[4], d[8], Wh, *scoring[:6],
+                                          max(scoring[0], 1))
+
+
 def run_host(lib, d, Wh, scoring, C=0, ref=None, packed=False, Tmax=None,
-             wide=False):
+             wide=False, n16=None, perm=None):
     """(out int32[P, 6], bucket C (+ 1000 for the memory frame), stop
-    reason per pair)."""
+    reason per pair, body per pair).  n16 None: as the dispatch routes the
+    pairs, which fits16 must give as a prefix of them (none in the memory
+    frame)."""
     ref_a, enc, qoff, qdir, qlen, toff, tdir, tlen, h0, _ = (
         np.ascontiguousarray(x) for x in d)
     if ref is not None:
         ref_a = np.ascontiguousarray(ref)
     P = len(qoff)
+    if n16 is None:
+        fit = fit16(d, Wh, scoring) & (not wide)
+        n16 = int(fit.sum())
+        assert fit[:n16].all(), "the 16-bit pairs come first"
     w = np.full(P, Wh, np.int32)
     if Tmax is None:
         Tmax = int(np.minimum(tlen, qlen + Wh + 2).max())
     sc = np.array(list(scoring) + [max(scoring[0], 1)], np.int32)
     out = np.zeros((P, 6), np.int32)
     stops = np.zeros(P, np.int32)
+    route = np.full(P, -1, np.int32)
     ptr = lambda x: ctypes.c_void_p(x.ctypes.data)  # noqa: E731
+    keep = None if perm is None else np.ascontiguousarray(perm, np.int64)
+    perm_p = ctypes.c_void_p(None) if keep is None else ptr(keep)
     got = lib.shear_host(ptr(enc), ctypes.c_int64(enc.size), ptr(ref_a),
                          ctypes.c_int64(ref_a.size), ctypes.c_int(int(packed)),
                          ptr(qoff), ptr(qdir), ptr(qlen), ptr(toff),
                          ptr(tdir), ptr(tlen), ptr(h0), ptr(w),
                          ctypes.c_int(P), ctypes.c_int(Wh),
                          ctypes.c_int(Tmax), ptr(sc), ctypes.c_int(C),
-                         ctypes.c_int(int(wide)), ptr(out), ptr(stops))
-    return out, got, stops
+                         ctypes.c_int(int(wide)), ctypes.c_int(n16), perm_p,
+                         ptr(out), ptr(stops), ptr(route))
+    assert (route >= 0).all()
+    return out, got, stops, route
 
 
 # name: (band radius Wh, scoring, forced C or 0 for the launch's choice,
@@ -262,40 +305,110 @@ HOST = {
 }
 
 
+_REF = {}
+
+
+def host_case(name):
+    """HOST case `name`: (Wh, scoring, forced C, expected C, its pairs,
+    their plain-version output), the output computed once per module."""
+    Wh, scoring, forced, C = HOST[name]
+    d = make_long(7 + Wh + forced, 20, (257, 900), edges=True)
+    if name not in _REF:
+        _REF[name] = run_ref(d, Wh, scoring)
+    return Wh, scoring, forced, C, d, _REF[name]
+
+
 @pytest.mark.parametrize("name", list(HOST))
 def test_cuda_shear_source_matches_ref(host_shear, name):
     """The kernel's group source, built with g++, equals the plain version
     at every slot bucket, chosen from Wh and forced, and in the memory
     frame of bands wider than the widest bucket, with the frame's edge
     cases and pairs stopping on a zero row maximum, on z-drop and after
-    their last row."""
-    Wh, scoring, forced, C = HOST[name]
-    d = make_long(7 + Wh + forced, 20, (257, 900), edges=True)
-    got, used, stops = run_host(host_shear, d, Wh, scoring,
-                                C=forced % 1000, wide=forced > 1000)
+    their last row; routed as the kernel routes them (every pair here
+    fits 16 bits, so the register buckets run the 16-bit body)."""
+    Wh, scoring, forced, C, d, want = host_case(name)
+    got, used, stops, route = run_host(host_shear, d, Wh, scoring,
+                                       C=forced % 1000, wide=forced > 1000)
     assert used == C
-    np.testing.assert_array_equal(got, run_ref(d, Wh, scoring))
+    np.testing.assert_array_equal(got, want)
     assert {0, 2} <= set(stops)
     assert (stops == 1).sum() >= (5 if scoring is ZDROP10 else 0)
+    assert (route == (0 if forced > 1000 or Wh > 206 else 1)).all()
+
+
+REG_HOST = [n for n, (Wh, _, forced, _) in HOST.items()
+            if forced < 1000 and Wh <= 206]
+
+
+def mixed_case(name):
+    """HOST case `name` with every third pair's h0 raised by 32,700, past
+    the 16-bit body, the pairs in the dispatch's order (DeviceBSW.
+    long_order: the 16-bit ones first); (pairs, how many fit, the plain
+    version's output), computed once per module."""
+    Wh, scoring, _, _, d, _ = host_case(name)
+    key = (name, "mixed")
+    if key not in _REF:
+        d = list(d)
+        d[8] = d[8] + np.where(np.arange(len(d[8])) % 3 == 0, 32700, 0
+                               ).astype(np.int32)
+        fit = fit16(d, Wh, scoring)
+        order, _ = DeviceBSW.long_order(d[4], d[7], Wh, fit)
+        d = d[:2] + [x[order] for x in d[2:]]
+        _REF[key] = d, int(fit.sum()), run_ref(d, Wh, scoring)
+    return _REF[key]
+
+
+@pytest.mark.parametrize("route", ["int32", "16bit_shuffled",
+                                   "mixed_shuffled"])
+@pytest.mark.parametrize("name", REG_HOST)
+def test_cuda_shear_routes_match_ref(host_shear, name, route):
+    """Each body of the register buckets equals the plain version on the
+    same pairs: every pair in the int32 body; every pair in the 16-bit
+    body, the pairs run in a shuffled order (stops on a zero row maximum
+    and on z-drop in both); and a call of both, a third of its pairs past
+    16 bits, as the dispatch orders and routes them, run shuffled."""
+    Wh, scoring, forced, C, d, want = host_case(name)
+    P = len(d[1])
+    perm = np.random.default_rng(Wh).permutation(P)
+    if route == "mixed_shuffled":
+        d, n16, want = mixed_case(name)
+        got, used, _, routes = run_host(host_shear, d, Wh, scoring, C=forced,
+                                        perm=perm)
+        assert 0 < n16 < P
+        np.testing.assert_array_equal(routes, np.arange(P) < n16)
+    else:
+        n16 = {"int32": 0, "16bit_shuffled": P}[route]
+        got, used, stops, routes = run_host(
+            host_shear, d, Wh, scoring, C=forced, n16=n16,
+            perm=perm if n16 else None)
+        assert {0, 2} <= set(stops)
+        assert (stops == 1).sum() >= (5 if scoring is ZDROP10 else 0)
+        assert (routes == int(n16 > 0)).all()
+    assert used == C
+    np.testing.assert_array_equal(got, want)
 
 
 def test_cuda_shear_source_packed_ref(host_shear, monkeypatch):
-    """The kernel's 2-bit packed genome path against the plain version's."""
+    """The kernel's 2-bit packed genome path against the plain version's,
+    in each body."""
     d = make_long(23, 16, (257, 700))
     monkeypatch.setattr(DeviceFMIndex, "REF_PACK_MIN", 16)
     dfm = DeviceFMIndex.from_genome(d[0], "cpu")
     assert dfm.ref_packed
-    got, _, _ = run_host(host_shear, d, 100, PACBIO, ref=dfm.ref.numpy(),
-                         packed=True)
-    np.testing.assert_array_equal(
-        got, run_ref(d, 100, PACBIO, ref=dfm.ref, packed=True))
-    np.testing.assert_array_equal(got, run_ref(d, 100, PACBIO))
+    want = run_ref(d, 100, PACBIO, ref=dfm.ref, packed=True)
+    np.testing.assert_array_equal(want, run_ref(d, 100, PACBIO))
+    for n16 in (None, 0):
+        got, _, _, route = run_host(host_shear, d, 100, PACBIO,
+                                    ref=dfm.ref.numpy(), packed=True,
+                                    n16=n16)
+        np.testing.assert_array_equal(got, want)
+        assert (route == int(n16 is None)).all()
 
 
 def test_cuda_shear_source_zero_row_and_row_cap(host_shear):
     """A target of all-N after a few bases ends the pair on a zero row
     maximum; a row cap Tmax below tlen stops the rest after Tmax rows,
-    as the plain version does."""
+    as the plain version does; in each body."""
     d = list(make_long(29, 12, (300, 600)))
     ref = d[0].copy()
     # pairs 0-3: h0 1 against a random target, so every score reaches 0
@@ -303,13 +416,62 @@ def test_cuda_shear_source_zero_row_and_row_cap(host_shear):
     d[8][:4] = 1
     d[5] = d[5].copy()
     d[5][:4] = np.arange(4) * 3000 + 12000
-    got, _, stops = run_host(host_shear, d, 100, DEFAULT, ref=ref)
-    np.testing.assert_array_equal(got, run_ref(d, 100, DEFAULT))
-    assert (stops[:4] == 0).all()
+    want = run_ref(d, 100, DEFAULT)
     t = [torch.from_numpy(np.ascontiguousarray(x)) for x in d]
-    want = bsw_shear_desc_ref(*t, 100, 150, *DEFAULT, 1).numpy()
-    got, _, _ = run_host(host_shear, d, 100, DEFAULT, Tmax=150)
-    np.testing.assert_array_equal(got, want)
+    want_cap = bsw_shear_desc_ref(*t, 100, 150, *DEFAULT, 1).numpy()
+    for n16 in (None, 0):
+        got, _, stops, _ = run_host(host_shear, d, 100, DEFAULT, ref=ref,
+                                    n16=n16)
+        np.testing.assert_array_equal(got, want)
+        assert (stops[:4] == 0).all()
+        got, _, _, _ = run_host(host_shear, d, 100, DEFAULT, Tmax=150,
+                                n16=n16)
+        np.testing.assert_array_equal(got, want_cap)
+
+
+# a b o_del e_del o_ins e_ins zdrop end_bonus, with a large match score
+A4 = (4, 4, 6, 1, 6, 1, 100, 5)
+
+
+@pytest.mark.parametrize("scoring", [DEFAULT, A4], ids=["a1", "a4"])
+def test_cuda_shear_16bit_edge(host_shear, scoring):
+    """Pairs at the 16-bit body's edge: exact queries (so H climbs by
+    max_sc a column) with h0 + (qlen + 1) * max_sc at 32766 and 32767 (the
+    16-bit body) and at 32768 and 32769 (the int32 body); h0 + qlen *
+    max_sc = 32767 and 32768 among them.  The dispatch's order and routes
+    (fits16) and every pair in the int32 body equal the plain version."""
+    a = scoring[0]
+    d = list(make_long(41, 8, (600, 1200), err=0.0))
+    qlen = d[4]
+    edge = 32767 - (qlen.astype(np.int64) + 1) * a
+    d[8] = (edge + np.array([-1, 0, 1, 2, -1, 0, 1, 2])).astype(np.int32)
+    fit = fit16(d, 100, scoring)
+    np.testing.assert_array_equal(fit, [1, 1, 0, 0, 1, 1, 0, 0])
+    assert not fit16(d, 207, scoring).any()          # no 16-bit frame
+    order, _ = DeviceBSW.long_order(d[4], d[7], 100, fit)
+    d = d[:2] + [x[order] for x in d[2:]]
+    want = run_ref(d, 100, scoring)
+    assert (want[:, 0] >= d[8] + d[4] * a // 2).sum() >= 4   # H climbed
+    for n16 in (None, 0):
+        got, _, _, route = run_host(host_shear, d, 100, scoring, n16=n16)
+        np.testing.assert_array_equal(got, want)
+        np.testing.assert_array_equal(
+            route, np.arange(8) < (4 if n16 is None else 0))
+
+
+def test_long_order_puts_16bit_pairs_first():
+    """DeviceBSW.long_order: the pairs that fit 16 bits first, each part
+    by descending rows min(tlen, qlen + w + 2), ties in descriptor order;
+    with none fitting, every pair by descending rows."""
+    qls = np.array([300, 5000, 300, 2000, 4000, 300], np.int32)
+    tls = np.array([9000, 5000, 400, 9000, 100, 9000], np.int32)
+    fit = np.array([1, 0, 1, 1, 0, 1], bool)
+    idxs, rows = DeviceBSW.long_order(qls, tls, 100, fit)
+    np.testing.assert_array_equal(idxs, [3, 0, 5, 2, 1, 4])
+    np.testing.assert_array_equal(rows, [2102, 402, 402, 400, 5000, 100])
+    idxs, rows = DeviceBSW.long_order(qls, tls, 100, np.zeros(6, bool))
+    np.testing.assert_array_equal(idxs, [1, 3, 0, 5, 2, 4])
+    assert (np.diff(rows) <= 0).all()
 
 
 def test_long_classes_cover_every_pair():
@@ -423,6 +585,62 @@ def test_object_path_dispatch_matches_jax_run():
     assert PROF.c["overflow.bsw_host_tail"] == sum(p.seqid == 2 for p in sub)
     bsw.lens = lens
     np.testing.assert_array_equal(got, bsw.right_kernel(sub, opt.w, opt))
+
+
+def test_long_dispatch_one_launch_equals_rungs(monkeypatch):
+    """DeviceBSW._run gives a call's long pairs to bsw_shear once (the
+    pairs that fit 16 bits first, n16 of them, each part by descending row
+    count, the row cap of the longest), and that equals the JAX package's
+    per-rung dispatch (one call per long_classes rung at its T) through
+    the plain version, pair for pair; a quarter of the long pairs have an
+    h0 past 16 bits."""
+    rng = np.random.default_rng(67)
+    genome = rng.integers(0, 4, 40000).astype(np.uint8)
+    grid, lens, pend = _pending(69, genome)
+    opt = MemOptions().finalize("pacbio")
+    dfm = DeviceFMIndex(ref=torch.from_numpy(genome), ref_packed=False,
+                        device=torch.device("cpu"))
+    bsw = DeviceBSW(dfm, opt)
+    bsw.encj = torch.from_numpy(grid)
+    bsw.lens = lens
+    sub = [p for s, p in pend if s == "L"]
+    qls = np.array([p.qlen for p in sub], np.int32)
+    tls = np.array([p.tlen for p in sub], np.int32)
+    long_idx = np.nonzero((qls > QCAP) | (tls > TCAP))[0]
+    for k in long_idx[::4]:
+        sub[k].h0 += 32700
+    rungs = long_classes(qls, tls, long_idx, opt.w)
+    assert len(long_idx) >= 8 and len(rungs) >= 2
+    shear = bsw_shear_cuda.bsw_shear
+    seen = []
+    call = bsw_shear_cuda.BswShear.__call__
+
+    def spy(self, *args, **kw):
+        seen.append((args, kw))
+        return call(self, *args, **kw)
+
+    monkeypatch.setattr(bsw_shear_cuda.BswShear, "__call__", spy)
+    n = shear.plain_calls
+    got = bsw.left_kernel(sub, opt.w, opt)
+    assert shear.plain_calls == n + 1            # one call, all rungs
+    (args, kw), = seen
+    fit = bsw_shear_cuda.BswShear.fits16(
+        args[4].numpy(), args[8].numpy(), opt.w, *opt.mat_scores(),
+        opt.o_del, opt.e_del, opt.o_ins, opt.e_ins, bsw.max_sc)
+    n16 = kw["n16"]
+    assert 0 < n16 < len(long_idx) and fit[:n16].all() and not fit[n16:].any()
+    rows = np.minimum(args[7].numpy(), args[4].numpy() + opt.w + 2)
+    assert (np.diff(rows[:n16]) <= 0).all() and (np.diff(rows[n16:]) <= 0).all()
+    assert args[11] == rows.max()
+    desc = {k: np.array([getattr(p, k) for p in sub]) for k in
+            ("seqid", "qoff", "qdir", "qlen", "toff", "tdir", "tlen", "h0")}
+    for T, idxs in rungs:
+        res = bsw_shear_desc_ref(
+            dfm.ref, bsw.encj, *bsw._put(desc, idxs),
+            torch.full((len(idxs),), opt.w, dtype=torch.int32), opt.w, T,
+            *opt.mat_scores(), opt.o_del, opt.e_del, opt.o_ins, opt.e_ins,
+            opt.zdrop, opt.pen_clip5, bsw.max_sc)
+        np.testing.assert_array_equal(got[idxs], res.numpy())
 
 
 def test_wrapper_dispatch():

@@ -370,34 +370,56 @@ def test_bsw_extend_buckets_on_card(card):
         assert torch.equal(got, want), Qmax
 
 
+# (Wh, scoring, packed, route): the register buckets as the dispatch
+# routes a call (a third of its pairs with h0 past 16 bits: one launch of
+# each body) and with every pair in the int32 body; the shared-memory
+# frame (int32 only)
+SHEAR_CARD = {
+    "w100_pacbio": (100, PACBIO, False, "kernel"),
+    "w100_pacbio_int32": (100, PACBIO, False, "int32"),
+    "w200_default_packed": (200, DEFAULT, True, "kernel"),
+    "w200_default_packed_int32": (200, DEFAULT, True, "int32"),
+    "w50_zdrop10": (50, ZDROP10, False, "kernel"),
+    "w50_zdrop10_int32": (50, ZDROP10, False, "int32"),
+    "w300_pacbio": (300, PACBIO, False, "kernel"),
+    "w400_default": (400, DEFAULT, False, "kernel"),
+    "w600_memory_frame": (600, PACBIO, False, "kernel"),
+}
+
+
 @pytest.mark.cuda
-@pytest.mark.parametrize("Wh,scoring,packed", [
-    (100, PACBIO, False), (200, DEFAULT, True), (50, ZDROP10, False),
-    (300, PACBIO, False), (400, DEFAULT, False), (600, PACBIO, False)],
-    ids=["w100_pacbio", "w200_default_packed", "w50_zdrop10",
-         "w300_pacbio", "w400_default", "w600_memory_frame"])
-def test_bsw_shear_matches_ref_on_card(card, monkeypatch, Wh, scoring,
-                                       packed):
+@pytest.mark.parametrize("case", list(SHEAR_CARD))
+def test_bsw_shear_matches_ref_on_card(card, monkeypatch, case):
     """bsw_shear against bsw_shear_desc_ref on long pairs (qlen 257-3,000,
-    ~10 % error, the frame's edge cases), one launch at each slot bucket
-    (C = 7 at Wh 100 and 50, 13 at Wh 200) and three in the shared-memory
-    frame (Wh 300, 400, 600: C = 19, 26, 38)."""
+    ~10 % error, the frame's edge cases), in the dispatch's order (the
+    16-bit pairs first, each part by descending row count): at each
+    register bucket (Wh 100 and 50: C 7, R 4; Wh 200: C 13, R 7) with a
+    launch of each body, and every pair in the int32 body; and in the
+    shared-memory frame (Wh 300, 400, 600: C = 19, 26, 38)."""
+    from bwamem2_tpu_torch.ops.bsw import DeviceBSW
+    Wh, scoring, packed, route = SHEAR_CARD[case]
     d = list(make_long(900 + Wh, 256, (257, 3000), n_ref=60000,
                        edges=True))
+    d[8] = d[8] + np.where(np.arange(len(d[8])) % 3 == 0, 32700, 0
+                           ).astype(np.int32)
+    fit = bsw_shear.fits16(d[4], d[8], Wh, *scoring[:6], max(scoring[0], 1))
+    order, rows = DeviceBSW.long_order(d[4], d[7], Wh, fit)
+    d = d[:2] + [x[order] for x in d[2:]]
+    n16 = int(fit.sum()) if route == "kernel" else 0
+    assert (0 < n16 < len(rows)) == (route == "kernel" and Wh <= 206)
     if packed:
         monkeypatch.setattr(DeviceFMIndex, "REF_PACK_MIN", 16)
     dfm = DeviceFMIndex.from_genome(d[0], card)
     assert dfm.ref_packed == packed
     t = [torch.from_numpy(np.ascontiguousarray(x)).to(card) for x in d[1:]]
     t[8] = torch.full_like(t[8], Wh)
-    Tmax = int(np.minimum(d[7], d[4] + Wh + 2).max())
-    args = (dfm.ref, *t, Wh, Tmax, *scoring,
+    args = (dfm.ref, *t, Wh, int(rows.max()), *scoring,
             max(scoring[0], 1), packed)
     n = bsw_shear.launches
-    got = bsw_shear(*args)
+    got = bsw_shear(*args, n16=n16)
     torch.cuda.synchronize()
-    assert bsw_shear.launches == n + 1
-    assert (bsw_shear.plan(256, Wh, card)[2] > 0) == (Wh > 206)
+    assert bsw_shear.launches == n + 1 + (0 < n16 < len(rows))
+    assert (bsw_shear.plan(256, Wh, card)[4] > 0) == (Wh > 206)
     want = bsw_shear_desc_ref(*args)
     np.testing.assert_array_equal(got.cpu().numpy(), want.cpu().numpy())
 
