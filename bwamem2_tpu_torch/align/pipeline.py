@@ -62,8 +62,9 @@ class Aligner:
             # fused single-fetch seeding + SA on the device (ops/seed.py)
             flat = self.backend.collect_chunk(encs, opt)
             if flat is None:
-                # the per-stage path (a sharded index): SMEMs, then every
-                # read's SA positions resolved in one batch
+                # the per-stage path (a sharded index, or the legacy
+                # round 1): SMEMs, then every read's SA positions resolved
+                # in one batch
                 smems_per_read = self.backend.collect_smems(encs, opt)
                 (allpos, smem_off, smem_m, smem_n, smem_s,
                  occ_off) = chain_mod.sa_positions_batch(opt,

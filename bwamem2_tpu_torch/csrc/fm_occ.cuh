@@ -245,6 +245,15 @@ FM_HD void fm_lf_step(const V &f, int64_t k, int64_t s, int a,
     *so = fm_occ_one(f, k + s, a) - sp;
 }
 
+// The K-mer interval table of the legacy round-1 walk (index/klut.py):
+// the start and size of the interval of every K-mer, code = sum of
+// base(n - i) << 2i over the K bases ending at column n.
+struct FmLut {
+    const int64_t *start;
+    const int64_t *size;
+    int K;
+};
+
 // The round-1 backward walk of one (read, end column n) lane: from the
 // base at n, extend backward one column at a time while the column is a
 // base and the interval stays non-empty.  Writes the leftmost start b of
@@ -253,16 +262,39 @@ FM_HD void fm_lf_step(const V &f, int64_t k, int64_t s, int a,
 // gets b = n + 1 and the interval of base 0.  `row` is the read's grid
 // row (codes 0..4), `len` its length.  Returns the LF steps taken (the
 // last one is the step that emptied the interval, if any).
-// bwamem2_tpu/ops/smem.py:_round1_walk at lut_k = 0.
-template <class V>
-FM_HD int fm_round1_walk(const V &f, const int8_t *row, int len, int n,
-                         int *bo, int64_t *ko, int64_t *so) {
+// bwamem2_tpu/ops/smem.py:_round1_walk.  With LUT (a compile-time
+// variant: without it the code is the walk from scratch alone), a lane
+// whose K bases ending at n are all bases (n >= K - 1) and whose K-mer
+// occurs (size > 0) starts from the table's interval with b = n - K + 1
+// and walks on from column n - K; every other lane walks from scratch.
+template <bool LUT, class V>
+FM_HD int fm_round1_walk_lut(const V &f, const FmLut &lut,
+                             const int8_t *row, int len, int n, int *bo,
+                             int64_t *ko, int64_t *so) {
     const int a0 = row[n];
     const bool valid = (unsigned)a0 < 4u && n < len;
     const int c0 = valid ? a0 : 0;
     int64_t k = fm_count(f, c0), s = fm_count(f, c0 + 1) - k;
-    int b = valid ? n : n + 1, steps = 0;
-    for (int col = n - 1; valid && col >= 0; --col) {
+    int b = valid ? n : n + 1, steps = 0, start = n - 1;
+    if constexpr (LUT) {
+        if (valid && n >= lut.K - 1) {
+            int code = 0;
+            bool clean = true;
+            for (int i = 0; i < lut.K; ++i) {
+                const int c = row[n - i];
+                clean = clean && (unsigned)c < 4u;
+                code |= (c & 3) << (2 * i);
+            }
+            const int64_t ls = clean ? lut.size[code] : 0;
+            if (ls > 0) {
+                k = lut.start[code];
+                s = ls;
+                b = n - lut.K + 1;
+                start = n - lut.K;
+            }
+        }
+    }
+    for (int col = start; valid && col >= 0; --col) {
         const int c = row[col];
         if ((unsigned)c >= 4u) break;
         int64_t k2, s2;
@@ -277,6 +309,14 @@ FM_HD int fm_round1_walk(const V &f, const int8_t *row, int len, int n,
     *ko = k;
     *so = s;
     return steps;
+}
+
+// The walk from scratch (lut_k = 0): round1_walk.cu's lane.
+template <class V>
+FM_HD int fm_round1_walk(const V &f, const int8_t *row, int len, int n,
+                         int *bo, int64_t *ko, int64_t *so) {
+    return fm_round1_walk_lut<false>(f, FmLut{nullptr, nullptr, 0}, row,
+                                     len, n, bo, ko, so);
 }
 
 // (BWT char at pos (4 = sentinel), occ(pos, stored code)) from pos's row
@@ -305,9 +345,11 @@ FM_HD int64_t fm_sa_value(int ms, uint32_t ls, int64_t off) {
 
 // The index as a launcher receives it from ops/seed_cuda.py:fm_table, one
 // int64 array: [shards, has_hi, sentinel, counts[5], rows, sa_rows,
-// occp[8], occ_hi[8], sa_ms[8], sa_ls[8]] (pointers as integers; shards 1
-// is the replicated index, whose tables are entry 0 of each list).
-#define FM_TAB_LEN 42
+// occp[8], occ_hi[8], sa_ms[8], sa_ls[8], lut_start, lut_size, lut_depth]
+// (pointers as integers; shards 1 is the replicated index, whose tables
+// are entry 0 of each list; the K-mer table's pointers are 0 and its depth
+// 0 where the index has none).
+#define FM_TAB_LEN 45
 
 inline FmView fm_view_of(const int64_t *t) {
     return FmView{(const int32_t *)t[10], (const int32_t *)t[18],
@@ -328,4 +370,8 @@ inline FmShardView fm_shard_view_of(const int64_t *t) {
     f.rows = (uint32_t)t[8];
     f.sa_rows = (uint32_t)t[9];
     return f;
+}
+
+inline FmLut fm_lut_of(const int64_t *t) {
+    return FmLut{(const int64_t *)t[42], (const int64_t *)t[43], (int)t[44]};
 }

@@ -4,7 +4,15 @@
 // (:303) and its phase body _kswv_phase (:76), jitted XLA reached through
 // DeviceKswv.align_batch.  Plain PyTorch version:
 // bwamem2_tpu_torch/ops/kswv.py:kswv_two_phase_ref; wrapper and build:
-// bwamem2_tpu_torch/ops/kswv_cuda.py.
+// bwamem2_tpu_torch/ops/kswv_cuda.py.  A second kernel, kswv_phase,
+// replaces bwamem2_tpu/ops/kswv.py:kswv_kernel (:66): one phase per
+// problem with the caller's per-problem target direction, stop score and
+// live flag (kswv_group.cuh:kswv_run_phase), over the same lane groups,
+// register buckets and launch plan; its plain version is ops/kswv.py:
+// kswv_phase_ref, its wrapper ops/kswv_cuda.py:KswvPhase, its caller the
+// port's tools/kernel_micro.py (the JAX package's only caller of
+// kswv_kernel is its tools/kernel_micro.py).  Its bound is the same
+// model over the one phase's rows.
 //
 // Contract: P rescue problems of one precision class (u8: 16 lanes, biased,
 // saturating; i16: 8 lanes) given by descriptors: query codes from the
@@ -92,6 +100,33 @@ kswv_kernel(const KswvBatch b) {
     kswv_run<U8, SMAX>(g, b, p, kswv_smem + gi * kswv_group_bytes(b.Qmax));
 }
 
+template <bool U8, int SMAX>
+__global__ void __launch_bounds__(KSWV_MAX_THREADS)
+kswv_phase_kernel(const KswvBatch b, const KswvPhaseArgs a) {
+    constexpr int NL = U8 ? 16 : 8;
+    extern __shared__ __align__(16) unsigned char kswv_smem[];
+    const int gpb = blockDim.x / NL, gi = threadIdx.x / NL;
+    const int p = blockIdx.x * gpb + gi;
+    if (p >= b.P) return;          // the whole group returns
+    const KswvGroup<NL> g;
+    kswv_run_phase<U8, SMAX>(g, b, a, p,
+                             kswv_smem + gi * kswv_group_bytes(b.Qmax));
+}
+
+// Launch `kern` with `smem` bytes of dynamic shared memory (raising the
+// kernel's limit past 48 KB first); returns a CUDA error code.
+template <class... A, class... B>
+int kswv_go(void (*kern)(A...), int blocks, int threads, int smem,
+            cudaStream_t st, B... args) {
+    if (smem > 48 * 1024) {
+        const cudaError_t e = cudaFuncSetAttribute(
+            kern, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+        if (e) return (int)e;
+    }
+    kern<<<blocks, threads, smem, st>>>(args...);
+    return 0;
+}
+
 // Target blocks per SM when groups per block are chosen for a small batch.
 constexpr int KSWV_BLOCKS_PER_SM = 8;
 
@@ -130,6 +165,23 @@ extern "C" int kswv_plan(int u8, int Qmax, int P, int *plan) {
     return 0;
 }
 
+// The launch of a planned batch: both phases (ph null) or one phase.
+static int kswv_start(const KswvBatch &batch, const KswvPhaseArgs *ph,
+                      int u8, const int plan[3], cudaStream_t st) {
+    const int nl = u8 ? 16 : 8, gpb = plan[1], smem = plan[2];
+    const int blocks = (batch.P + gpb - 1) / gpb;
+    int err = 0;
+#define KSWV_LAUNCH(U, S)                                                  \
+    if (!!u8 == U && plan[0] == S)                                         \
+        err = ph ? kswv_go(kswv_phase_kernel<U, S>, blocks, gpb * nl,      \
+                           smem, st, batch, *ph)                           \
+                 : kswv_go(kswv_kernel<U, S>, blocks, gpb * nl, smem, st,  \
+                           batch);
+    KSWV_BUCKETS(KSWV_LAUNCH)
+#undef KSWV_LAUNCH
+    return err ? err : (int)cudaGetLastError();
+}
+
 // Launch on `stream` (PyTorch's current stream); returns a CUDA error code
 // (the plan's, or cudaGetLastError() of the launch) so the wrapper can
 // raise on a refused launch.  u8 selects the class.  rowmax: int16[P, Tpad]
@@ -151,20 +203,27 @@ extern "C" int kswv_launch(const int8_t *enc, int64_t n_enc,
                           tlen,  P,     Qmax,  Tmax,  Tpad,
                           minsc, {a, b, o_del, e_del, o_ins, e_ins},
                           rowmax, out};
-    const int nl = u8 ? 16 : 8, gpb = plan[1], smem = plan[2];
-    const int blocks = (P + gpb - 1) / gpb;
-    cudaStream_t st = (cudaStream_t)stream;
-#define KSWV_LAUNCH(U, S)                                                  \
-    if (!!u8 == U && plan[0] == S) {                                       \
-        if (smem > 48 * 1024) {                                            \
-            const cudaError_t e = cudaFuncSetAttribute(                    \
-                kswv_kernel<U, S>,                                         \
-                cudaFuncAttributeMaxDynamicSharedMemorySize, smem);        \
-            if (e) return (int)e;                                          \
-        }                                                                  \
-        kswv_kernel<U, S><<<blocks, gpb * nl, smem, st>>>(batch);          \
-    }
-    KSWV_BUCKETS(KSWV_LAUNCH)
-#undef KSWV_LAUNCH
-    return (int)cudaGetLastError();
+    return kswv_start(batch, nullptr, u8, plan, (cudaStream_t)stream);
+}
+
+// One phase (kswv_phase): as kswv_launch, plus per problem tdir (+-1),
+// endsc (the stop score; KSWV_NO_LIMIT: none) and live (uint8: run it);
+// rowmax int16[P, Tpad], out int32[P, 6].
+extern "C" int kswv_phase_launch(
+    const int8_t *enc, int64_t n_enc, const uint8_t *ref, int64_t n_ref,
+    int ref_packed, const int *qoff, const int *qdir, const uint8_t *qcomp,
+    const int *qlen, const int64_t *toff, const int *tdir, const int *tlen,
+    const int *endsc, const uint8_t *live, int P, int Qmax, int Tmax,
+    int Tpad, int u8, int minsc, int a, int b, int o_del, int e_del,
+    int o_ins, int e_ins, int16_t *rowmax, int *out, void *stream) {
+    int plan[3];
+    const int err = kswv_plan(u8, Qmax, P, plan);
+    if (err) return err;
+    const KswvBatch batch{enc,   n_enc, ref,   n_ref, ref_packed,
+                          qoff,  qdir,  qcomp, qlen,  toff,
+                          tlen,  P,     Qmax,  Tmax,  Tpad,
+                          minsc, {a, b, o_del, e_del, o_ins, e_ins},
+                          rowmax, out};
+    const KswvPhaseArgs ph{tdir, endsc, live};
+    return kswv_start(batch, &ph, u8, plan, (cudaStream_t)stream);
 }

@@ -582,17 +582,53 @@ KSWV_D void kswv_both(const G &g, S &st, const KswvBatch &b, int p,
     }
 }
 
-// Problem p in group g, its stripes in registers (SMAX > 0) or in
-// `stripes`, the group's kswv_group_bytes(Qmax) bytes (SMAX = 0).
-template <bool U8, int SMAX, class G>
-KSWV_D void kswv_run(const G &g, const KswvBatch &b, int p, void *stripes) {
+// The stripes of a launch in group g: registers (SMAX > 0) or `stripes`,
+// the group's kswv_group_bytes(Qmax) bytes (SMAX = 0); body(st, qcap)
+// runs with them and the query length they hold.
+template <bool U8, int SMAX, class G, class F>
+KSWV_D void kswv_with_stripes(const G &g, const KswvBatch &b, void *stripes,
+                              F body) {
     constexpr int NL = G::NL;
     if constexpr (SMAX > 0) {
         KswvRegStripes<G, SMAX, U8> st;
-        kswv_both<SMAX, U8>(g, st, b, p,
-                            b.Qmax < SMAX * NL ? b.Qmax : SMAX * NL);
+        body(st, b.Qmax < SMAX * NL ? b.Qmax : SMAX * NL);
     } else {
         KswvPtrStripes<G, U8> st(g, stripes, b.Qmax / NL);
-        kswv_both<0, U8>(g, st, b, p, b.Qmax);
+        body(st, b.Qmax);
     }
+}
+
+// Both phases of problem p in group g (the kswv kernel).
+template <bool U8, int SMAX, class G>
+KSWV_D void kswv_run(const G &g, const KswvBatch &b, int p, void *stripes) {
+    kswv_with_stripes<U8, SMAX>(g, b, stripes, [&](auto &st, int qcap) {
+        kswv_both<SMAX, U8>(g, st, b, p, qcap);
+    });
+}
+
+// What one phase takes per problem beyond the batch's descriptors: the
+// target's walk direction, the stop score (KSWV_NO_LIMIT: none) and
+// whether the problem runs (bwamem2_tpu/ops/kswv.py:kswv_kernel's tdir,
+// endsc and do_lane).
+struct KswvPhaseArgs {
+    const int *tdir, *endsc;
+    const uint8_t *live;
+};
+
+// One phase of problem p in group g with the caller's tdir, endsc and
+// live and the batch's minsc (the kswv_phase kernel): its row of 6 at
+// b.out[p * 6].
+template <bool U8, int SMAX, class G>
+KSWV_D void kswv_run_phase(const G &g, const KswvBatch &b,
+                           const KswvPhaseArgs &a, int p, void *stripes) {
+    // the descriptor is read before the stripes exist: read inside the
+    // stripes' scope, ptxas spilled 8 bytes of the u8 SMAX = 12 kernel
+    const KswvDesc d{b.qoff[p], b.qdir[p],  b.qcomp[p], b.qlen[p],
+                     b.toff[p], a.tdir[p],  b.tlen[p],  a.endsc[p],
+                     b.minsc,   a.live[p]};
+    int16_t *rm = b.rowmax + (int64_t)p * b.Tpad;
+    int *out = b.out + (int64_t)p * 6;
+    kswv_with_stripes<U8, SMAX>(g, b, stripes, [&](auto &st, int qcap) {
+        kswv_phase<SMAX, U8>(g, st, b, d, qcap, b.Tmax, rm, out);
+    });
 }

@@ -30,6 +30,15 @@ forward candidates than ROUND2_MAX_CAND runs again on the card at width L,
 which none passes (`seeding.cand_wide*`).
 Extension and rescue run on the first card against its copy of the
 genome, as in the replicated mode.
+Legacy round 1 (`pivot_seeding=False`, DeviceBackend(pivot_seeding=False)
+of the JAX package): `collect_chunk` returns None too, and round 1 of
+`collect_smems` is the per-end grid walk with on-chip emission and
+compaction (csrc/round1_compact.cu), each lane started from the K-mer
+table of index/klut.py where it applies (`use_klut`, depth
+klut.default_k(l_pac)); a read with more than ROUND1_CAP round-1 SMEMs is
+seeded on the host oracle (`overflow.r1_compact_cap`).  Rounds 2 and 3 and
+sa_resolve run on the per-stage kernels as over a sharded index; only the
+replicated index takes this route, as in the JAX package.
 
 Every chunk seeds on the device whatever its read count.  A read longer
 than the read grid takes (TorchBackend.grid_read_cap: GRID_MAX_READ_LEN
@@ -59,6 +68,7 @@ import torch
 
 from ..align.chain import sa_positions_batch
 from ..index.fmindex import FMIndex
+from ..index.klut import load_or_build_klut
 from ..native import hostrt
 from ..parallel.shard_index import shard_index, split_lanes
 from ..utils.profiling import PROF
@@ -68,13 +78,14 @@ from .cuda_build import launch_tally
 from .device_index import DeviceFMIndex
 from .kswv import DeviceKswv
 from .seed import FusedSeeder, sa_resolve
-from .smem import round1_chain, round2_backward, round2_forward, \
-    round3_replay
+from .smem import round1_chain, round1_compact, round2_backward, \
+    round2_forward, round3_replay
 
 # the per-stage seeding's route rules (bwamem2_tpu/ops/backend.py): they
 # decide only where a pivot or a read is seeded, never what it gets
 ROUND2_MAX_CAND = 24   # forward candidates a pivot keeps on the device
 ROUND1_PIVOT_CAP = 48  # round-1 pivots a read of up to 512 bases keeps
+ROUND1_CAP = 24        # round-1 SMEM slots a read keeps (legacy round 1)
 
 
 def pivot_cap(L: int) -> int:
@@ -125,18 +136,31 @@ class TorchBackend:
     GRID_MAX_READ_LEN = 32000
 
     def __init__(self, fm: FMIndex, opt, device=None, devices=None,
-                 sharded: bool = False):
+                 sharded: bool = False, pivot_seeding: bool = True,
+                 use_klut: bool = True, index_prefix: str | None = None):
         """device: "cuda" (the default), "cuda:i" or "cpu"; CUDA without a
         card raises.  Everything the backend owns (the index, the read
         grid, scratch and outputs) lives on this one device.  With
         `sharded`, the index is split over `devices` instead (one shard
         each; the same card may repeat), the first of which takes the
-        device's part.  `launches` counts the kernel launches of this
-        backend's chunks by kernel name (cuda_build.launch_tally),
+        device's part.  pivot_seeding=False seeds round 1 with the legacy
+        per-end grid walk (round1_compact), started from the K-mer table
+        where use_klut (built by index/klut.py, cached at
+        {index_prefix}.klut{K}.npz when a prefix is given); it takes the
+        replicated index only.  `launches` counts the kernel launches of
+        this backend's chunks by kernel name (cuda_build.launch_tally),
         whichever worker thread runs them."""
         self.fm = fm
         self.opt = opt
         self.sharded = sharded
+        self.pivot_seeding = pivot_seeding
+        if sharded and not pivot_seeding:
+            raise ValueError("a sharded index seeds round 1 through the "
+                             "pivot chain (pivot_seeding=True)")
+        lut = None
+        if use_klut and not pivot_seeding:
+            lut = load_or_build_klut(fm, index_prefix)
+        self.lut_k = lut[0] if lut else 0
         if sharded:
             if not devices:
                 raise ValueError("a sharded backend needs its devices")
@@ -147,7 +171,7 @@ class TorchBackend:
             self.device = self.dfm.device
         else:
             self.device = resolve_device(device)
-            self.dfm = DeviceFMIndex.from_host(fm, self.device)
+            self.dfm = DeviceFMIndex.from_host(fm, self.device, lut)
             self.views = [self.dfm]
             self.seeder = FusedSeeder(self.dfm)
         self._bsw = DeviceBSW(self.dfm, opt)
@@ -196,9 +220,10 @@ class TorchBackend:
         the native chainer — what collect_smems +
         chain.sa_positions_batch + sa_lookup give on the host.  A read
         over grid_read_cap(N) bases has an empty row in the read grid and
-        is seeded on the host oracle.  None over a sharded index: the
-        caller seeds through collect_smems and sa_lookup."""
-        if self.sharded:
+        is seeded on the host oracle.  None over a sharded index or with
+        the legacy round 1: the caller seeds through collect_smems and
+        sa_lookup."""
+        if self.sharded or not self.pivot_seeding:
             return None
         NR = len(encs)
         long, lens = self._attach_long(encs)
@@ -282,8 +307,10 @@ class TorchBackend:
         tuples sorted by (m, n), as the host oracle gives them.  The read
         grid is the chunk's (also the extension's), padded with empty reads
         to a multiple of the card count (they emit nothing); a read the
-        grid does not hold (overflow.long_read) and one with more pivots
-        than pivot_cap (overflow.r1_pivot_cap) go to the host oracle."""
+        grid does not hold (overflow.long_read) and one with more round-1
+        pivots than pivot_cap (overflow.r1_pivot_cap) or, with the legacy
+        round 1, more round-1 SMEMs than ROUND1_CAP
+        (overflow.r1_compact_cap) go to the host oracle."""
         NR = len(encs)
         long, lens = self._attach_long(encs)
         enc = self._bsw.encj
@@ -295,12 +322,17 @@ class TorchBackend:
         L = enc.shape[1]
         per_read: list[list[tuple]] = [[] for _ in encs]
 
-        # ---- round 1: the pivot chain, then each pivot's candidates ----
+        # ---- round 1: the pivot chain, then each pivot's candidates; or
+        # the legacy per-end walk, compacted on the card ----
         t0 = time.perf_counter()
-        cap = pivot_cap(L)
-        npiv, px = split_lanes(
-            self.views, lambda v, e, ln: round1_chain(v, e, ln, cap),
-            (enc, lensj))
+        if self.pivot_seeding:
+            cap = pivot_cap(L)
+            r1 = split_lanes(
+                self.views, lambda v, e, ln: round1_chain(v, e, ln, cap),
+                (enc, lensj))
+        else:
+            r1 = round1_compact(self.dfm, enc, lensj, self.lut_k,
+                                opt.min_seed_len, ROUND1_CAP)
         r3 = None
         if opt.max_mem_intv > 0:
             msl1 = max(opt.min_seed_len + 1, 2)
@@ -308,19 +340,31 @@ class TorchBackend:
             r3 = split_lanes(self.views, lambda v, e, ln: round3_replay(
                 v, e, ln, int(opt.max_mem_intv), msl1, cap3),
                 (enc, lensj))
-        npiv = npiv[:NR].cpu().numpy()
-        px = px[:NR].cpu().numpy()
-        over = npiv > cap
-        PROF.count("overflow.r1_pivot_cap", int(over.sum()), NR)
-        host = over | long
-        take = np.where(host, 0, npiv)
-        rids = np.repeat(np.arange(NR, dtype=np.int32), take)
-        xs = px[np.arange(cap)[None, :] < take[:, None]].astype(np.int32)
-        PROF.add("seeding.round1", time.perf_counter() - t0)
-        if len(rids):
-            with PROF("seeding.round1b"):
-                self._round2(enc, rids, xs, np.ones(len(rids), np.int64),
-                             opt, per_read, "r1")
+        if self.pivot_seeding:
+            npiv, px = (a[:NR].cpu().numpy() for a in r1)
+            over = npiv > cap
+            PROF.count("overflow.r1_pivot_cap", int(over.sum()), NR)
+            host = over | long
+            take = np.where(host, 0, npiv)
+            rids = np.repeat(np.arange(NR, dtype=np.int32), take)
+            xs = px[np.arange(cap)[None, :] < take[:, None]].astype(np.int32)
+            PROF.add("seeding.round1", time.perf_counter() - t0)
+            if len(rids):
+                with PROF("seeding.round1b"):
+                    self._round2(enc, rids, xs, np.ones(len(rids), np.int64),
+                                 opt, per_read, "r1")
+        else:
+            cnt, n1, b1, s1, k1 = (a[:NR].cpu().numpy() for a in r1)
+            over = cnt > ROUND1_CAP
+            PROF.count("overflow.r1_compact_cap", int(over.sum()), NR)
+            host = over | long
+            rid, j = np.nonzero(np.arange(ROUND1_CAP)[None, :]
+                                < np.where(host, 0, cnt)[:, None])
+            for r, m, n, k, s in zip(rid.tolist(), b1[rid, j].tolist(),
+                                     n1[rid, j].tolist(), k1[rid, j].tolist(),
+                                     s1[rid, j].tolist()):
+                per_read[r].append((r, m, n, k, 0, s))
+            PROF.add("seeding.round1", time.perf_counter() - t0)
 
         # ---- round 2: re-seed long low-occurrence SMEMs ----
         split_len = int(opt.min_seed_len * opt.split_factor + 0.499)

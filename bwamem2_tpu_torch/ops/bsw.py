@@ -32,6 +32,11 @@ In-cap pairs split over the fixed (Q, T) shape ladder and every rung group
 goes, longest pairs first, to `bsw_cuda.bsw_extend`.  Each wrapper runs
 its CUDA kernel for a read grid on the GPU and its plain version for one on
 the CPU, and all launches are enqueued before one fetch.
+
+The tile forms pass materialized (q, t) tiles to the same kernels as
+descriptors (`_tile_descriptors`): `bsw_tiles` to `bsw_extend`
+(bwamem2_tpu's `bsw_kernel`, the seed-extend step's), `bsw_shear_tiles`
+to `bsw_shear` (its `bsw_shear_kernel`, called by tools/kernel_micro.py).
 """
 
 from __future__ import annotations
@@ -718,3 +723,34 @@ def bsw_tiles(q, t, qlen, tlen, h0, w, mat_a: int, mat_b: int, o_del: int,
                       mat_a, mat_b, o_del, e_del, o_ins, e_ins, zdrop,
                       end_bonus, max_sc)
 
+
+
+def bsw_shear_tiles(q, t, qlen, tlen, h0, w, Wh: int, mat_a: int,
+                    mat_b: int, o_del: int, e_del: int, o_ins: int,
+                    e_ins: int, zdrop: int, end_bonus: int,
+                    max_sc: int) -> torch.Tensor:
+    """Sheared-band extension over materialized tiles (bwamem2_tpu/ops/
+    bsw.py:bsw_shear_kernel): q int[P, Qmax] query codes, t int[P, Tmax]
+    target codes (4 = N or padding), qlen <= Qmax, tlen <= Tmax, h0 and w
+    int32[P], Wh the band radius (at least every pair's clamped w).
+    Returns int32[P, 6]: score qle tle gtle gscore max_off.  The tiles go
+    to bsw_shear as descriptors (its kernels on CUDA tensors,
+    bsw_shear_desc_ref on the CPU) in the order of an extension call's
+    launches (DeviceBSW.long_order: the pairs that fit 16 bits first, each
+    part by descending rows), and the rows come back in tile order."""
+    from .bsw_shear_cuda import bsw_shear
+    P = q.shape[0]
+    ref, enc, *desc = _tile_descriptors(q, t, qlen, tlen)
+    ql, tl, hz = (x.cpu().numpy() for x in (desc[2], desc[5], h0))
+    fit = bsw_shear.fits16(ql, hz, Wh, mat_a, mat_b, o_del, e_del, o_ins,
+                           e_ins, max_sc)
+    order, rows = DeviceBSW.long_order(ql, tl, Wh, fit)
+    idx = torch.from_numpy(order).to(q.device)
+    res = bsw_shear(ref, enc, *(x[idx].contiguous() for x in desc),
+                    h0.to(I32)[idx].contiguous(), w.to(I32)[idx].contiguous(),
+                    Wh, int(rows.max()) if P else 0, mat_a, mat_b, o_del,
+                    e_del, o_ins, e_ins, zdrop, end_bonus, max_sc,
+                    n16=int(fit.sum()))
+    out = torch.empty_like(res)
+    out[idx] = res
+    return out

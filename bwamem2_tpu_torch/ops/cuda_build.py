@@ -97,7 +97,9 @@ class CudaKernel:
     """Base of a kernel wrapper.  Subclasses set NAME, SOURCES and
     SIGNATURE = (C function name, argtypes of every parameter, the stream
     last), and ENTRIES, the kernel's other launchers {C function name:
-    argtypes}; a launcher returns cudaGetLastError() of its launch.  A
+    argtypes}; a launcher returns cudaGetLastError() of its launch.
+    LIBRARY names the built library (NAME unless set: two wrappers of one
+    source share its library, each counting its own launches).  A
     parameter without its argtype goes as a C int, so a pointer (the
     stream) past the sixth argument would reach the launcher with its high
     half undefined."""
@@ -106,6 +108,7 @@ class CudaKernel:
     SOURCES: tuple[str, ...] = ()
     SIGNATURE: tuple[str, list] = ("", [])
     ENTRIES: dict[str, list] = {}
+    LIBRARY: str = ""
 
     def __init__(self):
         self.launches = 0
@@ -117,7 +120,8 @@ class CudaKernel:
     def lib(self) -> ctypes.CDLL:
         with self._lock:
             if self._lib is None:
-                path, self.build_log = build_library(self.NAME, self.SOURCES)
+                path, self.build_log = build_library(
+                    self.LIBRARY or self.NAME, self.SOURCES)
                 lib = ctypes.CDLL(path)
                 for name, argtypes in ((self.SIGNATURE,)
                                        + tuple(self.ENTRIES.items())):

@@ -22,6 +22,12 @@ Layout on the device:
   sentinel  int64 0-d          BWT position of the sentinel
   ref       uint8[2*l_pac]     doubled genome (the .0123 buffer), packed 4
                                chars/byte once 2*l_pac reaches REF_PACK_MIN
+  lut_start int64[4^K]         the K-mer interval table (index/klut.py) of
+  lut_size  int64[4^K]         the legacy round-1 walk: start and size of
+                               the interval of each K-mer (code = sum of
+                               base(i) << 2(K-1-i), read left to right);
+                               size-1 dummies without a table, and
+                               lut_depth = K (0: no table)
 
 The index file's checkpoint blocks are 64 bytes per 64 chars (4 int64
 counts + 4 one-hot uint64 masks, FMI_search.h:54-58); the packed row holds
@@ -141,6 +147,9 @@ class DeviceFMIndex:
     sentinel: torch.Tensor | None = None  # int64 0-d
     has_hi: bool = False
     shards: FmShards | None = None        # set: the tables are split
+    lut_start: torch.Tensor | None = None  # int64[4^K] (or [1] dummy)
+    lut_size: torch.Tensor | None = None   # int64[4^K] (or [1] dummy)
+    lut_depth: int = 0                     # K of the K-mer table, 0: none
 
     @property
     def nblocks(self) -> int:
@@ -163,10 +172,13 @@ class DeviceFMIndex:
                    device=dev, n_ref=int(ref_string.shape[0]))
 
     @classmethod
-    def from_host(cls, fm: FMIndex, device=None) -> "DeviceFMIndex":
+    def from_host(cls, fm: FMIndex, device=None,
+                  lut: tuple | None = None) -> "DeviceFMIndex":
         """Carry the loaded index onto `device` ("cuda" unless "cpu" is
         asked for): the genome plus the packed occ rows, the count-hi
-        plane, the counts and the compressed SA."""
+        plane, the counts and the compressed SA, and the K-mer table `lut`
+        = (K, starts, sizes) as index/klut.py:load_or_build_klut returns
+        it (None: size-1 dummies, lut_depth 0)."""
         out = cls.from_genome(fm.ref_string, device)
         dev = out.device
         occp, occ_hi = pack_occ_rows(fm.cp_count.astype(np.int64),
@@ -182,6 +194,10 @@ class DeviceFMIndex:
         out.sa_ls = put(fm.sa_ls_word.astype(np.uint32).view(np.int32))
         out.sentinel = torch.tensor(int(fm.sentinel_index),
                                     dtype=torch.int64, device=dev)
+        K, starts, sizes = lut if lut else (0, np.zeros(1), np.zeros(1))
+        out.lut_depth = int(K)
+        out.lut_start = put(np.asarray(starts, np.int64))
+        out.lut_size = put(np.asarray(sizes, np.int64))
         return out
 
 

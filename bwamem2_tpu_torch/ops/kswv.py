@@ -23,7 +23,9 @@ textbook DP:
 - the query is padded to 16*slen (8*slen) columns that score 0 and take
   part in the row maxima and the qe scan.
 
-`kswv_phase_ref` is the plain PyTorch version of one phase, vectorized
+`kswv_phase_ref` is the plain PyTorch version of one phase (of
+bwamem2_tpu's `kswv_kernel`, and of the one-phase kernel kswv_cuda.
+kswv_phase, whose caller is tools/kernel_micro.py), vectorized
 across problems (one row of the (P, Qmax) grids per problem, int32
 throughout).  Both F recurrences unroll to prefix maxima with linear decay:
 the pre-fixup F is a cummax segmented by stripe, the true F a plain cummax.

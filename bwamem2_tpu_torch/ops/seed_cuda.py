@@ -17,16 +17,18 @@ from .cuda_build import I32, I64, VP, CudaKernel, check_tensors
 
 
 MAX_SHARDS = 8      # csrc/fm_occ.cuh:FM_MAX_SHARDS
-FM_TAB_LEN = 42     # csrc/fm_occ.cuh:FM_TAB_LEN
+FM_TAB_LEN = 45     # csrc/fm_occ.cuh:FM_TAB_LEN
 
 
 def fm_table(dfm) -> ctypes.Array:
     """The index as the seeding and SA launchers take it (csrc/fm_occ.cuh:
     fm_view_of, fm_shard_view_of), a host int64 array: [shards, has_hi,
     sentinel, counts[5], occ rows per shard, SA slots per shard, occp[8],
-    occ_hi[8], sa_ms[8], sa_ls[8]] (device pointers; 0 where unused).  The
-    replicated index is one shard.  Built once per index (the counts and
-    sentinel are read from the device then)."""
+    occ_hi[8], sa_ms[8], sa_ls[8], lut_start, lut_size, lut_depth] (device
+    pointers; 0 where unused).  The replicated index is one shard; only a
+    replicated index carries a K-mer table (fm_occ.cuh:fm_lut_of).  Built
+    once per index (the counts and sentinel are read from the device
+    then)."""
     tab = getattr(dfm, "_fm_table", None)
     if tab is not None:
         return tab
@@ -47,8 +49,10 @@ def fm_table(dfm) -> ctypes.Array:
     for lst in lists:
         p = [t.data_ptr() for t in lst]
         ptrs += p + [0] * (MAX_SHARDS - len(p))
+    lut = ([dfm.lut_start.data_ptr(), dfm.lut_size.data_ptr(),
+            dfm.lut_depth] if dfm.lut_start is not None else [0, 0, 0])
     tab = (I64 * FM_TAB_LEN)(n, int(dfm.has_hi), sentinel, *counts, rows,
-                             sa_rows, *ptrs)
+                             sa_rows, *ptrs, *lut)
     dfm._fm_table = tab
     return tab
 

@@ -3,6 +3,10 @@
   round1_walk     the round-1 walk from every (read, end) lane
                   (csrc/round1_walk.cu), the fused seed-extend step's
                   first stage;
+  round1_compact  the same walk (from the K-mer table where it applies),
+                  the SMEM emission rule and the per-read compaction in
+                  one launch (csrc/round1_compact.cu): round 1 of the
+                  legacy configuration, TorchBackend(pivot_seeding=False);
   round1_chain    round 1's pivot chain, one lane per read
                   (csrc/round1_chain.cu);
   round2_forward  per pivot, the forward candidates (csrc/round2_forward.cu);
@@ -33,11 +37,16 @@ from n until the interval empties (bwamem2_tpu/ops/smem.py:round1_kernel /
 _round1_walk at lut_k = 0), yielding the leftmost start b(n) and the
 interval (k, s) of [b(n), n]; the round-1 SMEMs are exactly the [b(n), n]
 with b(n) < b(n + 1).  `ops/entry.py:seed_extend_step` takes each read's
-longest.  The K-mer jump start of the JAX version (index/klut.py) is not
-ported, nor its int32 variant: int64 is exact for every genome.
+longest.  The JAX version's int32 variant is not ported: int64 is exact
+for every genome.  Its K-mer jump start (lut_k > 0, index/klut.py) is:
+round1_walk_ref(..., K) and round1_compact start a lane from its
+K-mer's interval where the K codes ending at its column are bases and
+the K-mer occurs; round1_walk (the step's kernel) walks from scratch.
 
-`round1_walk(dfm, enc, lens)` is the wrapper: CPU tensors run the plain
-version `round1_walk_ref`, CUDA tensors launch the kernel or raise.
+`round1_walk(dfm, enc, lens)` and `round1_compact(dfm, enc, lens, K,
+min_seed_len, cap)` are the wrappers: CPU tensors run the plain version
+(`round1_walk_ref`, `round1_compact_ref`), CUDA tensors launch the kernel
+or raise.
 """
 
 from __future__ import annotations
@@ -73,15 +82,39 @@ class _Work:
                               rows=int(self.touched.sum()))
 
 
+def _lut_start(dfm: DeviceFMIndex, enc: torch.Tensor, valid: torch.Tensor,
+               K: int):
+    """The lanes the K-mer table starts (bwamem2_tpu/ops/smem.py:
+    _round1_walk, lut_k > 0): a valid lane whose K codes ending at its
+    column are bases (column >= K - 1) and whose K-mer occurs.  Returns
+    (use bool[N, L], code int64[N, L]); code = sum of base(n - i) << 2i."""
+    N, L = enc.shape
+    if dfm.lut_depth != K or dfm.lut_start is None:
+        raise ValueError(f"round1 walk at K={K}: the index carries a K-mer "
+                         f"table of depth {dfm.lut_depth}")
+    code = torch.zeros_like(enc)
+    clean = valid & (torch.arange(L, device=enc.device) >= K - 1)
+    for i in range(K):
+        c = torch.nn.functional.pad(enc, (i, 0), value=4)[:, :L]  # n - i
+        clean = clean & (c < 4)
+        code = code | ((c & 3) << (2 * i))
+    code = torch.where(clean, code, 0)
+    return clean & (dfm.lut_size[code] > 0), code
+
+
 def round1_walk_ref(dfm: DeviceFMIndex, enc: torch.Tensor,
-                    lens: torch.Tensor, stats: dict | None = None):
+                    lens: torch.Tensor, stats: dict | None = None,
+                    K: int = 0):
     """Plain version: enc int[N, L] codes (4 = N or padding), lens
     int32[N] -> (b int32[N, L], k int64[N, L], s int64[N, L]).  A lane
     whose code is not a base or that lies past its read gets b = n + 1 and
-    the interval of base 0.  Only live lanes are stepped.  If `stats` is a
-    dict, the LF steps the walks took (`steps`, the step that empties an
-    interval included) and the distinct occ rows they read (`rows`) are
-    stored in it: the kernel's work on these inputs."""
+    the interval of base 0.  Only live lanes are stepped.  With K > 0
+    (the index's K-mer table, dfm.lut_depth), a lane _lut_start picks
+    starts from its K-mer's interval with b = n - K + 1 and walks on from
+    column n - K.  If `stats` is a dict, the LF steps the walks took
+    (`steps`, the step that empties an interval included), the distinct
+    occ rows they read (`rows`) and the distinct table entries read
+    (`lut_rows`) are stored in it: the kernel's work on these inputs."""
     dev = enc.device
     N, L = enc.shape
     enc = enc.long()
@@ -91,11 +124,20 @@ def round1_walk_ref(dfm: DeviceFMIndex, enc: torch.Tensor,
     k = take_counts(dfm.counts, a0)
     s = take_counts(dfm.counts, a0, 1) - k
     b = torch.where(valid, pos, pos + 1)
+    skip = torch.zeros_like(pos)    # columns the start covers beyond n
+    lut_rows = 0
+    if K:
+        use, code = _lut_start(dfm, enc, valid, K)
+        k = torch.where(use, dfm.lut_start[code], k)
+        s = torch.where(use, dfm.lut_size[code], s)
+        b = torch.where(use, pos - K + 1, b)
+        skip = torch.where(use, K - 1, 0)
+        lut_rows = int(torch.unique(code[use]).numel())
     lane = valid.reshape(-1).nonzero()[:, 0]      # live lanes, flat
     k, s, b = k.reshape(-1), s.reshape(-1), b.reshape(-1)
     flat = enc.reshape(-1)
     work = _Work(dfm, stats, dev)
-    col = lane % L
+    col = lane % L - skip.reshape(-1)[lane]
     while lane.numel():
         col = col - 1
         keep = col >= 0
@@ -112,8 +154,47 @@ def round1_walk_ref(dfm: DeviceFMIndex, enc: torch.Tensor,
         lane, col = lane[ext], col[ext]
         k[lane], s[lane], b[lane] = k2[ext], s2[ext], col
     work.done()
+    if stats is not None:
+        stats["lut_rows"] = lut_rows
     return (b.reshape(N, L).to(torch.int32), k.reshape(N, L),
             s.reshape(N, L))
+
+
+def round1_compact_ref(dfm: DeviceFMIndex, enc: torch.Tensor,
+                       lens: torch.Tensor, K: int, min_seed_len: int,
+                       cap: int, stats: dict | None = None):
+    """Round 1 of the legacy seeding (bwamem2_tpu/ops/smem.py:
+    round1_compact_kernel): round1_walk_ref at depth K, then column n of a
+    read emits [b(n), n] when b(n) <= n, b(n) < b(n + 1) (where n + 1 >=
+    len, always), n - b(n) + 1 >= min_seed_len and n < len.  Returns cnt
+    int32[N] (the true emit count: more than cap routes the read to the
+    host) and, in cap slots per read in ascending n, n, b int32 (-1 past
+    cnt), s int32 (clamped to 2^31 - 1; 0 past cnt) and k int64 (0 past
+    cnt): the JAX kernel's values, int32 where it returns int16.  `stats`
+    as round1_walk_ref's."""
+    dev = enc.device
+    N, L = enc.shape
+    b, k, s = round1_walk_ref(dfm, enc, lens, stats, K)
+    b = b.long()
+    pos = torch.arange(L, device=dev).expand(N, L)
+    ln = lens.long()[:, None]
+    bnext = torch.cat([b[:, 1:], torch.full((N, 1), L + 1, device=dev)], 1)
+    bnext = torch.where(pos + 1 >= ln, L + 1, bnext)
+    emit = ((b <= pos) & (b < bnext) & (pos - b + 1 >= min_seed_len)
+            & (pos < ln))
+    cnt = emit.sum(1)
+    # the emitting columns first, in ascending n (a stable sort)
+    order = torch.sort((~emit).to(torch.int8), dim=1, stable=True).indices
+    order = order[:, :cap]
+    if order.shape[1] < cap:
+        order = torch.nn.functional.pad(order, (0, cap - order.shape[1]))
+    ok = torch.arange(cap, device=dev)[None, :] < cnt[:, None]
+    take = lambda a: torch.gather(a, 1, order)  # noqa: E731
+    return (cnt.to(torch.int32),
+            torch.where(ok, order, -1).to(torch.int32),
+            torch.where(ok, take(b), -1).to(torch.int32),
+            torch.where(ok, take(s).clamp(max=2**31 - 1), 0).to(torch.int32),
+            torch.where(ok, take(k), 0))
 
 
 class Round1Walk(CudaKernel):
@@ -157,6 +238,57 @@ class Round1Walk(CudaKernel):
 
 
 round1_walk = Round1Walk()
+
+
+class Round1Compact(CudaKernel):
+    """round1_compact(dfm, enc int8[N, L], lens int32[N], K, min_seed_len,
+    cap) -> (cnt int32[N], n, b, s int32[N, cap], k int64[N, cap]), as
+    round1_compact_ref: one warp per read, K > 0 starting lanes from the
+    index's K-mer table (which must have depth K)."""
+
+    NAME = "round1_compact"
+    SOURCES = ("round1_compact.cu", "round1_compact.cuh", "smem_group.cuh",
+               "fm_occ.cuh")
+    SIGNATURE = ("round1_compact_launch",
+                 [VP, VP, VP, I32, I32, I32, I32, I32, VP, VP, VP, VP, VP,
+                  VP])
+
+    def __call__(self, dfm, enc, lens, K: int, min_seed_len: int, cap: int):
+        if enc.device.type == "cpu":
+            self._plain()
+            return round1_compact_ref(dfm, enc, lens, K, min_seed_len, cap)
+        return self.launch(dfm, enc, lens, K, min_seed_len, cap)
+
+    def launch(self, dfm, enc, lens, K: int, min_seed_len: int, cap: int):
+        dev = _stage_inputs(self.NAME, dfm, enc,
+                            lens=(lens, torch.int32, 1))
+        if dfm.shards is not None:
+            raise ValueError("round1_compact reads a replicated index; a "
+                             "sharded one seeds through the pivot chain")
+        if K and (K != dfm.lut_depth or dfm.lut_start is None):
+            raise ValueError(f"round1_compact at K={K}: the index carries a "
+                             f"K-mer table of depth {dfm.lut_depth}")
+        if K:
+            check_tensors(self.NAME, dev,
+                          lut_start=(dfm.lut_start, torch.int64, 1),
+                          lut_size=(dfm.lut_size, torch.int64, 1))
+        N, L = enc.shape
+        if lens.shape[0] != N or cap < 1:
+            raise ValueError(f"round1_compact: {lens.shape[0]} lengths for "
+                             f"{N} reads, cap {cap}")
+        cnt = torch.empty(N, dtype=torch.int32, device=dev)
+        on, ob, os_ = (torch.empty((N, cap), dtype=torch.int32, device=dev)
+                       for _ in range(3))
+        ok = torch.empty((N, cap), dtype=torch.int64, device=dev)
+        if N:
+            self._launch(dev, fm_table(dfm), enc.data_ptr(), lens.data_ptr(),
+                         N, L, int(min_seed_len), cap, int(K),
+                         cnt.data_ptr(), on.data_ptr(), ob.data_ptr(),
+                         os_.data_ptr(), ok.data_ptr())
+        return cnt, on, ob, os_, ok
+
+
+round1_compact = Round1Compact()
 
 
 # ------------------------------------------------- per-stage seeding

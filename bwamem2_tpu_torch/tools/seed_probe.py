@@ -3,7 +3,8 @@ default-size chunk, to compare two commits' kernels on the same inputs and
 card.
 
     python bwamem2_tpu_torch/tools/seed_probe.py --root DIR [--scale 2.0]
-        [--data DIR] [--reps 3]
+        [--data DIR] [--reps 3] [--pairs 35000] [--task-bases 10000000]
+        [--walk]
 
 Imports bwamem2_tpu_torch from the checkout at --root (this commit's or an
 earlier one's whose smem_collect takes per-read slot offsets), makes or
@@ -14,7 +15,11 @@ one JSON line: the card with its power limit, the reads, the backward_ext
 calls and smem_collect's CUDA-event milliseconds, then the chunk's
 max_occ-sampled SA positions (FusedSeeder's compaction of that output) and
 sa_resolve's milliseconds on them, each the mean of --reps launches after
-a warm-up.
+a warm-up.  --pairs and --task-bases pick another chunk (chip_smoke.py's
+run (a): --scale 0.25 --pairs 10000 --task-bases 2250000).  --walk also
+times round1_walk (the seed-extend step's round-1 walk; the checkout must
+have it) on the chunk and reports its ptxas registers and stack frame
+per index view where this process built the library.
 """
 
 from __future__ import annotations
@@ -32,6 +37,9 @@ def main() -> None:
     ap.add_argument("--scale", type=float, default=2.0)
     ap.add_argument("--data", default=None)
     ap.add_argument("--reps", type=int, default=3)
+    ap.add_argument("--pairs", type=int, default=35_000)
+    ap.add_argument("--task-bases", type=int, default=10_000_000)
+    ap.add_argument("--walk", action="store_true")
     a = ap.parse_args()
     root = os.path.abspath(a.root)
     sys.path.insert(0, root)
@@ -47,9 +55,9 @@ def main() -> None:
     from bwamem2_tpu_torch.ops.device_index import DeviceFMIndex
     from bwamem2_tpu_torch.options import MemOptions
     data = a.data or os.path.join(root, ".tmp", f"bench_scale{a.scale}")
-    prefix, fq1, fq2 = benchdata.ensure(data, a.scale, 35_000)
+    prefix, fq1, fq2 = benchdata.ensure(data, a.scale, a.pairs)
     fm = FMIndex.load(prefix)
-    reads = read_chunk(FastxReader(fq1), FastxReader(fq2), 10_000_000)
+    reads = read_chunk(FastxReader(fq1), FastxReader(fq2), a.task_bases)
     enc, lens = _pad_reads(encode_reads([r.seq for r in reads]))
     dfm = DeviceFMIndex.from_host(fm, "cuda")
     e, ln = torch.from_numpy(enc).cuda(), torch.from_numpy(lens).cuda()
@@ -82,6 +90,20 @@ def main() -> None:
     sm_ms = timed(lambda: seed.smem_collect(*args))
     pos = seed.compact_and_expand(*out[:5], off, int(opt.max_occ))[3]
     sa_ms = timed(lambda: sa(dfm, pos))
+    walk = {}
+    if a.walk:
+        import re
+        from bwamem2_tpu_torch.ops.smem import round1_walk
+        walk["round1_walk_ms"] = timed(lambda: round1_walk(dfm, e, ln))
+        for ln_ in round1_walk.build_log.splitlines():
+            m = re.search(r"Function properties for (\w+)|Used (\d+) "
+                          r"registers|(\d+) bytes stack frame", ln_)
+            if m and m[1]:
+                view = "FmShardView" if "ILi1E" in m[1] else "FmView"
+            elif m and m[2]:
+                walk[f"round1_walk_registers_{view}"] = int(m[2])
+            elif m and m[3]:
+                walk[f"round1_walk_stack_{view}"] = int(m[3])
     card = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                            "--format=csv,noheader"], capture_output=True,
                           text=True).stdout.strip().splitlines()[0]
@@ -90,7 +112,7 @@ def main() -> None:
         L=L, lanes=seed.smem_collect.lanes_for(N),
         bwd_ext=int(out[5].sum()), overflowed=int((out[4] < 0).sum()),
         smem_collect_ms=sm_ms, positions=int(pos.numel()),
-        sa_design=sa_design, sa_resolve_ms=sa_ms)), flush=True)
+        sa_design=sa_design, sa_resolve_ms=sa_ms, **walk)), flush=True)
 
 
 if __name__ == "__main__":

@@ -8,17 +8,20 @@ for the H100, sm_90a):
 
 Phases, each of which fails the run (non-zero exit, no result line):
   1. the card's name and power limit (nvidia-smi);
-  2. build: the eleven CUDA kernels (one nvcc per csrc/*.cu: bsw_extend,
-     bsw_shear, smem_collect, sa_resolve, kswv, row_gather, round1_walk,
-     round1_chain, round2_forward, round2_backward, round3_replay), the
+  2. build: the thirteen CUDA kernels (one nvcc per csrc/*.cu: bsw_extend,
+     bsw_shear, smem_collect, sa_resolve, kswv (with kswv_phase),
+     row_gather, round1_walk, round1_compact, round1_chain,
+     round2_forward, round2_backward, round3_replay), the
      sharded index's peer_access.cu and the native host runtime (g++) from
      the checkout's sources, all started together;
      the registers, spills and stack frame of each bsw_extend
      instantiation (lanes x columns per lane), each bsw_shear
      instantiation (int32 slots and 16-bit registers per lane, and the
      shared-memory frame; none may spill or have a stack frame), each
-     kswv instantiation (u8/i16 x
-     register bucket or shared-memory stripes), each smem_collect
+     kswv and kswv_phase instantiation (u8/i16 x
+     register bucket or shared-memory stripes), each round1_compact
+     instantiation (with and without the K-mer table; neither may have a
+     stack frame), each smem_collect
      instantiation, each sa_resolve instantiation (walks per lane) and
      round1_walk, the last two of which must have no stack frame (each
      over both index views, FmView and FmShardView), and each per-stage
@@ -68,6 +71,15 @@ Phases, each of which fails the run (non-zero exit, no result line):
      plain version runs, the SAM equals run (a)'s, and the reads taking a
      host route (overflow.r1_pivot_cap, overflow.long_read) stay within
      1 %; the pivots of the wide candidate tier are printed;
+     (h) the legacy round 1: run (a)'s data through run_pipeline with one
+     TorchBackend(pivot_seeding=False) and its K-mer table (K = 8 at this
+     genome's size): round1_compact, the round-2 and round-3 per-stage
+     kernels, sa_resolve, bsw_extend and kswv launch, smem_collect and
+     round1_chain do not, no plain version runs, the SAM equals run (a)'s
+     and the reads on the host oracle (overflow.r1_compact_cap,
+     overflow.long_read) stay within 1 %; its wall and seeding rounds are
+     printed; then the port's kernel_micro entry on this genome, one
+     timed call a line, whose kswv_phase and bsw_shear_tiles must launch;
   5. kernel vs plain, exact equality, with times and bounds:
      a. bsw_extend against bsw_desc_ref at every production rung (Q in
         127/255/383 x T in 96..608) with P = 4096 real-length descriptors,
@@ -132,6 +144,15 @@ Phases, each of which fails the run (non-zero exit, no result line):
         the seed-extend step over a 2-shard index against phase f's
         replicated step, each exact and the first two timed; with several
         cards, sa_resolve over one shard per card (peer loads);
+     h. round1_compact against round1_compact_ref on run (h)'s first-chunk
+        launch at K = 8 and at K = 0, exact, timed beside the bound from
+        the LF steps, distinct occ rows and table entries its plain
+        version counts, with each instantiation's ptxas numbers and
+        round1_walk's 5f time beside them; kswv_phase against
+        kswv_phase_ref on a u8 and an i16 batch with mixed target
+        directions, live flags and stop scores; bsw_shear_tiles against
+        bsw_shear_desc_ref on 64 long-read tiles of 1-3 kb, a quarter of
+        them past 16 bits (both bodies launch);
   6. the gather probe (bwamem2_tpu_torch/tools/gather_scale_probe.py) on
      cuda, its path's launch counter set to 0 before and read after; then
      row_gather against tab[idx] and torch.index_select at the probe's
@@ -248,6 +269,12 @@ SHARD_TASK_BASES = 600_000
 # round1_walk bound model (csrc/round1_walk.cu header): the least int32
 # operations per LF step and the popcounts among them
 R1_OPS_PER_STEP, R1_POPC_PER_STEP = 63, 8
+# the legacy round-1 configuration (phases 4h, 5h): the K-mer table's
+# depth at the smoke genome's size (index/klut.py:default_k) and the
+# one-phase kswv and tile-form bsw_shear batches
+LEGACY_K = 8
+PHASE_U8, PHASE_I16 = 2048, 512        # one-phase kswv problems per class
+SHEAR_TILES = (64, (1000, 3000), 100)  # tile pairs, query lengths, Wh
 
 
 def log(msg: str) -> None:
@@ -270,18 +297,20 @@ def card_line() -> str:
 
 # ----------------------------------------------------------------- builds
 def kernels():
-    """The wrappers of the eleven kernels, by name."""
+    """The wrappers of the thirteen kernels, by name (kswv and kswv_phase
+    are two kernels of one library)."""
     from bwamem2_tpu_torch.ops.bsw_cuda import bsw_extend
     from bwamem2_tpu_torch.ops.bsw_shear_cuda import bsw_shear
-    from bwamem2_tpu_torch.ops.kswv_cuda import kswv
+    from bwamem2_tpu_torch.ops.kswv_cuda import kswv, kswv_phase
     from bwamem2_tpu_torch.ops.row_gather import row_gather
     from bwamem2_tpu_torch.ops.seed import sa_resolve, smem_collect
-    from bwamem2_tpu_torch.ops.smem import (round1_chain, round1_walk,
-                                            round2_backward, round2_forward,
-                                            round3_replay)
+    from bwamem2_tpu_torch.ops.smem import (round1_chain, round1_compact,
+                                            round1_walk, round2_backward,
+                                            round2_forward, round3_replay)
     return dict(bsw_extend=bsw_extend, bsw_shear=bsw_shear,
                 smem_collect=smem_collect, sa_resolve=sa_resolve, kswv=kswv,
-                row_gather=row_gather, round1_walk=round1_walk,
+                kswv_phase=kswv_phase, row_gather=row_gather,
+                round1_walk=round1_walk, round1_compact=round1_compact,
                 round1_chain=round1_chain, round2_forward=round2_forward,
                 round2_backward=round2_backward, round3_replay=round3_replay)
 
@@ -356,7 +385,8 @@ def build_all() -> dict:
         secs[name] = time.perf_counter() - t0
 
     from bwamem2_tpu_torch.parallel.shard_index import PEER
-    jobs = [(f"nvcc {k.SOURCES[0]}", k.lib) for k in kernels().values()]
+    jobs = list({f"nvcc {k.SOURCES[0]}": k.lib
+                 for k in kernels().values()}.items())   # one per library
     jobs.append(("nvcc peer_access.cu", PEER.lib))
     jobs.append(("g++ native runtime", get_lib))
     ts = [threading.Thread(target=timed, args=j) for j in jobs]
@@ -368,11 +398,31 @@ def build_all() -> dict:
         fail("build failed:\n" + "\n".join(errs))
     for name, k in kernels().items():
         inst = sorted(instances(k.build_log, name).items())
-        if name == "kswv":       # one line per instantiation
+        if name in ("kswv", "kswv_phase"):    # one line per instantiation
+            # the two kernels share a library: whichever built it has
+            # the log
+            text = k.build_log or kernels()["kswv"].build_log \
+                or kernels()["kswv_phase"].build_log
+            inst = sorted(instances(text, name).items())
             for (u8, smax), v in inst:
-                log(f"  ptxas kswv<{'u8' if u8 else 'i16'}, SMAX={smax}>: "
+                log(f"  ptxas {name}<{'u8' if u8 else 'i16'}, SMAX={smax}>: "
                     f"{v.get('registers')} registers, {v.get('spill')} B "
                     f"spilled, {v.get('stack')} B stack frame")
+            if name == "kswv_phase" and any(v.get("spill") or v.get("stack")
+                                            for _, v in inst):
+                fail(f"kswv_phase: instantiations {inst} (none may spill "
+                     "or have a stack frame)")
+            continue
+        if name == "round1_compact":
+            if not k.build_log:
+                continue        # built before this run: no ptxas output
+            for (lut,), v in inst:
+                log(f"  ptxas round1_compact<LUT={int(lut)}>: "
+                    f"{v.get('registers')} registers, {v.get('spill')} B "
+                    f"spilled, {v.get('stack')} B stack frame")
+            if len(inst) != 2 or any(v.get("stack") for _, v in inst):
+                fail(f"round1_compact: stack frames {inst} (neither "
+                     "instantiation may have one)")
             continue
         if name == "smem_collect":
             for (G, lcap), v in inst:
@@ -1928,6 +1978,328 @@ def step_phase(torch, card: str, prefix: str, fq1: str, fq2: str) -> dict:
     return res
 
 
+def legacy_mem(torch, card: str, prefix: str, fq1: str, fq2: str,
+               sam_a: str) -> dict:
+    """[4h] run (a)'s data through run_pipeline with one
+    TorchBackend(pivot_seeding=False) on the card and its K-mer table
+    (depth LEGACY_K at this genome's size), every launch counter and PROF
+    record set to 0 just before and read just after.  Fails unless the
+    SAM equals run (a)'s, round1_compact and the per-stage round-2 and
+    round-3 kernels, sa_resolve, bsw_extend and kswv launched,
+    smem_collect and round1_chain did not, no plain version ran, and the
+    reads on the host oracle (overflow.r1_compact_cap, overflow.long_read)
+    stay within MAX_OVERFLOW.  Then the port's kernel_micro entry on this
+    genome (one timed call a line), counters set to 0 just before and read
+    just after: kswv_phase and bsw_shear (bsw_shear_tiles) must launch.
+    round1_compact's launch of the first chunk is returned under
+    "_launch" for phase 5h."""
+    import io
+    from contextlib import redirect_stdout
+    from bwamem2_tpu_torch.align.pipeline import Aligner
+    from bwamem2_tpu_torch.index.fmindex import FMIndex
+    from bwamem2_tpu_torch.io.fastq import FastxReader
+    from bwamem2_tpu_torch.ops.backend import TorchBackend
+    from bwamem2_tpu_torch.ops.smem import Round1Compact
+    from bwamem2_tpu_torch.options import MEM_F_PE, MemOptions
+    from bwamem2_tpu_torch.runtime import run_pipeline
+    from bwamem2_tpu_torch.tools import kernel_micro
+    from bwamem2_tpu_torch.utils.profiling import PROF
+    fm = FMIndex.load(prefix)
+    opt = MemOptions().finalize(None)
+    opt.flag |= MEM_F_PE
+    t0 = time.perf_counter()
+    be = TorchBackend(fm, opt, "cuda", pivot_seeding=False)
+    setup_s = time.perf_counter() - t0
+    if be.lut_k != LEGACY_K:
+        fail(f"legacy mem: K-mer table of depth {be.lut_k}, expected "
+             f"{LEGACY_K} at l_pac {fm.l_pac}")
+    al = Aligner(fm, opt, backend=be, verbose=1)
+    K = kernels()
+    captured: list = []
+    orig = Round1Compact.launch
+
+    def spy(self, *args):
+        if not captured:
+            captured.append(args)
+        return orig(self, *args)
+
+    for d in (PROF.t, PROF.n, PROF.c, PROF.ctot):
+        d.clear()
+    for k in K.values():
+        k.reset()
+    out = io.StringIO()
+    Round1Compact.launch = spy
+    t0 = time.perf_counter()
+    try:
+        n = run_pipeline([al], FastxReader(fq1), FastxReader(fq2),
+                         TASK_BASES, out, verbose=0, n_workers=1)
+        torch.cuda.synchronize()
+    finally:
+        Round1Compact.launch = orig
+    wall = time.perf_counter() - t0
+    launches = {nm: k.launches for nm, k in K.items()}
+    plain = {nm: k.plain_calls for nm, k in K.items()}
+    if any(plain.values()):
+        fail(f"legacy mem: plain versions ran on cuda: {plain}")
+    for kn in ("round1_compact", "round2_forward", "round2_backward",
+               "round3_replay", "sa_resolve", "bsw_extend", "kswv"):
+        if not launches[kn]:
+            fail(f"legacy mem: {kn} was not launched: {launches}")
+    if launches["smem_collect"] or launches["round1_chain"]:
+        fail(f"legacy mem: the pivot-chain seeding ran: {launches}")
+    routes = {c: [PROF.c.get(c, 0), PROF.ctot.get(c, 0)] for c in (
+        "overflow.r1_compact_cap", "overflow.long_read",
+        "seeding.cand_wide")}
+    for c in ("overflow.r1_compact_cap", "overflow.long_read"):
+        m, tot = routes[c]
+        if not tot or m > MAX_OVERFLOW * tot:
+            fail(f"legacy mem: {c} {m} of {tot} (limit {MAX_OVERFLOW:.0%})")
+    got, want = sam_records(out.getvalue(), False), sam_records(sam_a)
+    if got != want:
+        bad = sum(x != y for x, y in zip(got, want))
+        fail(f"legacy mem: SAM differs from run (a)'s: {bad} of "
+             f"{len(want)} records ({len(got)} produced)")
+    seeding = {k: round(PROF.t.get(k, 0.0), 4) for k in (
+        "seeding.round1", "seeding.round1b", "seeding.round2",
+        "seeding.round3", "sa_lookup")}
+    phases = {k: round(v, 3) for k, v in sorted(PROF.t.items())}
+    log(f"  [4h] legacy round 1 (pivot_seeding=False, K-mer table K="
+        f"{be.lut_k}; backend set-up {setup_s:.2f}s): {n} reads in "
+        f"{wall:.2f}s = {n / wall:.1f} reads/s, SAM == run (a)'s "
+        f"({len(want)} records); seeding (s) {json.dumps(seeding)}; routes "
+        f"[n, of] {routes}; launches {launches} [{card}]")
+    log(f"    host phases (s): {json.dumps(phases)}")
+    # the kernel_micro entry on this genome: its path's launches
+    for k in K.values():
+        k.reset()
+    buf = io.StringIO()
+    t0 = time.perf_counter()
+    with redirect_stdout(buf):
+        rc = kernel_micro.main(["--scale", str(DATA_SCALE), "--reps", "1"])
+    micro_s = time.perf_counter() - t0
+    micro = {nm: k.launches for nm, k in K.items()}
+    if rc or any(k.plain_calls for k in K.values()):
+        fail(f"kernel_micro: exit {rc}, plain calls "
+             f"{[nm for nm, k in K.items() if k.plain_calls]}")
+    for kn in ("kswv_phase", "bsw_shear", "round1_compact"):
+        if not micro[kn]:
+            fail(f"kernel_micro: {kn} was not launched: {micro}")
+    for ln in buf.getvalue().splitlines():
+        log(f"    kernel_micro: {ln}")
+    log(f"  [4h] kernel_micro (scale {DATA_SCALE}, one timed call a line) "
+        f"in {micro_s:.1f}s; launches {micro} [{card}]")
+    return dict(reads=n, wall_s=round(wall, 3),
+                reads_per_s=round(n / wall, 1), lut_k=be.lut_k,
+                setup_s=round(setup_s, 3), seeding_s=seeding,
+                host_routes=routes, launches=launches, phases_s=phases,
+                micro_launches=micro, micro_out=buf.getvalue(),
+                _launch=captured[0])
+
+
+def phase_batch(torch, dev, genome, seed: int, n: int, L: int, qr, tr):
+    """A one-phase rescue batch on `dev`: benchdata.rescue_windows
+    problems with every third target walked backward from its end, every
+    fifth not live and the stop scores mixed (none, 20, 35)."""
+    import numpy as np
+    from bwamem2_tpu_torch.benchdata import rescue_windows
+    from bwamem2_tpu_torch.ops.kswv import NO_LIMIT
+    enc, qoff, qdir, qcomp, qlen, toff, tlen = rescue_windows(
+        genome, seed=seed, n=n, L=L, qr=qr, tr=tr, nmut=qr[1] // 40,
+        n_every=5, plant=11)
+    rng = np.random.default_rng(seed)
+    tdir = np.where(np.arange(n) % 3 == 1, -1, 1).astype(np.int32)
+    toff = np.where(tdir < 0, toff + tlen - 1, toff).astype(np.int64)
+    endsc = rng.choice(np.array([NO_LIMIT, 20, 35], np.int32), n)
+    live = np.arange(n) % 5 != 2
+    return [torch.from_numpy(np.ascontiguousarray(a)).to(dev) for a in (
+        enc, qoff, qdir, qcomp, qlen, toff, tdir, tlen, endsc, live)]
+
+
+def legacy_vs_plain(torch, card: str, launch, fm, opt, r1walk: dict) -> dict:
+    """[5h] round1_compact against round1_compact_ref on the card on the
+    legacy run's first-chunk launch at K = LEGACY_K and again at K = 0,
+    exact, timed with CUDA events beside the bound from the LF steps,
+    distinct occ rows and table entries the plain version counts, with
+    the ptxas numbers of each instantiation, and round1_walk's 5f time
+    and registers beside them; kswv_phase against kswv_phase_ref on a u8
+    and an i16 batch with mixed target directions, live flags and stop
+    scores; bsw_shear_tiles against bsw_shear_desc_ref on long-read tiles
+    whose h0 puts some pairs past 16 bits (both bodies)."""
+    import numpy as np
+    from bwamem2_tpu_torch.ops.bsw import (_tile_descriptors,
+                                           bsw_shear_desc_ref,
+                                           bsw_shear_tiles)
+    from bwamem2_tpu_torch.ops.bsw_shear_cuda import bsw_shear
+    from bwamem2_tpu_torch.ops.kswv import kswv_phase_ref
+    from bwamem2_tpu_torch.ops.kswv_cuda import kswv_phase
+    from bwamem2_tpu_torch.ops.smem import round1_compact, round1_compact_ref
+    from bwamem2_tpu_torch.tools.kernel_micro import shear_tiles
+    ev = lambda: torch.cuda.Event(enable_timing=True)  # noqa: E731
+    out: dict = {}
+
+    def plain_ms(fn):
+        e0, e1 = ev(), ev()
+        e0.record()
+        r = fn()
+        e1.record()
+        torch.cuda.synchronize()
+        return r, e0.elapsed_time(e1)
+
+    # ---- round1_compact at K = LEGACY_K (the run's launch) and K = 0
+    dfm, enc, lens, K, msl, cap = launch
+    dev = enc.device
+    N, L = enc.shape
+    ptx = {int(k[0]): v for k, v in
+           instances(kernels()["round1_compact"].build_log,
+                     "round1_compact").items()}
+    for k_ in (K, 0):
+        args = (dfm, enc, lens, k_, msl, cap)
+        got = round1_compact.launch(*args)
+        stats: dict = {}
+        want, p_ms = plain_ms(lambda: round1_compact_ref(*args, stats=stats))
+        err = max(int((g.long() - w.long()).abs().max()) for g, w in
+                  zip(got, want))
+        if err:
+            fail(f"5h: round1_compact at K={k_} differs from "
+                 f"round1_compact_ref (max abs err {err})")
+        k_ms = cuda_ms(torch, lambda: round1_compact.launch(*args), 5)
+        row_b = 32 + (4 if dfm.has_hi else 0)
+        nbytes = (stats["rows"] * row_b + N * (L + 4)
+                  + stats["lut_rows"] * 16 + N * (4 + cap * 20))
+        mem_ms = nbytes / HBM_BYTES_PER_S * 1e3
+        ops_ms = int_ops_s(stats["steps"] * R1_OPS_PER_STEP,
+                           stats["steps"] * R1_POPC_PER_STEP) * 1e3
+        inst = ptx.get(int(bool(k_)), {})
+        over = int((got[0] > cap).sum())
+        r = dict(K=k_, reads=N, L=L, steps=stats["steps"],
+                 rows=stats["rows"], lut_rows=stats["lut_rows"],
+                 emitted=int(got[0].sum()), over_cap=over, ms=k_ms,
+                 plain_ms=p_ms, mem_ms=mem_ms, ops_ms=ops_ms,
+                 bound_ms=max(mem_ms, ops_ms),
+                 bound_by="operations" if ops_ms >= mem_ms else "bytes",
+                 err=err, registers=inst.get("registers"),
+                 spill_bytes=inst.get("spill"),
+                 stack_bytes=inst.get("stack"))
+        out[f"round1_compact_K{k_}"] = r
+        log(f"  round1_compact K={k_} on run (a)'s first chunk ({N} reads x "
+            f"L={L}; {stats['steps']} LF steps, {stats['rows']} distinct "
+            f"occ rows, {stats['lut_rows']} table entries; {r['emitted']} "
+            f"SMEMs, {over} reads over {cap}): kernel {k_ms:.4f} ms, plain "
+            f"{p_ms:.1f} ms, bound {r['bound_ms']:.5f} ms by "
+            f"{r['bound_by']} (bytes {mem_ms:.5f}, operations "
+            f"{ops_ms:.5f}), identical; {inst.get('registers')} registers, "
+            f"{inst.get('spill')} B spilled, {inst.get('stack')} B stack "
+            f"frame [{card}]")
+    log(f"  round1_walk (K = 0, phase 5f) on the same chunk: "
+        f"{r1walk['ms']:.4f} ms, bound {r1walk['bound_ms']:.5f} ms; its "
+        f"ptxas line is phase 2's [{card}]")
+
+    # ---- kswv_phase, u8 and i16, mixed tdir / live / endsc
+    ptx = instances(kernels()["kswv_phase"].build_log
+                    or kernels()["kswv"].build_log, "kswv_phase")
+    tot = dict(ms=0.0, plain_ms=0.0, bound_ms=0.0, ops_ms=0.0, mem_ms=0.0,
+               err=0, problems=0, classes={})
+    sc = (*opt.mat_scores(), opt.o_del, opt.e_del, opt.o_ins, opt.e_ins)
+    minsc = opt.min_seed_len * opt.a
+    for cls, u8, n, L_, qr, tr, Qmax, Tmax in (
+            ("u8", True, PHASE_U8, 160, (100, 161), (150, 700), 160, 700),
+            ("i16", False, PHASE_I16, 512, (250, 513), (300, 2049), 512,
+             2048)):
+        x = phase_batch(torch, dev, fm.ref_string, 41 if u8 else 43, n, L_,
+                        qr, tr)
+        ref = torch.from_numpy(fm.ref_string).to(dev)
+        args = (ref, *x, Qmax, Tmax, minsc, *sc, False, u8)
+        got = kswv_phase.launch(*args)
+        work: list = []
+        want, p_ms = plain_ms(lambda: kswv_phase_ref(*args, work=work))
+        err = int((got - want).abs().max())
+        if err:
+            bad = int((got != want).any(1).sum())
+            fail(f"5h: kswv_phase ({cls}) disagrees with kswv_phase_ref on "
+                 f"{bad} of {n} problems (max abs err {err})")
+        k_ms = cuda_ms(torch, lambda: kswv_phase.launch(*args), 5)
+        cells, rows = work[0]
+        ops_ms = ((cells * KSWV_OPS_PER_CELL[u8]
+                   + rows * (16 if u8 else 8) * KSWV_LAZY_OPS)
+                  / INT32_OPS_PER_S * 1e3)
+        nbytes = (n * (KSWV_DESC_BYTES + 9 + 24) + int(x[4].sum())
+                  + int(x[7].sum()))
+        mem_ms = nbytes / HBM_BYTES_PER_S * 1e3
+        smax, gpb, smem = kswv_phase.plan(n, Qmax, u8, dev)
+        inst = ptx.get((u8, smax), {})
+        c = dict(P=n, Qmax=Qmax, Tmax=Tmax, cells=cells, rows=rows,
+                 live=int(x[9].sum()), backward=int((x[6] < 0).sum()),
+                 ms=k_ms, plain_ms=p_ms, bound_ms=max(ops_ms, mem_ms),
+                 register_bucket=smax, groups_per_block=gpb,
+                 registers=inst.get("registers"),
+                 spill_bytes=inst.get("spill"),
+                 stack_bytes=inst.get("stack"))
+        tot["classes"][cls] = c
+        for key, v in (("ms", k_ms), ("plain_ms", p_ms),
+                       ("bound_ms", max(ops_ms, mem_ms)), ("ops_ms", ops_ms),
+                       ("mem_ms", mem_ms), ("problems", n)):
+            tot[key] += v
+        log(f"  kswv_phase {cls}: P={n} ({c['live']} live, {c['backward']} "
+            f"targets walked backward, stop scores mixed) Qmax={Qmax} "
+            f"Tmax={Tmax}, {cells} cells in {rows} rows: kernel "
+            f"{k_ms:.4f} ms, plain {p_ms:.1f} ms, bound "
+            f"{max(ops_ms, mem_ms):.5f} ms, identical; SMAX={smax}, {gpb} "
+            f"groups/block, {inst.get('registers')} registers, "
+            f"{inst.get('spill')} B spilled, {inst.get('stack')} B stack "
+            f"frame [{card}]")
+    tot["bound_by"] = "operations" if tot["ops_ms"] >= tot["mem_ms"] \
+        else "bytes"
+    out["kswv_phase"] = tot
+
+    # ---- bsw_shear_tiles on long-read tiles, both bodies
+    P, qr, Wh = SHEAR_TILES
+    rng = np.random.default_rng(47)
+    q, t, qlen, tlen = shear_tiles(rng, P, qr, dev)
+    h0 = torch.from_numpy(np.where(np.arange(P) % 4 == 0,
+                                   rng.integers(30000, 40000, P),
+                                   rng.integers(20, 200, P))
+                          .astype(np.int32)).to(dev)
+    w = torch.full((P,), Wh, dtype=torch.int32, device=dev)
+    sc_t = (*sc, opt.zdrop, opt.pen_clip5, max(opt.a, 1))
+    b0 = bsw_shear.launches
+    got = bsw_shear_tiles(q, t, qlen, tlen, h0, w, Wh, *sc_t)
+    n_launch = bsw_shear.launches - b0
+    cells: list = []
+    ref, enc_t, *desc = _tile_descriptors(q, t, qlen, tlen)
+    want, p_ms = plain_ms(lambda: bsw_shear_desc_ref(
+        ref, enc_t, *desc, h0, w, Wh, t.shape[1], *sc_t, cells=cells))
+    err = int((got - want).abs().max())
+    if err:
+        bad = int((got != want).any(1).sum())
+        fail(f"5h: bsw_shear_tiles disagrees with bsw_shear_desc_ref on "
+             f"{bad} of {P} tile pairs (max abs err {err})")
+    k_ms = cuda_ms(torch, lambda: bsw_shear_tiles(q, t, qlen, tlen, h0, w,
+                                                  Wh, *sc_t), 3)
+    fit = bsw_shear.fits16(qlen.cpu().numpy(), h0.cpu().numpy(), Wh, *sc,
+                           max(opt.a, 1))
+    ql, tl = qlen.long(), tlen.long()
+    nbytes = (P * (DESC_BYTES + OUT_BYTES) + int(ql.sum())
+              + int(torch.minimum(tl, ql + Wh + 2).sum()))
+    ops_ms = cells[0] * OPS_PER_CELL / INT32_OPS_PER_S * 1e3
+    mem_ms = nbytes / HBM_BYTES_PER_S * 1e3
+    out["bsw_shear_tiles"] = dict(
+        P=P, Qmax=q.shape[1], Tmax=t.shape[1], Wh=Wh, s16=int(fit.sum()),
+        launches=n_launch, cells=cells[0], ms=k_ms, plain_ms=p_ms,
+        ops_ms=ops_ms, mem_ms=mem_ms, bound_ms=max(ops_ms, mem_ms),
+        bound_by="operations" if ops_ms >= mem_ms else "bytes", err=err)
+    log(f"  bsw_shear_tiles: {P} tile pairs of {qr[0]}-{qr[1]} bases "
+        f"(Qmax {q.shape[1]}, Tmax {t.shape[1]}, Wh {Wh}; {int(fit.sum())} "
+        f"in the 16-bit body, {P - int(fit.sum())} int32, {n_launch} "
+        f"launches), {cells[0]} cells: {k_ms:.4f} ms a call, plain "
+        f"{p_ms:.1f} ms, bound {max(ops_ms, mem_ms):.5f} ms, identical "
+        f"[{card}]")
+    if not 0 < fit.sum() < P or n_launch != 2:
+        fail(f"5h: bsw_shear_tiles ran {n_launch} launches for "
+             f"{int(fit.sum())} of {P} pairs in 16 bits (both bodies "
+             "expected)")
+    return out
+
+
 def goldens() -> str:
     """The goldens on cuda (phase 7); returns the SAM text of the long-read
     fixture at -x pacbio -w WIDE_W, whose band radii (WIDE_W, 2 * WIDE_W on
@@ -2135,8 +2507,12 @@ def main() -> None:
     log("[4g] mem over a sharded index, run (a)'s data:")
     run_g = sharded_mem(torch, card, prefix, fq1, fq2, sam)
     stage_calls = run_g.pop("_launches")
-    runs = (run_a, run_b, run_c, run_d, rr, run_g)
-    # the kernels line counts the launches of the six runs
+    log("[4h] mem PE with the legacy round 1 (TorchBackend(pivot_seeding="
+        "False), K-mer table), run (a)'s data, and the kernel_micro entry:")
+    run_h = legacy_mem(torch, card, prefix, fq1, fq2, sam)
+    legacy_launch = run_h.pop("_launch")
+    runs = (run_a, run_b, run_c, run_d, rr, run_g, run_h)
+    # the kernels line counts the launches of the seven runs
     launches = {n: sum(r["launches"][n] for r in runs)
                 for n in run_a["launches"]}
     cap_a, cap_b = run_a.pop("_capture"), run_b.pop("_capture")
@@ -2174,6 +2550,11 @@ def main() -> None:
         sg = stage_vs_plain(torch, card, stage_calls, prefix, fq1, fq2,
                             st.pop("_out"))
         del stage_calls
+        log(f"[5h] the legacy round 1, the one-phase kswv and the tile "
+            f"form of bsw_shear vs plain on {name}:")
+        lh = legacy_vs_plain(torch, card, legacy_launch, fm, opt,
+                             st["round1_walk"])
+        del legacy_launch
         log(f"[5a] bsw_extend vs plain on {name}, P={P_KERNEL} per rung:")
         tot = kernel_vs_plain(torch, fm, opt)
         log(f"  all rungs identical; kernel {tot['ms']:.3f} ms (one-thread "
@@ -2375,6 +2756,35 @@ def main() -> None:
                    f"{st['round1_walk']['L']}), {st['round1_walk']['steps']}"
                    f" LF steps"),
     ]
+    r1k = lh[f"round1_compact_K{LEGACY_K}"]
+    kp = lh["kswv_phase"]
+    kern += [
+        dict(name="round1_compact", route="cuda",
+             source="bwamem2_tpu_torch/csrc/round1_compact.cu",
+             replaces="bwamem2_tpu/ops/smem.py:171",
+             launches=launches["round1_compact"],
+             max_abs_err=max(lh["round1_compact_K0"]["err"], r1k["err"]),
+             ms=round(r1k["ms"], 4), plain_ms=round(r1k["plain_ms"], 3),
+             bound_ms=round(r1k["bound_ms"], 5), bound_by=r1k["bound_by"],
+             library_ms=None,
+             library_note="no PyTorch call walks an FM-index",
+             shape=f"run (a)'s first chunk, {r1k['reads']} reads x L="
+                   f"{r1k['L']}, K={LEGACY_K}, {r1k['steps']} LF steps "
+                   f"(K=0: {lh['round1_compact_K0']['ms']:.4f} ms)"),
+        dict(name="kswv_phase", route="cuda",
+             source="bwamem2_tpu_torch/csrc/kswv.cu",
+             replaces="bwamem2_tpu/ops/kswv.py:66",
+             launches=run_h["micro_launches"]["kswv_phase"],
+             max_abs_err=kp["err"], ms=round(kp["ms"], 4),
+             plain_ms=round(kp["plain_ms"], 3),
+             bound_ms=round(kp["bound_ms"], 5), bound_by=kp["bound_by"],
+             library_ms=None,
+             library_note="no PyTorch call computes striped SW",
+             shape=", ".join(f"{c['P']} {k} problems, Qmax={c['Qmax']}, "
+                             f"Tmax={c['Tmax']}"
+                             for k, c in kp["classes"].items())
+             + " (mixed target directions, live flags, stop scores)"),
+    ]
     replaces = dict(round1_chain="bwamem2_tpu/ops/smem.py:308",
                     round2_forward="bwamem2_tpu/ops/smem.py:387",
                     round2_backward="bwamem2_tpu/ops/smem.py:464",
@@ -2395,6 +2805,7 @@ def main() -> None:
                   main_a=run_a, main_b=run_b, main_a52=run_c,
                   main_pacbio=run_d, round_robin=rr, shards=shards,
                   sharded_index=run_g, stages=sg, step=st,
+                  legacy=run_h, legacy_kernels=lh,
                   launches=launches,
                   build_s={k: round(v, 1) for k, v in secs.items()},
                   bsw_main=bm, bsw_rungs=tot, bsw_shear=sh,

@@ -9,8 +9,9 @@ runs on a machine with a GPU and no JAX:
 
 The plain versions are held against the JAX package on the CPU by
 tests/test_torch_seed.py, tests/test_torch_bsw.py,
-tests/test_torch_bsw_shear.py, tests/test_torch_kswv.py and
-tests/test_torch_gather.py; chip_smoke.py
+tests/test_torch_bsw_shear.py, tests/test_torch_kswv.py,
+tests/test_torch_round1_compact.py and tests/test_torch_gather.py;
+chip_smoke.py
 repeats these checks at the main path's sizes.  Tolerance 0 (integer).
 """
 
@@ -486,6 +487,112 @@ def test_bsw_tiles_match_ref_on_card(card):
     torch.cuda.synchronize()
     np.testing.assert_array_equal(got.cpu().numpy(),
                                   bsw_tiles(*args, *sc).numpy())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("K", [0, 6])
+def test_round1_compact_matches_ref_on_card(card, K):
+    """round1_compact (the legacy round 1) against round1_compact_ref on
+    the PE fixture's reads and on edge reads, with the K-mer table (K = 6)
+    and without it, at the backend's 24 slots and at 2 (reads
+    overflow)."""
+    from bwamem2_tpu_torch.index.klut import build_klut
+    from bwamem2_tpu_torch.ops.smem import round1_compact, round1_compact_ref
+    fm = FMIndex.load(PREFIX)
+    lut = build_klut(fm, K) if K else None
+    dfm, dfm_h = (DeviceFMIndex.from_host(fm, d, lut) for d in (card, "cpu"))
+    reads = read_chunk(FastxReader(os.path.join(DATA, "reads_r1.fq")),
+                       FastxReader(os.path.join(DATA, "reads_r2.fq")),
+                       10**9)
+    for enc, lens in (_pad_reads(encode_reads([r.seq for r in reads])),
+                      step_batch(fm, 64, 152, 3)):
+        e, ln = torch.from_numpy(enc), torch.from_numpy(lens)
+        for cap, msl in ((24, 19), (2, 8)):
+            n = round1_compact.launches
+            got = round1_compact(dfm, e.to(card), ln.to(card), K, msl, cap)
+            torch.cuda.synchronize()
+            assert round1_compact.launches == n + 1
+            for g, w in zip(got, round1_compact_ref(dfm_h, e, ln, K, msl,
+                                                    cap)):
+                np.testing.assert_array_equal(g.cpu().numpy(), w.numpy())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("klut", [False, True], ids=["K0", "lut"])
+def test_legacy_backend_golden_on_card(card, klut):
+    """TorchBackend(pivot_seeding=False) on the card writes golden_pe.sam,
+    round 1 on round1_compact."""
+    from bwamem2_tpu_torch.align.pipeline import Aligner
+    from bwamem2_tpu_torch.ops.backend import TorchBackend
+    from bwamem2_tpu_torch.ops.smem import round1_compact
+    from bwamem2_tpu_torch.options import MEM_F_PE
+    fm = FMIndex.load(PREFIX)
+    opt = MemOptions().finalize()
+    opt.flag |= MEM_F_PE
+    reads = read_chunk(FastxReader(os.path.join(DATA, "reads_r1.fq")),
+                       FastxReader(os.path.join(DATA, "reads_r2.fq")),
+                       10**9)
+    n = round1_compact.launches
+    be = TorchBackend(fm, opt, card, pivot_seeding=False, use_klut=klut)
+    Aligner(fm, opt, backend=be, verbose=0).process(reads, 0)
+    assert round1_compact.launches == n + 1
+    with open(os.path.join(FIXTURES, "golden_pe.sam")) as f:
+        golden = [ln for ln in f if not ln.startswith("@")]
+    assert "".join(r.sam for r in reads).splitlines(keepends=True) == golden
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("u8", [True, False], ids=["u8", "i16"])
+def test_kswv_phase_matches_ref_on_card(card, u8):
+    """kswv_phase (one phase, the caller's target directions, live flags
+    and stop scores) against kswv_phase_ref on the card."""
+    from bwamem2_tpu_torch.ops.kswv import NO_LIMIT, kswv_phase_ref
+    from bwamem2_tpu_torch.ops.kswv_cuda import kswv_phase
+    genome = FMIndex.load(PREFIX).ref_string
+    n, L, qr, tr, Qmax, Tmax = ((256, 160, (100, 161), (150, 700), 160, 700)
+                                if u8 else
+                                (64, 512, (250, 513), (300, 2049), 512,
+                                 2048))
+    enc, qoff, qdir, qcomp, qlen, toff, tlen = rescue_windows(
+        genome, seed=61, n=n, L=L, qr=qr, tr=tr, nmut=3, n_every=5, plant=7)
+    rng = np.random.default_rng(61)
+    tdir = np.where(np.arange(n) % 3 == 1, -1, 1).astype(np.int32)
+    toff = np.where(tdir < 0, toff + tlen - 1, toff).astype(np.int64)
+    endsc = rng.choice(np.array([NO_LIMIT, 20, 35], np.int32), n)
+    live = np.arange(n) % 5 != 2
+    args = [torch.from_numpy(np.ascontiguousarray(a)) for a in (
+        genome, enc, qoff, qdir, qcomp, qlen, toff, tdir, tlen, endsc, live)]
+    rest = (Qmax, Tmax, 19, 1, 4, 6, 1, 6, 1, False, u8)
+    n0 = kswv_phase.launches
+    got = kswv_phase(*(a.to(card) for a in args), *rest)
+    torch.cuda.synchronize()
+    assert kswv_phase.launches == n0 + 1
+    np.testing.assert_array_equal(got.cpu().numpy(),
+                                  kswv_phase_ref(*args, *rest).numpy())
+
+
+@pytest.mark.cuda
+def test_bsw_shear_tiles_match_ref_on_card(card):
+    """bsw_shear_tiles on the card (both bodies: some h0 past 16 bits)
+    against the same adapter on the CPU (bsw_shear_desc_ref)."""
+    from bwamem2_tpu_torch.ops.bsw import bsw_shear_tiles
+    from bwamem2_tpu_torch.tools.kernel_micro import shear_tiles
+    rng = np.random.default_rng(13)
+    P, Wh = 24, 100
+    q, t, qlen, tlen = shear_tiles(rng, P, (600, 1500), "cpu")
+    h0 = torch.from_numpy(np.where(np.arange(P) % 3 == 0,
+                                   rng.integers(30000, 40000, P),
+                                   rng.integers(20, 200, P)).astype(np.int32))
+    w = torch.full((P,), Wh, dtype=torch.int32)
+    sc = (1, 4, 6, 1, 6, 1, 100, 5, 1)
+    n = bsw_shear.launches
+    got = bsw_shear_tiles(*(a.to(card) for a in (q, t, qlen, tlen, h0, w)),
+                          Wh, *sc)
+    torch.cuda.synchronize()
+    assert bsw_shear.launches == n + 2          # one launch per body
+    np.testing.assert_array_equal(
+        got.cpu().numpy(),
+        bsw_shear_tiles(q, t, qlen, tlen, h0, w, Wh, *sc).numpy())
 
 
 @pytest.mark.cuda

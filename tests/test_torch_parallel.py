@@ -50,12 +50,12 @@ from bwamem2_tpu_torch.ops.backend import TorchBackend
 from bwamem2_tpu_torch.ops.bsw_cuda import bsw_extend
 from bwamem2_tpu_torch.ops.bsw_shear_cuda import bsw_shear
 from bwamem2_tpu_torch.ops.device_index import DeviceFMIndex
-from bwamem2_tpu_torch.ops.kswv_cuda import kswv
+from bwamem2_tpu_torch.ops.kswv_cuda import kswv, kswv_phase
 from bwamem2_tpu_torch.ops.row_gather import row_gather
 from bwamem2_tpu_torch.ops.seed import sa_resolve, smem_collect
-from bwamem2_tpu_torch.ops.smem import (round1_chain, round1_walk,
-                                        round2_backward, round2_forward,
-                                        round3_replay)
+from bwamem2_tpu_torch.ops.smem import (round1_chain, round1_compact,
+                                        round1_walk, round2_backward,
+                                        round2_forward, round3_replay)
 from bwamem2_tpu_torch.options import MEM_F_PE, MemOptions
 from bwamem2_tpu_torch.parallel.mesh import (make_mesh, merge_shards,
                                              shard_batch,
@@ -547,8 +547,9 @@ def test_backend_chunk_sets_its_tally(fm):
         cuda_build.launch_tally(None)
 
 
-@pytest.mark.parametrize("kernel", [bsw_extend, bsw_shear, kswv, row_gather,
-                                    smem_collect, sa_resolve, round1_walk,
+@pytest.mark.parametrize("kernel", [bsw_extend, bsw_shear, kswv, kswv_phase,
+                                    row_gather, smem_collect, sa_resolve,
+                                    round1_walk, round1_compact,
                                     round1_chain, round2_forward,
                                     round2_backward, round3_replay],
                          ids=lambda k: k.NAME)
