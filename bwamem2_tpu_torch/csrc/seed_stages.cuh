@@ -1,8 +1,9 @@
 // seed_stages.cuh: the per-lane bodies of the per-stage seeding kernels
-// (round1_chain.cu, round2_forward.cu, round2_backward.cu,
-// round3_replay.cu), for the device and for the host (the tests compile
-// this header as plain C++ and hold it against the plain PyTorch versions
-// in bwamem2_tpu_torch/ops/smem.py).
+// round1_chain.cu and round3_replay.cu, and the read-grid access that
+// round 2's bodies (r2f_group.cuh, r2b_group.cuh) share with them, for
+// the device and for the host (the tests compile this header as plain C++
+// and hold it against the plain PyTorch versions in
+// bwamem2_tpu_torch/ops/smem.py).
 //
 // Each body runs one lane from its first step to its last: where the JAX
 // kernels (bwamem2_tpu/ops/smem.py) step every lane in lockstep for a
@@ -123,83 +124,4 @@ FM_HD int stage_round3(const V &f, const int8_t *row, int len,
         ++col;
     }
     return nout;
-}
-
-// The forward pass of one pivot (round2_forward_kernel): from the base at
-// (rid, x) of the read grid enc[N, L] (NL = N * L; rid < 0: a pad pivot),
-// extend forward while the interval stays >= mi, pushing the interval
-// before each change of size, then the last one if it is >= mi.
-// Candidate j goes to slot min(j, C - 1) of n (end offset from x), k, l,
-// s; returns the candidate count.
-template <class V>
-FM_HD int stage_round2_forward(const V &f, const int8_t *enc, int64_t NL,
-                               int L, int rid, int x, int64_t mi, int C,
-                               int *cn, int64_t *ck, int64_t *cl,
-                               int64_t *cs, int64_t *steps) {
-    const int64_t base = (int64_t)rid * L + x;
-    const int plen = rid >= 0 ? L - x : 0;
-    const int a0 = stage_code(enc, NL, base);
-    const bool valid = (unsigned)a0 < 4u && plen > 0;
-    const int a = valid ? a0 : 0;
-    int64_t k = fm_count(f, a), l = fm_count(f, 3 - a);
-    int64_t s = fm_count(f, a + 1) - k;
-    int n = 0, ncand = 0;
-    for (int j = 1; valid && j < plen; ++j) {
-        const int c = stage_code(enc, NL, base + j);
-        if ((unsigned)c >= 4u) break;
-        int64_t nk, nl, ns;
-        fm_backward_ext(f, l, k, s, 3 - c, &nl, &nk, &ns);
-        ++*steps;
-        if (ns != s) {
-            const int at = ncand < C ? ncand : C - 1;
-            cn[at] = n;
-            ck[at] = k;
-            cl[at] = l;
-            cs[at] = s;
-            ++ncand;
-        }
-        if (ns < mi) break;
-        k = nk;
-        l = nl;
-        s = ns;
-        n = j;
-    }
-    if (valid && s >= mi) {
-        const int at = ncand < C ? ncand : C - 1;
-        cn[at] = n;
-        ck[at] = k;
-        cl[at] = l;
-        cs[at] = s;
-        ++ncand;
-    }
-    return ncand;
-}
-
-// The backward walk of one candidate lane (_bwd_walk): from column x - 1
-// - col of read rid, one LF step per column while the interval stays >=
-// mi, at most n_steps steps; a step below mi sets *died, column 0 or an N
-// ends the walk alive-less without it.  Returns whether the lane is still
-// walking after n_steps.
-template <class V>
-FM_HD bool stage_round2_backward(const V &f, const int8_t *enc, int64_t NL,
-                                 int L, int rid, int x, int64_t mi,
-                                 bool alive, int n_steps, int *col,
-                                 int64_t *k, int64_t *s, bool *died,
-                                 int64_t *steps) {
-    const int64_t base = (int64_t)rid * L + x - 1;
-    for (int t = 0; alive && t < n_steps; ++t) {
-        const int c = stage_code(enc, NL, base - *col);
-        if (*col >= x || (unsigned)c >= 4u) return false;
-        int64_t k2, s2;
-        fm_lf_step(f, *k, *s, c, &k2, &s2);
-        ++*steps;
-        if (s2 < mi) {
-            *died = true;
-            return false;
-        }
-        *k = k2;
-        *s = s2;
-        ++*col;
-    }
-    return alive;
 }

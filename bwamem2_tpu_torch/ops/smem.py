@@ -9,10 +9,11 @@
                   legacy configuration, TorchBackend(pivot_seeding=False);
   round1_chain    round 1's pivot chain, one lane per read
                   (csrc/round1_chain.cu);
-  round2_forward  per pivot, the forward candidates (csrc/round2_forward.cu);
+  round2_forward  per pivot, the forward candidates, one lane group a
+                  pivot (csrc/round2_forward.cu);
   round2_backward per candidate lane, the backward walk, from the forward
-                  pass's candidate slot or resumed from a given state
-                  (csrc/round2_backward.cu);
+                  pass's candidate slot or resumed from a given state,
+                  lanes refilled as walks end (csrc/round2_backward.cu);
   round3_replay   round 3's pivot chain under max_mem_intv, one lane per
                   read (csrc/round3_replay.cu).
 
@@ -24,11 +25,12 @@ through the fused smem_collect (ops/seed.py) instead.  Each plain version
 in bwamem2_tpu/ops/smem.py does and returns its arrays value for value
 (int32 where the JAX kernel returns int16); each wrapper runs it on CPU
 tensors and launches its kernel on CUDA tensors, or raises.  The kernels'
-per-lane bodies are csrc/seed_stages.cuh, which the tests compile as host
-C++.  If `stats` is a dict, a plain version stores in it the LF steps or
-backward extensions its lanes took (`steps`, each reading two occ rows)
-and the distinct occ rows they read (`rows`): the kernel's work on these
-inputs.
+bodies (csrc/seed_stages.cuh's per-lane ones, round 2's r2f_group.cuh and
+r2b_group.cuh) compile as host C++ in the tests.  If `stats` is a dict,
+a plain version stores in it the LF steps or backward extensions its
+lanes took (`steps`, each reading two occ rows) and the distinct occ rows
+they read (`rows`): the kernel's work on these inputs; the round-2 plain
+versions also store the steps of their longest walk (`longest`).
 
 The round-1 walk:
 
@@ -51,6 +53,8 @@ or raise.
 
 from __future__ import annotations
 
+import ctypes
+
 import torch
 
 from .cuda_build import I32, I64, VP, CudaKernel, check_tensors
@@ -61,11 +65,17 @@ from .seed_cuda import _check_index, fm_table
 
 class _Work:
     """The steps of a plain version's lanes and the distinct occ rows they
-    read, stored into `stats` (a dict, or None: nothing is counted)."""
+    read, stored into `stats` (a dict, or None: nothing is counted).  With
+    `lockstep` (every live lane takes one step per add(), as in
+    round2_forward_ref and _bwd_walk) also the steps of the longest walk
+    (`longest`, the add() calls)."""
 
-    def __init__(self, dfm: DeviceFMIndex, stats: dict | None, dev):
+    def __init__(self, dfm: DeviceFMIndex, stats: dict | None, dev,
+                 lockstep: bool = False):
         self.stats = stats
         self.steps = 0
+        self.calls = 0
+        self.lockstep = lockstep
         self.touched = (None if stats is None else
                         torch.zeros(dfm.nblocks, dtype=torch.bool,
                                     device=dev))
@@ -73,6 +83,7 @@ class _Work:
     def add(self, k: torch.Tensor, s: torch.Tensor) -> None:
         if self.stats is not None:
             self.steps += k.numel()
+            self.calls += 1
             self.touched[k >> 6] = True
             self.touched[(k + s) >> 6] = True
 
@@ -80,6 +91,8 @@ class _Work:
         if self.stats is not None:
             self.stats.update(steps=self.steps,
                               rows=int(self.touched.sum()))
+            if self.lockstep:
+                self.stats["longest"] = self.calls
 
 
 def _lut_start(dfm: DeviceFMIndex, enc: torch.Tensor, valid: torch.Tensor,
@@ -446,7 +459,7 @@ def round2_forward_ref(dfm: DeviceFMIndex, enc: torch.Tensor,
     ck, cl, cs = (torch.zeros((P, C), dtype=torch.int64, device=dev)
                   for _ in range(3))
     ncand = torch.zeros(P, dtype=torch.int64, device=dev)
-    work = _Work(dfm, stats, dev)
+    work = _Work(dfm, stats, dev, lockstep=True)
 
     def push(r):
         at = ncand[r].clamp(max=C - 1)
@@ -521,7 +534,7 @@ def round2_backward_ref(dfm: DeviceFMIndex, enc: torch.Tensor,
     x = xp.long()[pv]
     alive = (x > 0) & (s > 0)
     col = torch.zeros_like(x)
-    work = _Work(dfm, stats, enc.device)
+    work = _Work(dfm, stats, enc.device, lockstep=True)
     alive, col, k, s, died = _bwd_walk(
         dfm, enc, ridp.long()[pv], x, min_intv.long()[pv], alive, col, k,
         s, torch.zeros_like(alive), steps_max or enc.shape[1], work)
@@ -539,7 +552,7 @@ def round2_backward_resume_ref(dfm: DeviceFMIndex, enc: torch.Tensor,
     round2_backward_resume_kernel): lane i of read rid[i], pivot column
     x[i], min_intv mi[i], at most n_steps more steps.  Returns (steps
     int32, k, s int64, died bool)."""
-    work = _Work(dfm, stats, enc.device)
+    work = _Work(dfm, stats, enc.device, lockstep=True)
     alive = torch.ones(col0.shape, dtype=torch.bool, device=enc.device)
     _, col, k, s, died = _bwd_walk(
         dfm, enc, rid.long(), x.long(), mi.long(), alive, col0.long(),
@@ -628,16 +641,55 @@ class Round3Replay(CudaKernel):
         return nout, ox, on, os_, ok_
 
 
-class Round2Forward(CudaKernel):
+class _Persistent(CudaKernel):
+    """A round-2 kernel on a persistent grid: its blocks of THREADS threads
+    stay resident and take their work from a launch-wide ticket counter,
+    LANES threads a work item.  RESIDENT names its occupancy query
+    (sharded, threads, *blocks -> CUDA error)."""
+
+    RESIDENT: str = ""
+    THREADS = 128
+    LANES = 1
+
+    def __init__(self):
+        super().__init__()
+        self._resident = {}
+
+    def plan(self, n: int, dev, sharded: bool = False) -> int:
+        """Blocks of a launch of n work items on CUDA device `dev` over the
+        replicated or the sharded index: the resident blocks (the
+        occupancy API, asked once per device and view), or fewer where n
+        items fill fewer."""
+        key = (torch.device(dev).index, sharded)
+        if key not in self._resident:
+            blocks = I32()
+            err = self._query(dev, self.RESIDENT, [I32, I32, VP],
+                              int(sharded), self.THREADS,
+                              ctypes.addressof(blocks))
+            if err:
+                raise ValueError(f"{self.NAME}: no launch of {self.THREADS} "
+                                 f"threads (CUDA error {err})")
+            self._resident[key] = blocks.value
+        return max(1, min(self._resident[key],
+                          -(-n * self.LANES // self.THREADS)))
+
+
+class Round2Forward(_Persistent):
     """round2_forward(dfm, enc int8[N, L], rid, x int32[P], min_intv
     int64[P], C) -> (n int32[P, C], k, l, s int64[P, C], ncand int32[P]),
-    as round2_forward_ref: one thread per pivot."""
+    as round2_forward_ref: 8 lanes per pivot, pivots taken from a ticket
+    counter by a persistent grid.  128-thread blocks, chosen on an NVIDIA
+    H100 80GB HBM3 (700 W) over the launches of chip_smoke.py's run (g)
+    (PERF.md)."""
 
     NAME = "round2_forward"
-    SOURCES = ("round2_forward.cu", "seed_stages.cuh", "fm_occ.cuh")
+    SOURCES = ("round2_forward.cu", "r2f_group.cuh", "seed_stages.cuh",
+               "fm_occ.cuh")
     SIGNATURE = ("round2_forward_launch",
                  [VP, VP, I64, I32, VP, VP, VP, I32, I32, VP, VP, VP, VP, VP,
-                  VP])
+                  I32, I32, VP, VP])
+    RESIDENT = "round2_forward_resident"
+    LANES = 8
 
     def __call__(self, dfm, enc, rid, x, min_intv, C: int):
         if enc.device.type == "cpu":
@@ -652,32 +704,42 @@ class Round2Forward(CudaKernel):
         N, L = enc.shape
         P = rid.shape[0]
         cn = torch.full((P, C), -1, dtype=torch.int32, device=dev)
-        ck, cl, cs = (torch.zeros((P, C), dtype=torch.int64, device=dev)
-                      for _ in range(3))
+        # the slots, then the launch's ticket counter
+        ckc = torch.zeros(P * C + 1, dtype=torch.int64, device=dev)
+        ck = ckc[:P * C].view(P, C)
+        cl, cs = (torch.zeros((P, C), dtype=torch.int64, device=dev)
+                  for _ in range(2))
         ncand = torch.empty(P, dtype=torch.int32, device=dev)
         if P:
+            blocks = self.plan(P, dev, dfm.shards is not None)
             self._launch(dev, fm_table(dfm), enc.data_ptr(), N * L, L,
                          rid.data_ptr(), x.data_ptr(), min_intv.data_ptr(),
                          P, C, cn.data_ptr(), ck.data_ptr(), cl.data_ptr(),
-                         cs.data_ptr(), ncand.data_ptr())
+                         cs.data_ptr(), ncand.data_ptr(), blocks,
+                         self.THREADS, ckc.data_ptr() + 8 * P * C)
         return cn, ck, cl, cs, ncand
 
 
-class Round2Backward(CudaKernel):
+class Round2Backward(_Persistent):
     """round2_backward(dfm, enc, ridp, xp, ck, cs, piv_idx, slot_idx,
     min_intv, steps_max=0) as round2_backward_ref, and
     round2_backward.resume(dfm, enc, rid, x, mi, col0, k0, s0, n_steps)
-    as round2_backward_resume_ref: one thread per lane, the kernel's two
-    entries.  steps_max 0 walks every lane to its end (L steps)."""
+    as round2_backward_resume_ref: the kernel's two entries, each thread
+    keeping one walk refilled from a ticket counter by a persistent grid.
+    steps_max 0 walks every lane to its end (L steps).  128-thread blocks,
+    chosen on an NVIDIA H100 80GB HBM3 (700 W) over the launches of
+    chip_smoke.py's run (g) (PERF.md)."""
 
     NAME = "round2_backward"
-    SOURCES = ("round2_backward.cu", "seed_stages.cuh", "fm_occ.cuh")
+    SOURCES = ("round2_backward.cu", "r2b_group.cuh", "sa_group.cuh",
+               "seed_stages.cuh", "fm_occ.cuh")
     SIGNATURE = ("round2_backward_launch",
                  [VP, VP, I64, I32, VP, VP, VP, VP, VP, I32, VP, VP, I32,
-                  I32, VP, VP, VP, VP, VP, VP])
+                  I32, VP, VP, VP, VP, VP, I32, I32, VP, VP])
     ENTRIES = {"round2_backward_resume_launch":
                [VP, VP, I64, I32, VP, VP, VP, VP, VP, VP, I32, I32, VP, VP,
-                VP, VP, VP]}
+                VP, VP, I32, I32, VP, VP]}
+    RESIDENT = "round2_backward_resident"
 
     def __call__(self, dfm, enc, ridp, xp, ck, cs, piv_idx, slot_idx,
                  min_intv, steps_max: int = 0):
@@ -687,6 +749,10 @@ class Round2Backward(CudaKernel):
             self._plain()
             return round2_backward_ref(*args)
         return self.launch(*args)
+
+    def _grid(self, M: int, dev, dfm) -> tuple:
+        """(blocks, threads) of a launch of M lanes."""
+        return self.plan(M, dev, dfm.shards is not None), self.THREADS
 
     def resume(self, dfm, enc, rid, x, mi, col0, k0, s0, n_steps: int):
         if enc.device.type == "cpu":
@@ -700,22 +766,26 @@ class Round2Backward(CudaKernel):
             s0=(s0, torch.int64, 1))
         N, L = enc.shape
         M = rid.shape[0]
-        col, k, s, died = self._outputs(M, dev)
+        col, k, s, died, nxt = self._outputs(M, dev)
         if M:
             self._launch(dev, fm_table(dfm), enc.data_ptr(), N * L, L,
                          rid.data_ptr(), x.data_ptr(), mi.data_ptr(),
                          col0.data_ptr(), k0.data_ptr(), s0.data_ptr(), M,
                          int(n_steps), col.data_ptr(), k.data_ptr(),
                          s.data_ptr(), died.data_ptr(),
+                         *self._grid(M, dev, dfm), nxt,
                          entry="round2_backward_resume_launch")
         return col, k, s, died
 
     @staticmethod
     def _outputs(M: int, dev):
-        return (torch.empty(M, dtype=torch.int32, device=dev),
+        """col, k, s, died of M lanes and the address of the launch's
+        ticket counter (k's last element)."""
+        k = torch.empty(M + 1, dtype=torch.int64, device=dev)
+        return (torch.empty(M, dtype=torch.int32, device=dev), k[:M],
                 torch.empty(M, dtype=torch.int64, device=dev),
-                torch.empty(M, dtype=torch.int64, device=dev),
-                torch.empty(M, dtype=torch.bool, device=dev))
+                torch.empty(M, dtype=torch.bool, device=dev),
+                k.data_ptr() + 8 * M)
 
     def launch(self, dfm, enc, ridp, xp, ck, cs, piv_idx, slot_idx,
                min_intv, steps_max: int = 0):
@@ -727,7 +797,7 @@ class Round2Backward(CudaKernel):
             min_intv=(min_intv, torch.int64, 1))
         N, L = enc.shape
         M = piv_idx.shape[0]
-        col, k, s, died = self._outputs(M, dev)
+        col, k, s, died, nxt = self._outputs(M, dev)
         alive = torch.empty(M, dtype=torch.bool, device=dev)
         if M:
             self._launch(dev, fm_table(dfm), enc.data_ptr(), N * L, L,
@@ -735,7 +805,8 @@ class Round2Backward(CudaKernel):
                          ck.data_ptr(), cs.data_ptr(), ck.shape[1],
                          piv_idx.data_ptr(), slot_idx.data_ptr(), M,
                          steps_max or L, col.data_ptr(), k.data_ptr(),
-                         s.data_ptr(), died.data_ptr(), alive.data_ptr())
+                         s.data_ptr(), died.data_ptr(), alive.data_ptr(),
+                         *self._grid(M, dev, dfm), nxt)
         out = (col, k, s, died)
         return out + (alive,) if steps_max > 0 else out
 

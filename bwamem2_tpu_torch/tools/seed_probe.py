@@ -4,7 +4,7 @@ card.
 
     python bwamem2_tpu_torch/tools/seed_probe.py --root DIR [--scale 2.0]
         [--data DIR] [--reps 3] [--pairs 35000] [--task-bases 10000000]
-        [--walk]
+        [--walk] [--stages]
 
 Imports bwamem2_tpu_torch from the checkout at --root (this commit's or an
 earlier one's whose smem_collect takes per-read slot offsets), makes or
@@ -19,7 +19,20 @@ a warm-up.  --pairs and --task-bases pick another chunk (chip_smoke.py's
 run (a): --scale 0.25 --pairs 10000 --task-bases 2250000).  --walk also
 times round1_walk (the seed-extend step's round-1 walk; the checkout must
 have it) on the chunk and reports its ptxas registers and stack frame
-per index view where this process built the library.
+per index view where this process built the library.  --stages seeds the
+chunk through a TorchBackend over the index in 2 shards on the card (the
+sharded index's per-stage seeding, as chip_smoke.py's run (g)), captures
+its round1_chain, round2_forward, round2_backward (both entries) and
+round3_replay launches, and times each again (the mean of --reps after a
+warm-up), per launch and summed per kernel, with a digest of the captured
+inputs (two checkouts that compute the same outputs time the same
+launches), and each round-2 kernel's longest walk launched alone (its
+steps, milliseconds and microseconds a step: the latency of one step).
+Run (a)'s chunk, parent, change, change, parent in one call:
+
+    python bwamem2_tpu_torch/tools/seed_probe.py --root DIR \
+        --data .tmp/bench_scale0.25 --scale 0.25 --pairs 10000 \
+        --task-bases 2250000 --stages --reps 5
 """
 
 from __future__ import annotations
@@ -40,6 +53,7 @@ def main() -> None:
     ap.add_argument("--pairs", type=int, default=35_000)
     ap.add_argument("--task-bases", type=int, default=10_000_000)
     ap.add_argument("--walk", action="store_true")
+    ap.add_argument("--stages", action="store_true")
     a = ap.parse_args()
     root = os.path.abspath(a.root)
     sys.path.insert(0, root)
@@ -104,6 +118,8 @@ def main() -> None:
                 walk[f"round1_walk_registers_{view}"] = int(m[2])
             elif m and m[3]:
                 walk[f"round1_walk_stack_{view}"] = int(m[3])
+    stages = (stage_launches(fm, opt, reads, timed, torch.device("cuda", 0))
+              if a.stages else {})
     card = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                            "--format=csv,noheader"], capture_output=True,
                           text=True).stdout.strip().splitlines()[0]
@@ -112,7 +128,91 @@ def main() -> None:
         L=L, lanes=seed.smem_collect.lanes_for(N),
         bwd_ext=int(out[5].sum()), overflowed=int((out[4] < 0).sum()),
         smem_collect_ms=sm_ms, positions=int(pos.numel()),
-        sa_design=sa_design, sa_resolve_ms=sa_ms, **walk)), flush=True)
+        sa_design=sa_design, sa_resolve_ms=sa_ms, **walk, **stages)),
+        flush=True)
+
+
+def stage_launches(fm, opt, reads, timed, dev) -> dict:
+    """The per-stage seeding launches of the chunk `reads` through a
+    TorchBackend over the index in 2 shards on device `dev`, captured at the
+    wrappers and each timed again: {"stages": {kernel: {launches, ms,
+    per_launch}}, "stages_digest": sha1 of the captured inputs}."""
+    import hashlib
+    import torch
+    from bwamem2_tpu_torch.align.seeding import encode_reads
+    from bwamem2_tpu_torch.ops import smem
+    from bwamem2_tpu_torch.ops.backend import TorchBackend
+    be = TorchBackend(fm, opt, devices=[dev, dev], sharded=True)
+    kern = {"round1_chain": smem.round1_chain,
+            "round2_forward": smem.round2_forward,
+            "round2_backward": smem.round2_backward,
+            "round3_replay": smem.round3_replay}
+    methods = [(n, "launch") for n in kern] + [("round2_backward",
+                                                "resume")]
+    calls = []
+    orig = {(n, m): getattr(type(kern[n]), m) for n, m in methods}
+
+    def spy_for(n, m):
+        def spy(self, *args):
+            calls.append((n, m, args))
+            return orig[n, m](self, *args)
+        return spy
+
+    for n, m in methods:
+        setattr(type(kern[n]), m, spy_for(n, m))
+    try:
+        be.collect_smems(encode_reads([r.seq for r in reads]), opt)
+    finally:
+        for (n, m), fn in orig.items():
+            setattr(type(kern[n]), m, fn)
+    # the cards' threads launch in either order: calls in the order of
+    # their inputs' digests, the digest over those
+    def digest(args) -> str:
+        h = hashlib.sha1()
+        for x in args:
+            if isinstance(x, torch.Tensor):
+                h.update(x.cpu().numpy().tobytes())
+            elif isinstance(x, int):
+                h.update(str(x).encode())
+        return h.hexdigest()
+
+    calls = sorted(((n, m, digest(args), args) for n, m, args in calls),
+                   key=lambda c: c[:3])
+    h = hashlib.sha1("".join(c[2] for c in calls).encode())
+    out: dict = {}
+    for n, m, _, args in calls:
+        ms = timed(lambda: getattr(kern[n], m)(*args))
+        r = out.setdefault(n, dict(launches=0, ms=0.0, per_launch=[]))
+        r["launches"] += 1
+        r["ms"] += ms
+        r["per_launch"].append(ms)
+        if n.startswith("round2"):
+            steps, one = longest_walk(n, m, args, getattr(kern[n], m))
+            if steps > r.get("one_walk_steps", 0):
+                r["one_walk_steps"] = steps
+                r["one_walk_ms"] = timed(lambda: getattr(kern[n], m)(*one))
+                r["us_per_step"] = 1e3 * r["one_walk_ms"] / steps
+    return dict(stages=out, stages_digest=h.hexdigest())
+
+
+def longest_walk(n: str, m: str, args: tuple, fn) -> tuple:
+    """(steps, wrapper args) of a launch of the captured launch `args`'s
+    longest walk alone: a backward lane's steps are its output column
+    less its start; a forward pivot's walk is at least its last
+    candidate's end offset."""
+    if n == "round2_forward":
+        cn, _, _, _, nc = fn(*args)
+        p = int(cn.max(1).values.argmax())
+        return (int(cn[p].max()), (args[0], args[1])
+                + tuple(a[p:p + 1] for a in args[2:5]) + args[5:])
+    col = fn(*args)[0].long()
+    if m == "launch":
+        i = int(col.argmax())
+        return (int(col[i]), args[:6] + tuple(a[i:i + 1] for a in args[6:8])
+                + args[8:])
+    i = int((col - args[5].long()).argmax())
+    return (int(col[i] - args[5][i]), args[:2]
+            + tuple(a[i:i + 1] for a in args[2:8]) + args[8:])
 
 
 if __name__ == "__main__":

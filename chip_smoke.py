@@ -24,8 +24,9 @@ Phases, each of which fails the run (non-zero exit, no result line):
      stack frame), each smem_collect
      instantiation, each sa_resolve instantiation (walks per lane) and
      round1_walk, the last two of which must have no stack frame (each
-     over both index views, FmView and FmShardView), and each per-stage
-     seeding kernel over both views;
+     over both index views, FmView and FmShardView), each per-stage
+     seeding kernel over both views (round2_forward's and
+     round2_backward's may not spill or have a stack frame);
   3. data: a synthetic 11.7 Mbp genome (scale 0.25 of the chr21 class, the
      size of a yeast genome) with repeat families and N runs, its index and
      10,000 2x150 bp pairs, made once from fixed seeds under .tmp/;
@@ -138,7 +139,9 @@ Phases, each of which fails the run (non-zero exit, no result line):
         round3_replay against their plain versions on the card on the
         launches of run (g)'s first chunk, exact, timed with CUDA events
         beside the bound from the steps and distinct occ rows the plain
-        versions count; sa_resolve over the two shards against the
+        versions count, a line per launch with its longest walk in steps;
+        round2_forward and round2_backward also over the replicated index
+        (exact, timed); sa_resolve over the two shards against the
         replicated index on that chunk's positions, round1_walk over two
         shards against the replicated one on run (a)'s first chunk, and
         the seed-extend step over a 2-shard index against phase f's
@@ -148,7 +151,9 @@ Phases, each of which fails the run (non-zero exit, no result line):
         launch at K = 8 and at K = 0, exact, timed beside the bound from
         the LF steps, distinct occ rows and table entries its plain
         version counts, with each instantiation's ptxas numbers and
-        round1_walk's 5f time beside them; kswv_phase against
+        round1_walk's 5f time beside them; run (h)'s first-chunk
+        round2_forward and round2_backward launches as in g (over the
+        replicated index it ran on and over 2 shards); kswv_phase against
         kswv_phase_ref on a u8 and an i16 batch with mixed target
         directions, live flags and stop scores; bsw_shear_tiles against
         bsw_shear_desc_ref on 64 long-read tiles of 1-3 kb, a quarter of
@@ -359,7 +364,8 @@ def instances(text: str, kernel: str) -> dict:
     (G, C) of bsw_extend_kernel<G, C>, (C,) of bsw_shear_kernel<C>,
     (R,) of bsw_shear_s16_kernel<R>, (u8, SMAX) of kswv_kernel<U8, SMAX>
     (SMAX 0 = shared-memory stripes), (G, LCAP) of
-    smem_collect_kernel<G, LCAP>, (W,) of sa_resolve_kernel<W>."""
+    smem_collect_kernel<G, LCAP>, (W, sharded) of sa_resolve_kernel<W,
+    SHARDED>, (sharded,) of the per-stage and round1_walk kernels."""
     import re
     out = {}
     for name, v in ptxas_table(text).items():
@@ -484,6 +490,10 @@ def build_all() -> dict:
                     v.get("stack") for _, v in inst)):
                 fail(f"round1_walk: stack frames {inst} (the kernel must "
                      "have none, over either view)")
+            if name.startswith("round2") and (len(inst) != 2 or any(
+                    v.get("stack") or v.get("spill") for _, v in inst)):
+                fail(f"{name}: instantiations {inst} (one over each view, "
+                     "none spilling or with a stack frame)")
             continue
         for ln in k.build_log.splitlines():
             if "registers" in ln or "spill" in ln or "error" in ln.lower():
@@ -1566,6 +1576,54 @@ def shard_phase(card: str, prefix: str, fq1: str, fq2: str) -> dict:
                 shards_s=round(t_shards, 2))
 
 
+class FirstChunk:
+    """A context that records the calls of the wrapper methods `methods`
+    ((kernel name, method) of kernels()) made from the first
+    TorchBackend.collect_smems call through the end of the sa_lookup after
+    it (the first chunk's seeding): calls["kernel.method"] = [args]."""
+
+    def __init__(self, methods: list):
+        self.methods = methods
+        self.calls: dict = {f"{n}.{m}": [] for n, m in methods}
+        self.on = self.seen = False
+
+    def __enter__(self):
+        from bwamem2_tpu_torch.ops.backend import TorchBackend
+        K = kernels()
+        self.orig = {f"{n}.{m}": (type(K[n]), m, getattr(type(K[n]), m))
+                     for n, m in self.methods}
+        self.orig["collect"] = (TorchBackend, "collect_smems",
+                                TorchBackend.collect_smems)
+        self.orig["sa"] = (TorchBackend, "sa_lookup", TorchBackend.sa_lookup)
+        me = self
+
+        def spy_for(key, fn):
+            def spy(self, *args):
+                if me.on:
+                    me.calls[key].append(args)
+                return fn(self, *args)
+            return spy
+
+        def collect(self, encs, opt):
+            me.on, me.seen = not me.seen, True
+            return me.orig["collect"][2](self, encs, opt)
+
+        def sa(self, positions):
+            try:
+                return me.orig["sa"][2](self, positions)
+            finally:
+                me.on = False
+
+        for key, (cls, m, fn) in self.orig.items():
+            setattr(cls, m, spy_for(key, fn) if key in self.calls else
+                    collect if key == "collect" else sa)
+        return self
+
+    def __exit__(self, *exc):
+        for cls, m, fn in self.orig.values():
+            setattr(cls, m, fn)
+
+
 def sharded_mem(torch, card: str, prefix: str, fq1: str, fq2: str,
                 sam_a: str) -> dict:
     """[4g] run (a)'s reads through `mem` (the CLI entry) over a sharded
@@ -1581,7 +1639,6 @@ def sharded_mem(torch, card: str, prefix: str, fq1: str, fq2: str,
     chunk's seeding are returned under "_launches" ({"kernel.method":
     [(wrapper args)]}) for phase 5g."""
     from bwamem2_tpu_torch import cli, ops
-    from bwamem2_tpu_torch.ops.backend import TorchBackend
     from bwamem2_tpu_torch.utils.profiling import PROF
     devs = ops.resolve_devices("cuda")
     how = f"one shard per card, {len(devs)} cards"
@@ -1590,53 +1647,25 @@ def sharded_mem(torch, card: str, prefix: str, fq1: str, fq2: str,
         how = "two shards on cuda:0 (one visible card)"
     K = kernels()
     # the launches of the first chunk's seeding, by wrapper method
-    methods = [(n, "launch") for n in STAGES + ("sa_resolve",)] \
-        + [("round2_backward", "resume")]
-    captured: dict = {f"{n}.{m}": [] for n, m in methods}
-    first = {"on": False, "seen": False}
-    orig = {f"{n}.{m}": getattr(type(K[n]), m) for n, m in methods}
-    orig_cs, orig_sl = TorchBackend.collect_smems, TorchBackend.sa_lookup
-
-    def spy_for(key):
-        def spy(self, *args):
-            if first["on"]:
-                captured[key].append(args)
-            return orig[key](self, *args)
-        return spy
-
-    def cs_spy(self, encs, opt):
-        first["on"] = not first["seen"]
-        first["seen"] = True
-        return orig_cs(self, encs, opt)
-
-    def sl_spy(self, positions):
-        try:
-            return orig_sl(self, positions)
-        finally:
-            first["on"] = False
-
+    first = FirstChunk([(n, "launch") for n in STAGES + ("sa_resolve",)]
+                       + [("round2_backward", "resume")])
     sam = os.path.join(WORK, "main_sharded.sam")
     for d in (PROF.t, PROF.n, PROF.c, PROF.ctot):
         d.clear()
     for k in K.values():
         k.reset()
     resolve = ops.resolve_devices
-    for n, m in methods:
-        setattr(type(K[n]), m, spy_for(f"{n}.{m}"))
-    TorchBackend.collect_smems, TorchBackend.sa_lookup = cs_spy, sl_spy
     ops.resolve_devices = lambda dev=None: list(devs)
     os.environ["BWAMEM2_TPU_SHARD_INDEX"] = "1"
     t0 = time.perf_counter()
     try:
-        rc = cli.main(["mem", "-K", str(TASK_BASES), "-v", "1", "-o", sam,
-                       prefix, fq1, fq2])
-        torch.cuda.synchronize()
+        with first:
+            rc = cli.main(["mem", "-K", str(TASK_BASES), "-v", "1", "-o",
+                           sam, prefix, fq1, fq2])
+            torch.cuda.synchronize()
     finally:
         del os.environ["BWAMEM2_TPU_SHARD_INDEX"]
         ops.resolve_devices = resolve
-        TorchBackend.collect_smems, TorchBackend.sa_lookup = orig_cs, orig_sl
-        for n, m in methods:
-            setattr(type(K[n]), m, orig[f"{n}.{m}"])
     wall = time.perf_counter() - t0
     launches = {n: k.launches for n, k in K.items()}
     plain = {n: k.plain_calls for n, k in K.items()}
@@ -1671,7 +1700,7 @@ def sharded_mem(torch, card: str, prefix: str, fq1: str, fq2: str,
     return dict(how=how, devices=[str(d) for d in devs], reads=n_reads,
                 wall_s=round(wall, 3), reads_per_s=round(n_reads / wall, 1),
                 launches=launches, host_routes=routes, phases_s=phases,
-                _launches=captured)
+                _launches=first.calls)
 
 
 def stage_bounds(name: str, args, stats: dict) -> tuple:
@@ -1702,11 +1731,99 @@ def stage_bounds(name: str, args, stats: dict) -> tuple:
             int_ops_s(stats["steps"] * ops, stats["steps"] * popc) * 1e3)
 
 
+def view_name(dfm) -> str:
+    return "replicated" if dfm.shards is None else "sharded"
+
+
+def stage_calls_vs_plain(torch, card: str, name: str, captured: dict,
+                         other, where: str) -> dict:
+    """Each captured launch of the per-stage kernel `name` (captured:
+    {"kernel.method": [(wrapper args)]}; the resume entry's launches count
+    toward round2_backward) against its plain version on the card, exact,
+    timed with CUDA events (mean of 3 after a warm-up) beside its bound
+    and the steps of its longest walk; round2_forward's and
+    round2_backward's launches also over the index view `other` (the
+    other view of the same index: replicated for a sharded launch and
+    back), exact and timed.  Prints a line per launch and the sum; returns
+    the sums, with the launches under "per_launch"."""
+    from bwamem2_tpu_torch.ops import smem
+    K = kernels()
+    k = K[name]
+    pairs = {"round1_chain.launch": smem.round1_chain_ref,
+             "round2_forward.launch": smem.round2_forward_ref,
+             "round2_backward.launch": smem.round2_backward_ref,
+             "round2_backward.resume": smem.round2_backward_resume_ref,
+             "round3_replay.launch": smem.round3_replay_ref}
+    both = name.startswith("round2")      # also over the other view
+    calls = [(key, args) for key in pairs if key.startswith(name + ".")
+             for args in captured.get(key, ())]
+    if not calls:
+        fail(f"{name}: no launch of {where} was captured")
+    ev = [torch.cuda.Event(enable_timing=True) for _ in range(2)]
+    r = dict(launches=len(calls), ms=0.0, plain_ms=0.0, mem_ms=0.0,
+             ops_ms=0.0, steps=0, rows=0, err=0, per_launch=[])
+    if both:
+        r["other_ms"] = 0.0
+    for key, args in calls:
+        entry = getattr(k, key.split(".")[1])
+        ms = cuda_ms(torch, lambda: entry(*args), 3)
+        stats: dict = {}
+        ev[0].record()
+        want = pairs[key](*args, stats=stats)
+        ev[1].record()
+        torch.cuda.synchronize()
+        p_ms = ev[0].elapsed_time(ev[1])
+        views = (args[0], other) if both else (args[0],)
+        for view in views:
+            got = entry(view, *args[1:])
+            r["err"] = max([r["err"]] + [int((g.long() - w.long()).abs()
+                                             .max()) if g.numel() else 0
+                                         for g, w in zip(got, want)])
+            if r["err"]:
+                fail(f"{name} ({key}, {view_name(view)} view) differs from "
+                     f"its plain version on {where} (max abs err "
+                     f"{r['err']})")
+        mem_ms, ops_ms = stage_bounds(key.replace(".launch", ""), args,
+                                      stats)
+        lanes = args[6] if key == "round2_backward.launch" else args[2]
+        one = dict(entry=key.split(".")[1], lanes=int(lanes.numel()),
+                   ms=ms, plain_ms=p_ms, bound_ms=max(mem_ms, ops_ms),
+                   steps=stats["steps"], rows=stats["rows"],
+                   longest=stats.get("longest"))
+        if both:
+            one["other_ms"] = cuda_ms(torch,
+                                      lambda: entry(other, *args[1:]), 3)
+            r["other_ms"] += one["other_ms"]
+        for f_ in ("ms", "plain_ms", "steps", "rows"):
+            r[f_] += one[f_]
+        r["mem_ms"] += mem_ms
+        r["ops_ms"] += ops_ms
+        r["per_launch"].append(one)
+        extra = (f"; other view {one['other_ms']:.4f} ms" if both else "")
+        walk = (f", longest walk {one['longest']} steps" if one["longest"]
+                else "")
+        log(f"    {name}.{one['entry']} ({one['lanes']} lanes, "
+            f"{view_name(args[0])}): {ms:.4f} ms{walk}, {one['steps']} "
+            f"steps, bound {one['bound_ms']:.5f} ms, plain {p_ms:.1f} ms"
+            f"{extra}")
+    r["bound_ms"] = max(r["mem_ms"], r["ops_ms"])
+    r["bound_by"] = "operations" if r["ops_ms"] >= r["mem_ms"] else "bytes"
+    log(f"  {name}: {r['launches']} launches of {where} ({r['steps']} "
+        f"steps, {r['rows']} distinct occ rows): kernel {r['ms']:.4f} ms"
+        + (f" (other view {r['other_ms']:.4f} ms)"
+           if both else "")
+        + f", plain {r['plain_ms']:.1f} ms, bound {r['bound_ms']:.5f} ms by "
+        f"{r['bound_by']} (bytes {r['mem_ms']:.5f}, operations "
+        f"{r['ops_ms']:.5f}), identical [{card}]")
+    return r
+
+
 def stage_vs_plain(torch, card: str, captured: dict, prefix: str, fq1: str,
                    fq2: str, step_out) -> dict:
     """[5g] each per-stage kernel against its plain version (on the card)
     on the launches of the sharded run's first chunk, exact, timed with
-    CUDA events beside its bound; sa_resolve over the shards against the
+    CUDA events beside its bound (stage_calls_vs_plain: round 2's also
+    over the replicated index); sa_resolve over the shards against the
     replicated index on that chunk's positions, round1_walk over the
     shards against the replicated one on run (a)'s first chunk, the
     seed-extend step over a 2-shard index against the replicated step
@@ -1719,59 +1836,13 @@ def stage_vs_plain(torch, card: str, captured: dict, prefix: str, fq1: str,
     from bwamem2_tpu_torch.ops.device_index import DeviceFMIndex
     from bwamem2_tpu_torch.parallel.shard_index import (
         shard_index, sharded_seed_extend_sharded_index)
-    K = kernels()
-    # (the kernel's entry, its plain version) by captured method; the
-    # resume entry's launches count toward round2_backward's line
-    pairs = {"round1_chain.launch": smem.round1_chain_ref,
-             "round2_forward.launch": smem.round2_forward_ref,
-             "round2_backward.launch": smem.round2_backward_ref,
-             "round2_backward.resume": smem.round2_backward_resume_ref,
-             "round3_replay.launch": smem.round3_replay_ref}
-    ev = [torch.cuda.Event(enable_timing=True) for _ in range(2)]
-    out = {}
-    for name in STAGES:
-        calls = [(key, args) for key in pairs if key.startswith(name + ".")
-                 for args in captured[key]]
-        r = dict(launches=len(calls), ms=0.0, plain_ms=0.0, mem_ms=0.0,
-                 ops_ms=0.0, steps=0, rows=0, err=0)
-        for key, args in calls:
-            entry = getattr(K[name], key.split(".")[1])
-            r["ms"] += cuda_ms(torch, lambda: entry(*args), 3)
-            stats: dict = {}
-            ev[0].record()
-            want = pairs[key](*args, stats=stats)
-            ev[1].record()
-            torch.cuda.synchronize()
-            r["plain_ms"] += ev[0].elapsed_time(ev[1])
-            got = entry(*args)
-            r["err"] = max([r["err"]] + [int((g.long() - w.long()).abs()
-                                             .max()) if g.numel() else 0
-                                         for g, w in zip(got, want)])
-            mem_ms, ops_ms = stage_bounds(key.replace(".launch", ""), args,
-                                          stats)
-            r["mem_ms"] += mem_ms
-            r["ops_ms"] += ops_ms
-            r["steps"] += stats["steps"]
-            r["rows"] += stats["rows"]
-        if not calls:
-            fail(f"5g: no {name} launch was captured")
-        if r["err"]:
-            fail(f"5g: {name} differs from its plain version (max abs err "
-                 f"{r['err']})")
-        r["bound_ms"] = max(r["mem_ms"], r["ops_ms"])
-        r["bound_by"] = "operations" if r["ops_ms"] >= r["mem_ms"] \
-            else "bytes"
-        log(f"  {name}: {r['launches']} launches of the first chunk "
-            f"({r['steps']} steps, {r['rows']} distinct occ rows): kernel "
-            f"{r['ms']:.4f} ms, plain {r['plain_ms']:.1f} ms, bound "
-            f"{r['bound_ms']:.5f} ms by {r['bound_by']} (bytes "
-            f"{r['mem_ms']:.5f}, operations {r['ops_ms']:.5f}), identical "
-            f"[{card}]")
-        out[name] = r
-    # sa_resolve and round1_walk through the shards vs the replicated index
     fm = FMIndex.load(prefix)
     rep = DeviceFMIndex.from_host(fm, "cuda")
     dev = rep.device
+    out = {name: stage_calls_vs_plain(torch, card, name, captured, rep,
+                                      "the sharded run's first chunk")
+           for name in STAGES}
+    # sa_resolve and round1_walk through the shards vs the replicated index
     sa = dict(ms=0.0, rep_ms=0.0, positions=0, err=0)
     for view, pos in captured["sa_resolve.launch"]:
         sa["ms"] += cuda_ms(torch, lambda: seed.sa_resolve(view, pos), 5)
@@ -1991,15 +2062,15 @@ def legacy_mem(torch, card: str, prefix: str, fq1: str, fq2: str,
     stay within MAX_OVERFLOW.  Then the port's kernel_micro entry on this
     genome (one timed call a line), counters set to 0 just before and read
     just after: kswv_phase and bsw_shear (bsw_shear_tiles) must launch.
-    round1_compact's launch of the first chunk is returned under
-    "_launch" for phase 5h."""
+    The round1_compact, round2_forward and round2_backward launches of the
+    first chunk are returned under "_launches" ({"kernel.method": [(wrapper
+    args)]}) for phase 5h."""
     import io
     from contextlib import redirect_stdout
     from bwamem2_tpu_torch.align.pipeline import Aligner
     from bwamem2_tpu_torch.index.fmindex import FMIndex
     from bwamem2_tpu_torch.io.fastq import FastxReader
     from bwamem2_tpu_torch.ops.backend import TorchBackend
-    from bwamem2_tpu_torch.ops.smem import Round1Compact
     from bwamem2_tpu_torch.options import MEM_F_PE, MemOptions
     from bwamem2_tpu_torch.runtime import run_pipeline
     from bwamem2_tpu_torch.tools import kernel_micro
@@ -2015,27 +2086,20 @@ def legacy_mem(torch, card: str, prefix: str, fq1: str, fq2: str,
              f"{LEGACY_K} at l_pac {fm.l_pac}")
     al = Aligner(fm, opt, backend=be, verbose=1)
     K = kernels()
-    captured: list = []
-    orig = Round1Compact.launch
-
-    def spy(self, *args):
-        if not captured:
-            captured.append(args)
-        return orig(self, *args)
-
+    first = FirstChunk([(n, "launch") for n in ("round1_compact",
+                                                "round2_forward",
+                                                "round2_backward")]
+                       + [("round2_backward", "resume")])
     for d in (PROF.t, PROF.n, PROF.c, PROF.ctot):
         d.clear()
     for k in K.values():
         k.reset()
     out = io.StringIO()
-    Round1Compact.launch = spy
     t0 = time.perf_counter()
-    try:
+    with first:
         n = run_pipeline([al], FastxReader(fq1), FastxReader(fq2),
                          TASK_BASES, out, verbose=0, n_workers=1)
         torch.cuda.synchronize()
-    finally:
-        Round1Compact.launch = orig
     wall = time.perf_counter() - t0
     launches = {nm: k.launches for nm, k in K.items()}
     plain = {nm: k.plain_calls for nm, k in K.items()}
@@ -2093,7 +2157,7 @@ def legacy_mem(torch, card: str, prefix: str, fq1: str, fq2: str,
                 setup_s=round(setup_s, 3), seeding_s=seeding,
                 host_routes=routes, launches=launches, phases_s=phases,
                 micro_launches=micro, micro_out=buf.getvalue(),
-                _launch=captured[0])
+                _launches=first.calls)
 
 
 def phase_batch(torch, dev, genome, seed: int, n: int, L: int, qr, tr):
@@ -2115,13 +2179,17 @@ def phase_batch(torch, dev, genome, seed: int, n: int, L: int, qr, tr):
         enc, qoff, qdir, qcomp, qlen, toff, tdir, tlen, endsc, live)]
 
 
-def legacy_vs_plain(torch, card: str, launch, fm, opt, r1walk: dict) -> dict:
+def legacy_vs_plain(torch, card: str, calls: dict, fm, opt,
+                    r1walk: dict) -> dict:
     """[5h] round1_compact against round1_compact_ref on the card on the
     legacy run's first-chunk launch at K = LEGACY_K and again at K = 0,
     exact, timed with CUDA events beside the bound from the LF steps,
     distinct occ rows and table entries the plain version counts, with
     the ptxas numbers of each instantiation, and round1_walk's 5f time
-    and registers beside them; kswv_phase against kswv_phase_ref on a u8
+    and registers beside them; the run's first-chunk round2_forward and
+    round2_backward launches as phase 5g's (stage_calls_vs_plain, also
+    over a 2-shard view of the index); kswv_phase against kswv_phase_ref
+    on a u8
     and an i16 batch with mixed target directions, live flags and stop
     scores; bsw_shear_tiles against bsw_shear_desc_ref on long-read tiles
     whose h0 puts some pairs past 16 bits (both bodies)."""
@@ -2146,7 +2214,7 @@ def legacy_vs_plain(torch, card: str, launch, fm, opt, r1walk: dict) -> dict:
         return r, e0.elapsed_time(e1)
 
     # ---- round1_compact at K = LEGACY_K (the run's launch) and K = 0
-    dfm, enc, lens, K, msl, cap = launch
+    dfm, enc, lens, K, msl, cap = calls["round1_compact.launch"][0]
     dev = enc.device
     N, L = enc.shape
     ptx = {int(k[0]): v for k, v in
@@ -2193,6 +2261,13 @@ def legacy_vs_plain(torch, card: str, launch, fm, opt, r1walk: dict) -> dict:
     log(f"  round1_walk (K = 0, phase 5f) on the same chunk: "
         f"{r1walk['ms']:.4f} ms, bound {r1walk['bound_ms']:.5f} ms; its "
         f"ptxas line is phase 2's [{card}]")
+
+    # ---- the run's round2_forward and round2_backward launches
+    from bwamem2_tpu_torch.parallel.shard_index import shard_index
+    two = shard_index(dfm, [dev, dev])[0]
+    for name in ("round2_forward", "round2_backward"):
+        out[name] = stage_calls_vs_plain(torch, card, name, calls, two,
+                                         "the legacy run's first chunk")
 
     # ---- kswv_phase, u8 and i16, mixed tdir / live / endsc
     ptx = instances(kernels()["kswv_phase"].build_log
@@ -2510,7 +2585,7 @@ def main() -> None:
     log("[4h] mem PE with the legacy round 1 (TorchBackend(pivot_seeding="
         "False), K-mer table), run (a)'s data, and the kernel_micro entry:")
     run_h = legacy_mem(torch, card, prefix, fq1, fq2, sam)
-    legacy_launch = run_h.pop("_launch")
+    legacy_calls = run_h.pop("_launches")
     runs = (run_a, run_b, run_c, run_d, rr, run_g, run_h)
     # the kernels line counts the launches of the seven runs
     launches = {n: sum(r["launches"][n] for r in runs)
@@ -2552,9 +2627,9 @@ def main() -> None:
         del stage_calls
         log(f"[5h] the legacy round 1, the one-phase kswv and the tile "
             f"form of bsw_shear vs plain on {name}:")
-        lh = legacy_vs_plain(torch, card, legacy_launch, fm, opt,
+        lh = legacy_vs_plain(torch, card, legacy_calls, fm, opt,
                              st["round1_walk"])
-        del legacy_launch
+        del legacy_calls
         log(f"[5a] bsw_extend vs plain on {name}, P={P_KERNEL} per rung:")
         tot = kernel_vs_plain(torch, fm, opt)
         log(f"  all rungs identical; kernel {tot['ms']:.3f} ms (one-thread "
@@ -2791,16 +2866,22 @@ def main() -> None:
                     round3_replay="bwamem2_tpu/ops/smem.py:209")
     for n in STAGES:
         r = sg[n]
+        shape = (f"sum over the {r['launches']} launches of the sharded "
+                 f"run's first chunk (run (a)'s reads, 2 shards), "
+                 f"{r['steps']} steps")
+        if n in lh:
+            shape += (f"; replicated "
+                      f"{r['other_ms']:.4f} ms; the legacy run's "
+                      f"{lh[n]['launches']} first-chunk launches "
+                      f"{lh[n]['ms']:.4f} ms")
         kern.append(dict(
             name=n, route="cuda", source=f"bwamem2_tpu_torch/csrc/{n}.cu",
-            replaces=replaces[n], launches=launches[n], max_abs_err=r["err"],
+            replaces=replaces[n], launches=launches[n],
+            max_abs_err=max(r["err"], lh.get(n, r)["err"]),
             ms=round(r["ms"], 4), plain_ms=round(r["plain_ms"], 3),
             bound_ms=round(r["bound_ms"], 5), bound_by=r["bound_by"],
             library_ms=None,
-            library_note="no PyTorch call walks an FM-index",
-            shape=f"sum over the {r['launches']} launches of the sharded "
-                  f"run's first chunk (run (a)'s reads, 2 shards), "
-                  f"{r['steps']} steps"))
+            library_note="no PyTorch call walks an FM-index", shape=shape))
     result = dict(kernels=kern, card=card, first_call_s=first,
                   main_a=run_a, main_b=run_b, main_a52=run_c,
                   main_pacbio=run_d, round_robin=rr, shards=shards,

@@ -754,6 +754,40 @@ def stage_inputs(fm):
     return dfm, enc, lens, cap, ridp, xp, mi, fwd, piv, slot
 
 
+def skewed_stage_inputs(fm, n_long: int = 8, n_short: int = 600,
+                        L: int = 150, seed: int = 11):
+    """A skewed round-2 batch on the CPU: n_long reads cut from the genome
+    (their walks run to the read's ends) among n_short random reads (their
+    walks die within a few steps), three pivots a read (x 0, L // 2 and
+    L - 10; min_intv 1, every fourth 3) and 64 pad pivots, with the plain
+    version's candidate lanes at width ROUND2_MAX_CAND."""
+    from bwamem2_tpu_torch.ops import smem
+    from bwamem2_tpu_torch.ops.backend import ROUND2_MAX_CAND
+    rng = np.random.default_rng(seed)
+    ref = np.asarray(fm.ref_string)
+    rows = [rng.integers(0, 4, L).astype(np.int8) for _ in range(n_short)]
+    for at, p in zip(rng.choice(n_short, n_long, replace=False),
+                     rng.integers(0, len(ref) - L, n_long)):
+        rows[at] = np.minimum(ref[p:p + L], 4).astype(np.int8)
+    enc = torch.from_numpy(np.stack(rows))
+    N = len(rows)
+    P = 3 * N + 64
+    ridp = torch.full((P,), -1, dtype=torch.int32)
+    ridp[:3 * N] = torch.arange(N, dtype=torch.int32).repeat_interleave(3)
+    xp = torch.zeros(P, dtype=torch.int32)
+    xp[:3 * N] = torch.tensor([0, L // 2, L - 10],
+                              dtype=torch.int32).repeat(N)
+    mi = torch.ones(P, dtype=torch.int64)
+    mi[:3 * N:4] = 3
+    dfm = DeviceFMIndex.from_host(fm, "cpu")
+    fwd = smem.round2_forward_ref(dfm, enc, ridp, xp, mi, ROUND2_MAX_CAND)
+    nc = fwd[4].long().clamp(max=ROUND2_MAX_CAND)
+    piv = torch.repeat_interleave(torch.arange(P), nc).int()
+    slot = (torch.arange(len(piv)) - torch.repeat_interleave(
+        nc.cumsum(0) - nc, nc)).int()
+    return dfm, enc, ridp, xp, mi, fwd, piv, slot
+
+
 def _equal(got, want):
     for g, w in zip(got, want):
         np.testing.assert_array_equal(g.cpu().numpy(), w.numpy())
@@ -765,7 +799,9 @@ def test_stage_kernels_match_ref_on_card(card):
     and without steps_max), round3_replay, round1_walk and sa_resolve on
     the card against their plain versions on the CPU: over the replicated
     index, over 2 shards on this card and, where there are several cards,
-    over one shard per card (peer loads)."""
+    over one shard per card (peer loads); then round2_forward (C 24 and 4)
+    and round2_backward (both entries) on a skewed batch, replicated and
+    over 2 shards."""
     from bwamem2_tpu_torch.ops import smem
     from bwamem2_tpu_torch.ops.backend import ROUND2_MAX_CAND
     from bwamem2_tpu_torch.parallel.shard_index import shard_index
@@ -809,6 +845,38 @@ def test_stage_kernels_match_ref_on_card(card):
                                                res[5].to(card), L - 8),
             walk=smem.round1_walk(d, e, ln),
             sa=[tseed.sa_resolve(d, pos.to(card))])
+        torch.cuda.synchronize()
+        for k in want:
+            _equal(got[k], want[k])
+    # a skewed batch: a few walks to the read's ends among many short ones
+    # and more candidates than C = 4, replicated and over 2 shards
+    dfm_h, enc, ridp, xp, mi, fwd, piv, slot = skewed_stage_inputs(fm)
+    L = enc.shape[1]
+    want = dict(fwd=fwd, fwd4=smem.round2_forward_ref(dfm_h, enc, ridp, xp,
+                                                      mi, 4),
+                bwd=smem.round2_backward_ref(dfm_h, enc, ridp, xp, fwd[1],
+                                             fwd[3], piv, slot, mi),
+                bwd8=smem.round2_backward_ref(dfm_h, enc, ridp, xp, fwd[1],
+                                              fwd[3], piv, slot, mi, 8))
+    steps = want["bwd"][0]
+    assert int(steps.max()) >= L - 20 and float(steps.float().median()) < 20
+    assert int((want["fwd4"][4] > 4).sum()) >= 8
+    live = want["bwd8"][4].nonzero()[:, 0]
+    lp = piv[live].long()
+    res = [ridp[lp], xp[lp], mi[lp]] + [w[live] for w in want["bwd8"][:3]]
+    want["resume"] = smem.round2_backward_resume_ref(dfm_h, enc, *res, L - 8)
+    fw, bw = smem.round2_forward, smem.round2_backward
+    for devs in ([card], [card, card]):
+        d = (DeviceFMIndex.from_host(fm, card) if len(devs) == 1
+             else shard_index(dfm_h, devs)[0])
+        c = lambda *a: [x.to(card) for x in a]  # noqa: E731
+        e = enc.to(card)
+        got = dict(
+            fwd=fw(d, e, *c(ridp, xp, mi), ROUND2_MAX_CAND),
+            fwd4=fw(d, e, *c(ridp, xp, mi), 4),
+            bwd=bw(d, e, *c(ridp, xp, fwd[1], fwd[3], piv, slot, mi)),
+            bwd8=bw(d, e, *c(ridp, xp, fwd[1], fwd[3], piv, slot, mi), 8),
+            resume=bw.resume(d, e, *c(*res[:5]), res[5].to(card), L - 8))
         torch.cuda.synchronize()
         for k in want:
             _equal(got[k], want[k])

@@ -8,7 +8,9 @@ value for value (tolerance 0 throughout).
   and 3 shards (the last shard padded);
 * the kernels' lane bodies (csrc/seed_stages.cuh, with fm_occ.cuh's
   FmView and FmShardView, and sa_group.cuh over FmShardView) compiled as
-  host C++ against the plain versions, with the steps they count;
+  host C++ against the plain versions, with the steps they count; round
+  2's kernel bodies (r2f_group.cuh, r2b_group.cuh) likewise, under
+  permuted ticket orders;
 * dist_rows_ref through occ_all4, bwt_char_occ and occ_one, and the
   sharded SA walk, against JAX's sharded kernels on the virtual 8-device
   CPU mesh (tests/test_shard_index.py:48-82);
@@ -234,41 +236,6 @@ static long long r3(const V &f, const int8_t *enc, const int *lens, int N,
   }
   return steps;
 }
-template <class V>
-static long long r2f(const V &f, const int8_t *enc, int N, int L,
-                     const int *rid, const int *x, const int64_t *mi, int P,
-                     int C, int *cn, int64_t *ck, int64_t *cl, int64_t *cs,
-                     int *nc) {
-  int64_t steps = 0;
-  for (int p = 0; p < P; ++p) {
-    const int64_t o = (int64_t)p * C;
-    nc[p] = stage_round2_forward(f, enc, (int64_t)N * L, L, rid[p], x[p],
-                                 mi[p], C, cn + o, ck + o, cl + o, cs + o,
-                                 &steps);
-  }
-  return steps;
-}
-template <class V>
-static long long r2b(const V &f, const int8_t *enc, int N, int L,
-                     const int *rid, const int *x, const int64_t *mi,
-                     const int64_t *ck, const int64_t *cs, int C,
-                     const int *piv, const int *slot, int M, int n_steps,
-                     int *col, int64_t *k, int64_t *s, bool *died,
-                     bool *alive) {
-  int64_t steps = 0;
-  for (int i = 0; i < M; ++i) {
-    const int p = piv[i];
-    col[i] = 0;
-    k[i] = ck[(int64_t)p * C + slot[i]];
-    s[i] = cs[(int64_t)p * C + slot[i]];
-    died[i] = false;
-    alive[i] = stage_round2_backward(f, enc, (int64_t)N * L, L, rid[p],
-                                     x[p], mi[p], x[p] > 0 && s[i] > 0,
-                                     n_steps, col + i, k + i, s + i,
-                                     died + i, &steps);
-  }
-  return steps;
-}
 extern "C" long long h_r1(const int64_t *t, const int8_t *enc,
                           const int *lens, int N, int L, int cap, int *npiv,
                           int *px) {
@@ -283,27 +250,6 @@ extern "C" long long h_r3(const int64_t *t, const int8_t *enc,
       ? r3(fm_view_of(t), enc, lens, N, L, mx, ml, cap, nout, ox, on, os, ok)
       : r3(fm_shard_view_of(t), enc, lens, N, L, mx, ml, cap, nout, ox, on,
            os, ok);
-}
-extern "C" long long h_r2f(const int64_t *t, const int8_t *enc, int N, int L,
-                           const int *rid, const int *x, const int64_t *mi,
-                           int P, int C, int *cn, int64_t *ck, int64_t *cl,
-                           int64_t *cs, int *nc) {
-  return t[0] == 1
-      ? r2f(fm_view_of(t), enc, N, L, rid, x, mi, P, C, cn, ck, cl, cs, nc)
-      : r2f(fm_shard_view_of(t), enc, N, L, rid, x, mi, P, C, cn, ck, cl, cs,
-            nc);
-}
-extern "C" long long h_r2b(const int64_t *t, const int8_t *enc, int N, int L,
-                           const int *rid, const int *x, const int64_t *mi,
-                           const int64_t *ck, const int64_t *cs, int C,
-                           const int *piv, const int *slot, int M,
-                           int n_steps, int *col, int64_t *k, int64_t *s,
-                           bool *died, bool *alive) {
-  return t[0] == 1
-      ? r2b(fm_view_of(t), enc, N, L, rid, x, mi, ck, cs, C, piv, slot, M,
-            n_steps, col, k, s, died, alive)
-      : r2b(fm_shard_view_of(t), enc, N, L, rid, x, mi, ck, cs, C, piv, slot,
-            M, n_steps, col, k, s, died, alive);
 }
 extern "C" void h_sa(const int64_t *t, const int64_t *pos, int64_t n,
                      int64_t *out) {
@@ -324,7 +270,7 @@ def host_stages(tmp_path_factory):
     subprocess.run(["g++", "-O2", "-std=c++17", "-shared", "-fPIC", "-I",
                     CSRC, src, "-o", so], check=True, capture_output=True)
     lib = ctypes.CDLL(so)
-    for name in ("h_r1", "h_r3", "h_r2f", "h_r2b"):
+    for name in ("h_r1", "h_r3"):
         getattr(lib, name).restype = ctypes.c_longlong
     return lib
 
@@ -348,11 +294,11 @@ def _call(fn, *args):
 @pytest.mark.parametrize("D", SHARDS)
 def test_lane_bodies_host_build_match_plain(host_stages, views, grid,
                                             pivots, D):
-    """csrc/seed_stages.cuh (host build) == the plain versions, over the
-    replicated index (FmView) and over 2 and 3 shards (FmShardView), with
-    the same step counts; sa_group.cuh over FmShardView == sa_resolve_ref."""
+    """csrc/seed_stages.cuh (host build: round1_chain's and round3_replay's
+    bodies) == the plain versions, over the replicated index (FmView) and
+    over 2 and 3 shards (FmShardView), with the same step counts;
+    sa_group.cuh over FmShardView == sa_resolve_ref."""
     _, (enc, lens) = grid
-    ridp, xp, mi, fwd, piv, slot = pivots
     v = views[D]
     tab = fm_table(v)
     N, L = enc.shape
@@ -373,34 +319,182 @@ def test_lane_bodies_host_build_match_plain(host_stages, views, grid,
                   cap3, *got)
     same(got, want)
     assert steps == st["steps"] > 0
-    P = len(ridp)
-    want = smem.round2_forward_ref(v, e, t(ridp), t(xp), t(mi), C, st)
-    got = (torch.full((P, C), -1, dtype=torch.int32),
-           *(torch.zeros((P, C), dtype=torch.int64) for _ in range(3)),
-           torch.zeros(P, dtype=torch.int32))
-    steps = _call(host_stages.h_r2f, tab, e, N, L, t(ridp), t(xp), t(mi), P,
-                  C, *got)
-    same(got, want)
-    assert steps == st["steps"] > 0
-    M = len(piv)
-    for n_steps in (8, 0):
-        want = smem.round2_backward_ref(v, e, t(ridp), t(xp), t(fwd[1]),
-                                        t(fwd[3]), t(piv), t(slot), t(mi),
-                                        n_steps, st)
-        got = (torch.zeros(M, dtype=torch.int32),
-               *(torch.zeros(M, dtype=torch.int64) for _ in range(2)),
-               *(torch.zeros(M, dtype=torch.bool) for _ in range(2)))
-        steps = _call(host_stages.h_r2b, tab, e, N, L, t(ridp), t(xp), t(mi),
-                      t(fwd[1]), t(fwd[3]), C, t(piv), t(slot), M,
-                      n_steps or L, *got)
-        same(got if n_steps else got[:4], want)
-        assert steps == st["steps"] > 0
     if D > 1:
         rng = np.random.default_rng(D)
         pos = t(rng.integers(0, int(v.counts[4]), 3000).astype(np.int64))
         out = torch.zeros(3000, dtype=torch.int64)
         _call(host_stages.h_sa, tab, pos, np.int64(3000), out)
         same([out], [sa_resolve_ref(views[1], pos)])
+
+
+# ------------- round 2's redesigned bodies (lane groups, refilled lanes)
+GROUP_SHIM = r"""
+static long long g_steps = 0;
+#define R2F_STEP_HOOK() (++g_steps)
+#define R2B_STEP_HOOK() (++g_steps)
+#include "r2f_group.cuh"
+#include "r2b_group.cuh"
+template <class V>
+static void r2f(const R2fBatch<V> &b, const int64_t *perm) {
+  R2fGroup g;
+  g.perm = perm;
+  r2f_group_run(g, b);
+}
+template <class V>
+static void r2b(const R2bBatch<V> &b, const int64_t *perm) {
+  SaWarp g;
+  g.perm = perm;
+  r2b_group_run(g, b);
+}
+extern "C" long long h_r2f(const int64_t *t, const int8_t *enc, int N,
+                           int L, const int *rid, const int *x,
+                           const int64_t *mi, int P, int C,
+                           const int64_t *perm, int *cn, int64_t *ck,
+                           int64_t *cl, int64_t *cs, int *nc) {
+  g_steps = 0;
+  const int64_t NL = (int64_t)N * L;
+  if (t[0] == 1)
+    r2f(R2fBatch<FmView>{fm_view_of(t), enc, NL, L, rid, x, mi, P, C, cn,
+                           ck, cl, cs, nc}, perm);
+  else
+    r2f(R2fBatch<FmShardView>{fm_shard_view_of(t), enc, NL, L, rid, x, mi,
+                                P, C, cn, ck, cl, cs, nc}, perm);
+  return g_steps;
+}
+extern "C" long long h_r2b(const int64_t *t, const int8_t *enc, int N,
+                           int L, const int *rid, const int *x,
+                           const int64_t *mi, const int64_t *ck,
+                           const int64_t *cs, int C, const int *piv,
+                           const int *slot, const int *col0,
+                           const int64_t *k0, const int64_t *s0, int M,
+                           int n_steps, const int64_t *perm, int *col,
+                           int64_t *k, int64_t *s, bool *died, bool *alive) {
+  g_steps = 0;
+  const int64_t NL = (int64_t)N * L;
+  if (t[0] == 1)
+    r2b(R2bBatch<FmView>{fm_view_of(t), enc, NL, L, rid, x, mi, ck, cs, C,
+                         piv, slot, col0, k0, s0, M, n_steps, col, k, s,
+                         died, alive}, perm);
+  else
+    r2b(R2bBatch<FmShardView>{fm_shard_view_of(t), enc, NL, L, rid, x, mi,
+                              ck, cs, C, piv, slot, col0, k0, s0, M, n_steps,
+                              col, k, s, died, alive}, perm);
+  return g_steps;
+}
+"""
+
+
+@pytest.fixture(scope="module")
+def host_groups(tmp_path_factory):
+    d = tmp_path_factory.mktemp("groups")
+    src, so = str(d / "groups.cpp"), str(d / "groups.so")
+    with open(src, "w") as f:
+        f.write(GROUP_SHIM)
+    subprocess.run(["g++", "-O2", "-std=c++17", "-shared", "-fPIC", "-I",
+                    CSRC, src, "-o", so], check=True, capture_output=True)
+    lib = ctypes.CDLL(so)
+    for name in ("h_r2f", "h_r2b"):
+        getattr(lib, name).restype = ctypes.c_longlong
+    return lib
+
+
+def _perms(rng, n):
+    """Two ticket orders over n items: a random permutation and the
+    reversed order."""
+    return [t(rng.permutation(n).astype(np.int64)),
+            t(np.arange(n - 1, -1, -1, dtype=np.int64))]
+
+
+@pytest.mark.parametrize("D", SHARDS)
+def test_round2_forward_groups_host_build_match_plain(host_groups, views,
+                                                      grid, pivots, D):
+    """csrc/r2f_group.cuh (host build, 8 lanes in lockstep, one group
+    taking every ticket) == round2_forward_ref and JAX's
+    round2_forward_kernel over the replicated index and 2 and 3 shards, at
+    C 24 and 4 (pivots over the cap), under two permuted ticket orders,
+    with the plain version's backward_ext count.  The pivots hold pad
+    pivots (rid -1), pivots at x 0, min_intv 3 and walks that reach an
+    N."""
+    _, (enc, _) = grid
+    ridp, xp, mi, fwd, _, _ = pivots
+    N, L = enc.shape
+    live = ridp >= 0
+    assert (~live).any() and (xp[live] == 0).any() and (mi > 1).any()
+    assert (enc == 4).any()
+    v = views[D]
+    tab = fm_table(v)
+    P = len(ridp)
+    e = t(enc)
+    perms = _perms(np.random.default_rng(20 + D), P)
+    for C_ in (C, 4):
+        st: dict = {}
+        want = smem.round2_forward_ref(v, e, t(ridp), t(xp), t(mi), C_, st)
+        if C_ == C:
+            same(want, fwd)
+        else:
+            assert int((want[4] > C_).sum()) > 20
+        for perm in perms:
+            got = (torch.full((P, C_), -1, dtype=torch.int32),
+                   *(torch.zeros((P, C_), dtype=torch.int64)
+                     for _ in range(3)),
+                   torch.zeros(P, dtype=torch.int32))
+            steps = _call(host_groups.h_r2f, tab, e, N, L, t(ridp), t(xp),
+                          t(mi), P, C_, perm, *got)
+            same(got, want)
+            assert steps == st["steps"] > 0
+
+
+@pytest.mark.parametrize("D", SHARDS)
+def test_round2_backward_refill_host_build_match_plain(host_groups, views,
+                                                       grid, pivots, D):
+    """csrc/r2b_group.cuh (host build, a warp of 32 lanes in lockstep, one
+    walk a lane) == round2_backward_ref at n_steps 8 and L and
+    round2_backward_resume_ref on the lanes alive after 8 steps, over the
+    replicated index and 2 and 3 shards, under two permuted ticket orders
+    and the identity, with the plain versions' LF step counts."""
+    _, (enc, _) = grid
+    ridp, xp, mi, fwd, piv, slot = pivots
+    v = views[D]
+    tab = fm_table(v)
+    N, L = enc.shape
+    M = len(piv)
+    e = t(enc)
+    rng = np.random.default_rng(30 + D)
+    none = ctypes.c_void_p(None)
+
+    def outputs(n):
+        return (torch.zeros(n, dtype=torch.int32),
+                *(torch.zeros(n, dtype=torch.int64) for _ in range(2)),
+                *(torch.zeros(n, dtype=torch.bool) for _ in range(2)))
+
+    for n_steps in (8, 0):
+        st: dict = {}
+        want = smem.round2_backward_ref(v, e, t(ridp), t(xp), t(fwd[1]),
+                                        t(fwd[3]), t(piv), t(slot), t(mi),
+                                        n_steps, st)
+        for perm in _perms(rng, M) + [none]:
+            got = outputs(M)
+            steps = _call(host_groups.h_r2b, tab, e, N, L, t(ridp), t(xp),
+                          t(mi), t(fwd[1]), t(fwd[3]), C, t(piv), t(slot),
+                          none, none, none, M, n_steps or L, perm, *got)
+            same(got if n_steps else got[:4], want)
+            assert steps == st["steps"] > 0
+        if n_steps:
+            phase = want
+    live = np.nonzero(phase[4].numpy())[0]
+    assert 10 < len(live) < M
+    lp = piv[live]
+    res = [t(a) for a in (ridp[lp], xp[lp], mi[lp])] + \
+        [p[live] for p in phase[:3]]
+    st = {}
+    want = smem.round2_backward_resume_ref(v, e, *res, L - 8, st)
+    for perm in _perms(rng, len(live)) + [none]:
+        got = outputs(len(live))
+        steps = _call(host_groups.h_r2b, tab, e, N, L, *res[:3], none,
+                      none, 0, none, none, *res[3:], len(live), L - 8, perm,
+                      *got)
+        same(got[:4], want)
+        assert steps == st["steps"] > 0
 
 
 # --------------------- row fetch and SA walks vs JAX's sharded kernels
