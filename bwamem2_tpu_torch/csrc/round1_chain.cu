@@ -8,26 +8,37 @@
 // (backward_ext on the RC twin) until the interval empties, an N or the
 // read end.  Writes the pivot count and the pivots (the caller fills px
 // with -1).  Plain PyTorch version: ops/smem.py:round1_chain_ref; wrapper:
-// ops/smem.py:Round1Chain; the lane's body is
+// ops/smem.py:Round1Chain; the read's body is
 // seed_stages.cuh:stage_round1_chain, which the tests compile as host C++.
 //
-// What bounds it.  Operations: each backward_ext is two all-four occ
-// counts, 131 int32 operations of which 24 popcounts (the model of
-// smem_collect.cu's header); on sm_90 the int32 pipe's 107 / 64 clocks per
-// call and SM bounds them.  Bytes: two 32-byte occ rows per backward_ext
-// (the plain version counts the distinct rows the run reads, each once),
-// the read grid (1 B per column) and lengths in, 4 B per pivot slot and
-// read out, over 3.35 TB/s.  Over a sharded index a row of another card's
-// shard crosses NVLink (450 GB/s each way on an H100 SXM): with D cards,
-// (D - 1) / D of the rows, a bound the one-card run does not reach.
-// chip_smoke.py computes the bound from the plain version's counts.
+// What bounds it.  Not its bytes or operations.  Operations: each
+// backward_ext is two all-four occ counts, 131 int32 operations of which
+// 24 popcounts (the model of smem_collect.cu's header); on sm_90 the
+// int32 pipe's 107 / 64 clocks per call and SM bound them.  Bytes: two
+// 32-byte occ rows per backward_ext (the plain version counts the distinct
+// rows the run reads, each once), the read grid (1 B per column) and
+// lengths in, 4 B per pivot slot and read out, over 3.35 TB/s; over a
+// sharded index (D - 1) / D of the rows cross NVLink (450 GB/s each way).
+// chip_smoke.py computes that bound from the plain version's counts: a
+// few % of a launch.  A launch waits on latency: a read's chain is a
+// sequence of loads, each addressed by the interval the one before gave
+// (~0.7-0.8 us a load alone on an H100, PERF.md); a launch of 7,500 reads
+// (59 blocks on 132 SMs: nothing to hide a wait behind) lasts about as
+// long as its longest chain, 149 loads on chip_smoke.py's run (g), a read
+// in a repeat family.
 //
-// Design.  Simple first: one thread per read walks its whole chain; the
-// chain is sequential in the read (each segment starts where the last one
-// died) and its steps are dependent occ-row reads, so a warp runs as long
-// as its longest chain.  Two instantiations: the replicated index
-// (FmView) and the sharded one (FmShardView, fm_occ.cuh), picked by the
-// launcher from the index table's shard count.
+// Design.  One thread per read walks its whole chain (the chain is
+// sequential in the read: each segment starts where the last one died) in
+// one flat loop, so a warp's lanes step together whatever segment each is
+// in.  The sharded instantiation issues a step's two occ rows before it
+// counts either (one round trip a step; the replicated one counts the first
+// row before it loads the second: SASS, PERF.md).  Starting segments from
+// the K-mer table and locating small intervals to compare them with the
+// genome were measured and left out: neither shortens the longest chain by
+// more than 6 of its 149 loads, and neither made a launch faster (PERF.md).
+// Two instantiations: the replicated index (FmView) and the sharded one
+// (FmShardView, fm_occ.cuh), picked by the launcher from the index table's
+// shard count.
 
 #include <cuda_runtime.h>
 

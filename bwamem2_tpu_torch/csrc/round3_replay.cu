@@ -3,27 +3,36 @@
 //
 // Replaces the JAX package's bwamem2_tpu/ops/smem.py:round3_replay_kernel
 // (jitted XLA, not Pallas) as a launch of its own in the per-stage seeding
-// of the sharded index (ops/backend.py:TorchBackend.collect_smems; the
-// replicated index runs round 3 inside smem_collect).  Per read
-// (bwtSeedStrategyAllPosOneThread): from x = 0, a segment extends forward
-// until its interval drops below max_intv at a length of at least min_len
-// (opt.min_seed_len + 1), an N or the read end; a stop with a non-empty
-// interval is a seed [x, col]; next x = col + 1.  The caller fills the
-// slots (x, n -1; s, k 0).  Plain PyTorch version:
+// of the sharded index and of the legacy round 1 (ops/backend.py:
+// TorchBackend.collect_smems; the replicated index runs round 3 inside
+// smem_collect).  Per read (bwtSeedStrategyAllPosOneThread): from x = 0,
+// a segment extends forward until its interval drops below max_intv at a
+// length of at least min_len (opt.min_seed_len + 1), an N or the read end;
+// a stop with a non-empty interval is a seed [x, col]; next x = col + 1.
+// The caller fills the slots (x, n -1; s, k 0).  Plain PyTorch version:
 // ops/smem.py:round3_replay_ref; wrapper: ops/smem.py:Round3Replay; the
-// lane's body is seed_stages.cuh:stage_round3, compiled as host C++ by the
+// read's body is seed_stages.cuh:stage_round3, compiled as host C++ by the
 // tests.
 //
-// What bounds it.  As round1_chain.cu: 131 int32 operations (24
-// popcounts) and two 32-byte occ rows per backward_ext, the int32 pipe at
-// 107 / 64 clocks per call and SM; bytes the distinct rows read, the read
-// grid and lengths in and 24 B per seed slot plus the count out, over
-// 3.35 TB/s; over a sharded index (D - 1) / D of the rows cross NVLink
-// (450 GB/s each way).
+// What bounds it.  Not its bytes or operations.  As round1_chain.cu: 131
+// int32 operations (24 popcounts) and two 32-byte occ rows per
+// backward_ext, the int32 pipe at 107 / 64 clocks per call and SM; bytes
+// the distinct rows read, the read grid and lengths in and 24 B per seed
+// slot plus the count out, over 3.35 TB/s; over a sharded index (D - 1) /
+// D of the rows cross NVLink (450 GB/s each way).  A launch waits on
+// latency: a read's segments follow one another (each starts where the
+// last stopped), each step is a load addressed by the one before, and a
+// launch of 7,500 reads lasts about as long as its longest chain, 149
+// loads on chip_smoke.py's run (g) (one segment in a repeat family whose
+// interval stays at max_intv or above to the read's end), at ~0.9 us a
+// load alone (PERF.md).
 //
-// Design.  One thread per read, its chain to the end (a chain is
-// sequential in the read); cap >= L / min_len + 1 slots cannot overflow.
-// Instantiated over FmView and FmShardView as round1_chain.cu.
+// Design.  One thread per read, its chain to the end in one flat loop as
+// round1_chain.cu (a step's loads as there); cap >= L / min_len + 1 slots
+// cannot overflow.  Running later segments ahead from speculated starts cuts
+// the mean chain but cannot split the longest one, and the K-mer start saves
+// 6 of its loads; both were measured and left out (PERF.md).  Instantiated
+// over FmView and FmShardView as round1_chain.cu.
 
 #include <cuda_runtime.h>
 

@@ -1,16 +1,16 @@
-// seed_stages.cuh: the per-lane bodies of the per-stage seeding kernels
-// round1_chain.cu and round3_replay.cu, and the read-grid access that
-// round 2's bodies (r2f_group.cuh, r2b_group.cuh) share with them, for
-// the device and for the host (the tests compile this header as plain C++
-// and hold it against the plain PyTorch versions in
-// bwamem2_tpu_torch/ops/smem.py).
+// seed_stages.cuh: the per-read bodies of the per-stage seeding kernels
+// round1_chain.cu and round3_replay.cu, the per-pivot body of
+// round2_forward.cu, and the read-grid access that round 2's backward body
+// (r2b_group.cuh) shares with them, for the device and for the host (the
+// tests compile this header as plain C++ and hold it against the plain
+// PyTorch versions in bwamem2_tpu_torch/ops/smem.py).
 //
-// Each body runs one lane from its first step to its last: where the JAX
-// kernels (bwamem2_tpu/ops/smem.py) step every lane in lockstep for a
-// fixed count of iterations and mask the finished ones, a lane here stops
-// when its work does.  Every JAX lane finishes within its kernel's
-// iterations (a chain takes at most 2L + 2, a walk at most L), so the
-// results are the same.  Templates over the index view (fm_occ.cuh):
+// Each body runs one read (or pivot) from its first step to its last:
+// where the JAX kernels (bwamem2_tpu/ops/smem.py) step every lane in
+// lockstep for a fixed count of iterations and mask the finished ones, a
+// body here stops when its work does.  Every JAX lane finishes within its
+// kernel's iterations (a chain takes at most 2L + 2, a walk at most L), so
+// the results are the same.  Templates over the index view (fm_occ.cuh):
 // FmView for the replicated index, FmShardView for the sharded one.
 #pragma once
 
@@ -25,7 +25,9 @@ FM_HD int stage_code(const int8_t *enc, int64_t NL, int64_t i) {
 // each x whose base is not N, its segment extended forward until the
 // interval empties at col (next x = col), an N stops it (next x = col +
 // 1) or it reaches the end.  Writes pivot j at px[min(j, cap - 1)] and
-// returns the pivot count.  Counts its backward extensions in *steps.
+// returns the pivot count.  One flat loop (an iteration starts a segment
+// or steps one), so the lanes of a warp step together whatever segment
+// each is in.  Counts its backward extensions in *steps.
 template <class V>
 FM_HD int stage_round1_chain(const V &f, const int8_t *row, int len,
                              int cap, int *px, int64_t *steps) {
@@ -124,4 +126,54 @@ FM_HD int stage_round3(const V &f, const int8_t *row, int len,
         ++col;
     }
     return nout;
+}
+
+// The forward pass of one pivot (round2_forward_kernel): from the base at
+// (rid, x) of the read grid enc[N, L] (NL = N * L; rid < 0: a pad pivot),
+// extend forward while the interval stays >= mi, pushing the interval
+// before each change of size, then the last one if it is >= mi.
+// Candidate j goes to slot min(j, C - 1) of n (end offset from x), k, l,
+// s; returns the candidate count.
+template <class V>
+FM_HD int stage_round2_forward(const V &f, const int8_t *enc, int64_t NL,
+                               int L, int rid, int x, int64_t mi, int C,
+                               int *cn, int64_t *ck, int64_t *cl,
+                               int64_t *cs, int64_t *steps) {
+    const int64_t base = (int64_t)rid * L + x;
+    const int plen = rid >= 0 ? L - x : 0;
+    const int a0 = stage_code(enc, NL, base);
+    const bool valid = (unsigned)a0 < 4u && plen > 0;
+    const int a = valid ? a0 : 0;
+    int64_t k = fm_count(f, a), l = fm_count(f, 3 - a);
+    int64_t s = fm_count(f, a + 1) - k;
+    int n = 0, ncand = 0;
+    for (int j = 1; valid && j < plen; ++j) {
+        const int c = stage_code(enc, NL, base + j);
+        if ((unsigned)c >= 4u) break;
+        int64_t nk, nl, ns;
+        fm_backward_ext(f, l, k, s, 3 - c, &nl, &nk, &ns);
+        ++*steps;
+        if (ns != s) {
+            const int at = ncand < C ? ncand : C - 1;
+            cn[at] = n;
+            ck[at] = k;
+            cl[at] = l;
+            cs[at] = s;
+            ++ncand;
+        }
+        if (ns < mi) break;
+        k = nk;
+        l = nl;
+        s = ns;
+        n = j;
+    }
+    if (valid && s >= mi) {
+        const int at = ncand < C ? ncand : C - 1;
+        cn[at] = n;
+        ck[at] = k;
+        cl[at] = l;
+        cs[at] = s;
+        ++ncand;
+    }
+    return ncand;
 }

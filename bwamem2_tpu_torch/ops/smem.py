@@ -7,15 +7,15 @@
                   the SMEM emission rule and the per-read compaction in
                   one launch (csrc/round1_compact.cu): round 1 of the
                   legacy configuration, TorchBackend(pivot_seeding=False);
-  round1_chain    round 1's pivot chain, one lane per read
+  round1_chain    round 1's pivot chain, one thread per read
                   (csrc/round1_chain.cu);
-  round2_forward  per pivot, the forward candidates, one lane group a
-                  pivot (csrc/round2_forward.cu);
+  round2_forward  per pivot, the forward candidates, one thread a pivot
+                  (csrc/round2_forward.cu);
   round2_backward per candidate lane, the backward walk, from the forward
                   pass's candidate slot or resumed from a given state,
                   lanes refilled as walks end (csrc/round2_backward.cu);
-  round3_replay   round 3's pivot chain under max_mem_intv, one lane per
-                  read (csrc/round3_replay.cu).
+  round3_replay   round 3's pivot chain under max_mem_intv, one thread
+                  per read (csrc/round3_replay.cu).
 
 The last four are the per-stage seeding of the sharded index
 (ops/backend.py:TorchBackend.collect_smems, the counterpart of
@@ -25,12 +25,13 @@ through the fused smem_collect (ops/seed.py) instead.  Each plain version
 in bwamem2_tpu/ops/smem.py does and returns its arrays value for value
 (int32 where the JAX kernel returns int16); each wrapper runs it on CPU
 tensors and launches its kernel on CUDA tensors, or raises.  The kernels'
-bodies (csrc/seed_stages.cuh's per-lane ones, round 2's r2f_group.cuh and
-r2b_group.cuh) compile as host C++ in the tests.  If `stats` is a dict,
-a plain version stores in it the LF steps or backward extensions its
-lanes took (`steps`, each reading two occ rows) and the distinct occ rows
-they read (`rows`): the kernel's work on these inputs; the round-2 plain
-versions also store the steps of their longest walk (`longest`).
+bodies (csrc/seed_stages.cuh's and round 2's backward r2b_group.cuh)
+compile as host C++ in the tests.  If `stats` is a dict, a plain version
+stores in it the LF steps or backward extensions its lanes took (`steps`,
+each reading two occ rows) and the distinct occ rows they read (`rows`):
+the kernel's work on these inputs; also the steps of its longest walk or
+chain (`longest`: a kernel thread's dependent loads) and, for the
+round-1 and round-3 chains, the read that takes them (`longest_read`).
 
 The round-1 walk:
 
@@ -68,24 +69,31 @@ class _Work:
     read, stored into `stats` (a dict, or None: nothing is counted).  With
     `lockstep` (every live lane takes one step per add(), as in
     round2_forward_ref and _bwd_walk) also the steps of the longest walk
-    (`longest`, the add() calls)."""
+    (`longest`, the add() calls); with `lanes` (add() names the lanes that
+    step, as in _chains) the most steps of one lane (`longest`) and that
+    lane (`longest_read`)."""
 
     def __init__(self, dfm: DeviceFMIndex, stats: dict | None, dev,
-                 lockstep: bool = False):
+                 lockstep: bool = False, lanes: int = 0):
         self.stats = stats
         self.steps = 0
         self.calls = 0
         self.lockstep = lockstep
+        self.per = (torch.zeros(lanes, dtype=torch.int64, device=dev)
+                    if stats is not None and lanes else None)
         self.touched = (None if stats is None else
                         torch.zeros(dfm.nblocks, dtype=torch.bool,
                                     device=dev))
 
-    def add(self, k: torch.Tensor, s: torch.Tensor) -> None:
+    def add(self, k: torch.Tensor, s: torch.Tensor,
+            lanes: torch.Tensor | None = None) -> None:
         if self.stats is not None:
             self.steps += k.numel()
             self.calls += 1
             self.touched[k >> 6] = True
             self.touched[(k + s) >> 6] = True
+            if self.per is not None:
+                self.per[lanes] += 1
 
     def done(self) -> None:
         if self.stats is not None:
@@ -93,6 +101,9 @@ class _Work:
                               rows=int(self.touched.sum()))
             if self.lockstep:
                 self.stats["longest"] = self.calls
+            if self.per is not None:
+                self.stats.update(longest=int(self.per.max()),
+                                  longest_read=int(self.per.argmax()))
 
 
 def _lut_start(dfm: DeviceFMIndex, enc: torch.Tensor, valid: torch.Tensor,
@@ -328,7 +339,7 @@ def _chains(dfm, enc, lens, stats, on_start, on_ext) -> None:
     x, col, k, l, s = z(), z(), z(), z(), z()
     seg = torch.zeros(N, dtype=torch.bool, device=dev)
     rows = torch.arange(N, device=dev)
-    work = _Work(dfm, stats, dev)
+    work = _Work(dfm, stats, dev, lanes=N)
     while True:
         act = x < ln
         if not bool(act.any()):
@@ -353,7 +364,7 @@ def _chains(dfm, enc, lens, stats, on_start, on_ext) -> None:
         if not live.numel():
             continue
         kk, ll, ss, cl = k[live], l[live], s[live], col[live]
-        work.add(kk, ss)
+        work.add(kk, ss, live)
         # forward extension: backward on the RC twin, k and l swapped
         nl, nk, ns = backward_ext_full(dfm, ll, kk, ss, 3 - c[live])
         stop, x_next, (k[live], l[live], s[live]) = on_ext(
@@ -643,13 +654,12 @@ class Round3Replay(CudaKernel):
 
 class _Persistent(CudaKernel):
     """A round-2 kernel on a persistent grid: its blocks of THREADS threads
-    stay resident and take their work from a launch-wide ticket counter,
-    LANES threads a work item.  RESIDENT names its occupancy query
-    (sharded, threads, *blocks -> CUDA error)."""
+    stay resident and take their work from a launch-wide ticket counter, a
+    thread a work item.  RESIDENT names its occupancy query (sharded,
+    threads, *blocks -> CUDA error)."""
 
     RESIDENT: str = ""
     THREADS = 128
-    LANES = 1
 
     def __init__(self):
         super().__init__()
@@ -670,26 +680,19 @@ class _Persistent(CudaKernel):
                 raise ValueError(f"{self.NAME}: no launch of {self.THREADS} "
                                  f"threads (CUDA error {err})")
             self._resident[key] = blocks.value
-        return max(1, min(self._resident[key],
-                          -(-n * self.LANES // self.THREADS)))
+        return max(1, min(self._resident[key], -(-n // self.THREADS)))
 
 
-class Round2Forward(_Persistent):
+class Round2Forward(CudaKernel):
     """round2_forward(dfm, enc int8[N, L], rid, x int32[P], min_intv
     int64[P], C) -> (n int32[P, C], k, l, s int64[P, C], ncand int32[P]),
-    as round2_forward_ref: 8 lanes per pivot, pivots taken from a ticket
-    counter by a persistent grid.  128-thread blocks, chosen on an NVIDIA
-    H100 80GB HBM3 (700 W) over the launches of chip_smoke.py's run (g)
-    (PERF.md)."""
+    as round2_forward_ref: one thread per pivot."""
 
     NAME = "round2_forward"
-    SOURCES = ("round2_forward.cu", "r2f_group.cuh", "seed_stages.cuh",
-               "fm_occ.cuh")
+    SOURCES = ("round2_forward.cu", "seed_stages.cuh", "fm_occ.cuh")
     SIGNATURE = ("round2_forward_launch",
                  [VP, VP, I64, I32, VP, VP, VP, I32, I32, VP, VP, VP, VP, VP,
-                  I32, I32, VP, VP])
-    RESIDENT = "round2_forward_resident"
-    LANES = 8
+                  VP])
 
     def __call__(self, dfm, enc, rid, x, min_intv, C: int):
         if enc.device.type == "cpu":
@@ -704,19 +707,14 @@ class Round2Forward(_Persistent):
         N, L = enc.shape
         P = rid.shape[0]
         cn = torch.full((P, C), -1, dtype=torch.int32, device=dev)
-        # the slots, then the launch's ticket counter
-        ckc = torch.zeros(P * C + 1, dtype=torch.int64, device=dev)
-        ck = ckc[:P * C].view(P, C)
-        cl, cs = (torch.zeros((P, C), dtype=torch.int64, device=dev)
-                  for _ in range(2))
+        ck, cl, cs = (torch.zeros((P, C), dtype=torch.int64, device=dev)
+                      for _ in range(3))
         ncand = torch.empty(P, dtype=torch.int32, device=dev)
         if P:
-            blocks = self.plan(P, dev, dfm.shards is not None)
             self._launch(dev, fm_table(dfm), enc.data_ptr(), N * L, L,
                          rid.data_ptr(), x.data_ptr(), min_intv.data_ptr(),
                          P, C, cn.data_ptr(), ck.data_ptr(), cl.data_ptr(),
-                         cs.data_ptr(), ncand.data_ptr(), blocks,
-                         self.THREADS, ckc.data_ptr() + 8 * P * C)
+                         cs.data_ptr(), ncand.data_ptr())
         return cn, ck, cl, cs, ncand
 
 

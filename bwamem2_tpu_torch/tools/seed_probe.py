@@ -26,8 +26,14 @@ its round1_chain, round2_forward, round2_backward (both entries) and
 round3_replay launches, and times each again (the mean of --reps after a
 warm-up), per launch and summed per kernel, with a digest of the captured
 inputs (two checkouts that compute the same outputs time the same
-launches), and each round-2 kernel's longest walk launched alone (its
-steps, milliseconds and microseconds a step: the latency of one step).
+launches), each round-2 kernel's longest walk launched alone (its steps,
+milliseconds and microseconds a step: the latency of one step), and for
+round1_chain and round3_replay every launch held against the checkout's
+plain version and, where that plain version names the read with the
+longest chain (`longest_read`), that read launched alone (its dependent
+loads, milliseconds and microseconds a load), with the registers, stack
+frame and spill ptxas gave each stage kernel's instantiations where this
+process built them.
 Run (a)'s chunk, parent, change, change, parent in one call:
 
     python bwamem2_tpu_torch/tools/seed_probe.py --root DIR \
@@ -132,11 +138,31 @@ def main() -> None:
         flush=True)
 
 
+def ptxas(kernel) -> dict:
+    """{"FmView" / "FmShardView": [registers, stack bytes, spill bytes]} of
+    a stage kernel's instantiations from its build log (empty where the
+    library was built before this process)."""
+    import re
+    out, view = {}, None
+    for ln in kernel.build_log.splitlines():
+        m = re.search(r"Function properties for (\w+)|(\d+) bytes stack "
+                      r"frame, (\d+) bytes spill stores|Used (\d+) "
+                      r"registers", ln)
+        if m and m[1]:
+            view = "FmShardView" if "ILi1E" in m[1] else "FmView"
+            out.setdefault(view, [0, 0, 0])
+        elif m and m[2] and view:
+            out[view][1:] = [int(m[2]), int(m[3])]
+        elif m and m[4] and view:
+            out[view][0] = int(m[4])
+    return out
+
+
 def stage_launches(fm, opt, reads, timed, dev) -> dict:
     """The per-stage seeding launches of the chunk `reads` through a
     TorchBackend over the index in 2 shards on device `dev`, captured at the
     wrappers and each timed again: {"stages": {kernel: {launches, ms,
-    per_launch}}, "stages_digest": sha1 of the captured inputs}."""
+    per_launch, ...}}, "stages_digest": sha1 of the captured inputs}."""
     import hashlib
     import torch
     from bwamem2_tpu_torch.align.seeding import encode_reads
@@ -180,13 +206,30 @@ def stage_launches(fm, opt, reads, timed, dev) -> dict:
                    key=lambda c: c[:3])
     h = hashlib.sha1("".join(c[2] for c in calls).encode())
     out: dict = {}
+    plain = {"round1_chain": smem.round1_chain_ref,
+             "round3_replay": smem.round3_replay_ref}
     for n, m, _, args in calls:
         ms = timed(lambda: getattr(kern[n], m)(*args))
         r = out.setdefault(n, dict(launches=0, ms=0.0, per_launch=[]))
         r["launches"] += 1
         r["ms"] += ms
         r["per_launch"].append(ms)
+        if n in plain:
+            st: dict = {}
+            got, want = kern[n](*args), plain[n](*args, st)
+            r["exact"] = r.get("exact", True) and all(
+                torch.equal(g.long(), w.long()) for g, w in zip(got, want))
+            i = st.get("longest_read")
+            if i is not None and st["longest"] > r.get("one_chain_loads", 0):
+                # the launch's longest chain alone: one read of it
+                one = (args[0], args[1][i:i + 1], args[2][i:i + 1]) \
+                    + args[3:]
+                r["one_chain_loads"] = st["longest"]
+                r["one_chain_ms"] = timed(lambda: kern[n](*one))
+                r["us_per_load"] = 1e3 * r["one_chain_ms"] / st["longest"]
+            r["ptxas"] = ptxas(kern[n])
         if n.startswith("round2"):
+            r["ptxas"] = ptxas(kern[n])
             steps, one = longest_walk(n, m, args, getattr(kern[n], m))
             if steps > r.get("one_walk_steps", 0):
                 r["one_walk_steps"] = steps

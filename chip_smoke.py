@@ -139,11 +139,13 @@ Phases, each of which fails the run (non-zero exit, no result line):
         round3_replay against their plain versions on the card on the
         launches of run (g)'s first chunk, exact, timed with CUDA events
         beside the bound from the steps and distinct occ rows the plain
-        versions count, a line per launch with its longest walk in steps;
-        round2_forward and round2_backward also over the replicated index
-        (exact, timed); sa_resolve over the two shards against the
-        replicated index on that chunk's positions, round1_walk over two
-        shards against the replicated one on run (a)'s first chunk, and
+        versions count, a line per launch with its longest walk in steps
+        (round 2) or its longest chain in dependent loads (round1_chain,
+        round3_replay: the plain version's per-read count); each also over
+        the replicated index (exact, timed); sa_resolve over the two
+        shards against the replicated index on that chunk's positions,
+        round1_walk over two shards against the replicated one on run
+        (a)'s first chunk, and
         the seed-extend step over a 2-shard index against phase f's
         replicated step, each exact and the first two timed; with several
         cards, sa_resolve over one shard per card (peer loads);
@@ -152,12 +154,12 @@ Phases, each of which fails the run (non-zero exit, no result line):
         the LF steps, distinct occ rows and table entries its plain
         version counts, with each instantiation's ptxas numbers and
         round1_walk's 5f time beside them; run (h)'s first-chunk
-        round2_forward and round2_backward launches as in g (over the
-        replicated index it ran on and over 2 shards); kswv_phase against
-        kswv_phase_ref on a u8 and an i16 batch with mixed target
-        directions, live flags and stop scores; bsw_shear_tiles against
-        bsw_shear_desc_ref on 64 long-read tiles of 1-3 kb, a quarter of
-        them past 16 bits (both bodies launch);
+        round2_forward, round2_backward and round3_replay launches as in
+        g (over the replicated index it ran on and over 2 shards);
+        kswv_phase against kswv_phase_ref on a u8 and an i16 batch with
+        mixed target directions, live flags and stop scores;
+        bsw_shear_tiles against bsw_shear_desc_ref on 64 long-read tiles of
+        1-3 kb, a quarter of them past 16 bits (both bodies launch);
   6. the gather probe (bwamem2_tpu_torch/tools/gather_scale_probe.py) on
      cuda, its path's launch counter set to 0 before and read after; then
      row_gather against tab[idx] and torch.index_select at the probe's
@@ -1741,11 +1743,12 @@ def stage_calls_vs_plain(torch, card: str, name: str, captured: dict,
     {"kernel.method": [(wrapper args)]}; the resume entry's launches count
     toward round2_backward) against its plain version on the card, exact,
     timed with CUDA events (mean of 3 after a warm-up) beside its bound
-    and the steps of its longest walk; round2_forward's and
-    round2_backward's launches also over the index view `other` (the
-    other view of the same index: replicated for a sharded launch and
-    back), exact and timed.  Prints a line per launch and the sum; returns
-    the sums, with the launches under "per_launch"."""
+    and the steps of its longest walk (round 2) or the dependent loads of
+    its longest chain (round1_chain, round3_replay: one load a step), and
+    again over the index view `other` (the other view of the same index:
+    replicated for a sharded launch and back), exact and timed.  Prints a
+    line per launch and the sum; returns the sums, with the launches under
+    "per_launch"."""
     from bwamem2_tpu_torch.ops import smem
     K = kernels()
     k = K[name]
@@ -1754,16 +1757,17 @@ def stage_calls_vs_plain(torch, card: str, name: str, captured: dict,
              "round2_backward.launch": smem.round2_backward_ref,
              "round2_backward.resume": smem.round2_backward_resume_ref,
              "round3_replay.launch": smem.round3_replay_ref}
-    both = name.startswith("round2")      # also over the other view
+    chain = name in ("round1_chain", "round3_replay")
     calls = [(key, args) for key in pairs if key.startswith(name + ".")
              for args in captured.get(key, ())]
     if not calls:
         fail(f"{name}: no launch of {where} was captured")
     ev = [torch.cuda.Event(enable_timing=True) for _ in range(2)]
     r = dict(launches=len(calls), ms=0.0, plain_ms=0.0, mem_ms=0.0,
-             ops_ms=0.0, steps=0, rows=0, err=0, per_launch=[])
-    if both:
-        r["other_ms"] = 0.0
+             ops_ms=0.0, steps=0, rows=0, err=0, other_ms=0.0,
+             per_launch=[])
+    if chain:
+        r["chain_loads"] = 0
     for key, args in calls:
         entry = getattr(k, key.split(".")[1])
         ms = cuda_ms(torch, lambda: entry(*args), 3)
@@ -1773,8 +1777,7 @@ def stage_calls_vs_plain(torch, card: str, name: str, captured: dict,
         ev[1].record()
         torch.cuda.synchronize()
         p_ms = ev[0].elapsed_time(ev[1])
-        views = (args[0], other) if both else (args[0],)
-        for view in views:
+        for view in (args[0], other):
             got = entry(view, *args[1:])
             r["err"] = max([r["err"]] + [int((g.long() - w.long()).abs()
                                              .max()) if g.numel() else 0
@@ -1790,18 +1793,19 @@ def stage_calls_vs_plain(torch, card: str, name: str, captured: dict,
                    ms=ms, plain_ms=p_ms, bound_ms=max(mem_ms, ops_ms),
                    steps=stats["steps"], rows=stats["rows"],
                    longest=stats.get("longest"))
-        if both:
-            one["other_ms"] = cuda_ms(torch,
-                                      lambda: entry(other, *args[1:]), 3)
-            r["other_ms"] += one["other_ms"]
+        one["other_ms"] = cuda_ms(torch, lambda: entry(other, *args[1:]), 3)
+        r["other_ms"] += one["other_ms"]
         for f_ in ("ms", "plain_ms", "steps", "rows"):
             r[f_] += one[f_]
         r["mem_ms"] += mem_ms
         r["ops_ms"] += ops_ms
         r["per_launch"].append(one)
-        extra = (f"; other view {one['other_ms']:.4f} ms" if both else "")
+        extra = f"; other view {one['other_ms']:.4f} ms"
         walk = (f", longest walk {one['longest']} steps" if one["longest"]
                 else "")
+        if chain:
+            r["chain_loads"] = max(r["chain_loads"], one["longest"])
+            walk = f", longest chain {one['longest']} dependent loads"
         log(f"    {name}.{one['entry']} ({one['lanes']} lanes, "
             f"{view_name(args[0])}): {ms:.4f} ms{walk}, {one['steps']} "
             f"steps, bound {one['bound_ms']:.5f} ms, plain {p_ms:.1f} ms"
@@ -1810,8 +1814,8 @@ def stage_calls_vs_plain(torch, card: str, name: str, captured: dict,
     r["bound_by"] = "operations" if r["ops_ms"] >= r["mem_ms"] else "bytes"
     log(f"  {name}: {r['launches']} launches of {where} ({r['steps']} "
         f"steps, {r['rows']} distinct occ rows): kernel {r['ms']:.4f} ms"
-        + (f" (other view {r['other_ms']:.4f} ms)"
-           if both else "")
+        f" (other view {r['other_ms']:.4f} ms)"
+        + (f", longest chain {r['chain_loads']} loads" if chain else "")
         + f", plain {r['plain_ms']:.1f} ms, bound {r['bound_ms']:.5f} ms by "
         f"{r['bound_by']} (bytes {r['mem_ms']:.5f}, operations "
         f"{r['ops_ms']:.5f}), identical [{card}]")
@@ -1822,9 +1826,10 @@ def stage_vs_plain(torch, card: str, captured: dict, prefix: str, fq1: str,
                    fq2: str, step_out) -> dict:
     """[5g] each per-stage kernel against its plain version (on the card)
     on the launches of the sharded run's first chunk, exact, timed with
-    CUDA events beside its bound (stage_calls_vs_plain: round 2's also
-    over the replicated index); sa_resolve over the shards against the
-    replicated index on that chunk's positions, round1_walk over the
+    CUDA events beside its bound (stage_calls_vs_plain: each also over the
+    replicated index, round 1's and round 3's with their longest chains'
+    dependent loads); sa_resolve over the shards against the replicated
+    index on that chunk's positions, round1_walk over the
     shards against the replicated one on run (a)'s first chunk, the
     seed-extend step over a 2-shard index against the replicated step
     (phase 5f's outputs), and, with several cards, a peer read."""
@@ -2062,9 +2067,9 @@ def legacy_mem(torch, card: str, prefix: str, fq1: str, fq2: str,
     stay within MAX_OVERFLOW.  Then the port's kernel_micro entry on this
     genome (one timed call a line), counters set to 0 just before and read
     just after: kswv_phase and bsw_shear (bsw_shear_tiles) must launch.
-    The round1_compact, round2_forward and round2_backward launches of the
-    first chunk are returned under "_launches" ({"kernel.method": [(wrapper
-    args)]}) for phase 5h."""
+    The round1_compact, round2_forward, round2_backward and round3_replay
+    launches of the first chunk are returned under "_launches"
+    ({"kernel.method": [(wrapper args)]}) for phase 5h."""
     import io
     from contextlib import redirect_stdout
     from bwamem2_tpu_torch.align.pipeline import Aligner
@@ -2088,7 +2093,8 @@ def legacy_mem(torch, card: str, prefix: str, fq1: str, fq2: str,
     K = kernels()
     first = FirstChunk([(n, "launch") for n in ("round1_compact",
                                                 "round2_forward",
-                                                "round2_backward")]
+                                                "round2_backward",
+                                                "round3_replay")]
                        + [("round2_backward", "resume")])
     for d in (PROF.t, PROF.n, PROF.c, PROF.ctot):
         d.clear()
@@ -2186,13 +2192,13 @@ def legacy_vs_plain(torch, card: str, calls: dict, fm, opt,
     exact, timed with CUDA events beside the bound from the LF steps,
     distinct occ rows and table entries the plain version counts, with
     the ptxas numbers of each instantiation, and round1_walk's 5f time
-    and registers beside them; the run's first-chunk round2_forward and
-    round2_backward launches as phase 5g's (stage_calls_vs_plain, also
-    over a 2-shard view of the index); kswv_phase against kswv_phase_ref
-    on a u8
-    and an i16 batch with mixed target directions, live flags and stop
-    scores; bsw_shear_tiles against bsw_shear_desc_ref on long-read tiles
-    whose h0 puts some pairs past 16 bits (both bodies)."""
+    and registers beside them; the run's first-chunk round2_forward,
+    round2_backward and round3_replay launches as phase 5g's
+    (stage_calls_vs_plain, also over a 2-shard view of the index);
+    kswv_phase against kswv_phase_ref on a u8 and an i16 batch with mixed
+    target directions, live flags and stop scores; bsw_shear_tiles
+    against bsw_shear_desc_ref on long-read tiles whose h0 puts some
+    pairs past 16 bits (both bodies)."""
     import numpy as np
     from bwamem2_tpu_torch.ops.bsw import (_tile_descriptors,
                                            bsw_shear_desc_ref,
@@ -2262,10 +2268,11 @@ def legacy_vs_plain(torch, card: str, calls: dict, fm, opt,
         f"{r1walk['ms']:.4f} ms, bound {r1walk['bound_ms']:.5f} ms; its "
         f"ptxas line is phase 2's [{card}]")
 
-    # ---- the run's round2_forward and round2_backward launches
+    # ---- the run's round2_forward, round2_backward and round3_replay
+    # launches
     from bwamem2_tpu_torch.parallel.shard_index import shard_index
     two = shard_index(dfm, [dev, dev])[0]
-    for name in ("round2_forward", "round2_backward"):
+    for name in ("round2_forward", "round2_backward", "round3_replay"):
         out[name] = stage_calls_vs_plain(torch, card, name, calls, two,
                                          "the legacy run's first chunk")
 
@@ -2869,11 +2876,12 @@ def main() -> None:
         shape = (f"sum over the {r['launches']} launches of the sharded "
                  f"run's first chunk (run (a)'s reads, 2 shards), "
                  f"{r['steps']} steps")
+        shape += f"; replicated {r['other_ms']:.4f} ms"
+        if "chain_loads" in r:
+            shape += f"; longest chain {r['chain_loads']} dependent loads"
         if n in lh:
-            shape += (f"; replicated "
-                      f"{r['other_ms']:.4f} ms; the legacy run's "
-                      f"{lh[n]['launches']} first-chunk launches "
-                      f"{lh[n]['ms']:.4f} ms")
+            shape += (f"; the legacy run's {lh[n]['launches']} first-chunk "
+                      f"launches {lh[n]['ms']:.4f} ms")
         kern.append(dict(
             name=n, route="cuda", source=f"bwamem2_tpu_torch/csrc/{n}.cu",
             replaces=replaces[n], launches=launches[n],

@@ -6,11 +6,15 @@ value for value (tolerance 0 throughout).
   resume_ref, round3_replay_ref) against the JAX kernel of the same name
   (jitted XLA, no Pallas) on the fixture index, replicated and through 2
   and 3 shards (the last shard padded);
-* the kernels' lane bodies (csrc/seed_stages.cuh, with fm_occ.cuh's
-  FmView and FmShardView, and sa_group.cuh over FmShardView) compiled as
-  host C++ against the plain versions, with the steps they count; round
-  2's kernel bodies (r2f_group.cuh, r2b_group.cuh) likewise, under
-  permuted ticket orders;
+* the kernels' bodies (csrc/seed_stages.cuh with fm_occ.cuh's FmView and
+  FmShardView, and sa_group.cuh over FmShardView) compiled as host C++
+  against the plain versions: round 1's and round 3's with their step
+  counts in all and per read, on the fixture's reads and on a genome
+  built to reach every exit (an element in 30 copies, the text's end, the
+  strands' boundary, absent 6-mers, Ns); round 2's forward body with its
+  steps, and its backward body (r2b_group.cuh) under permuted ticket
+  orders;
+* the K-mer table (index/klut.py) against K forward extensions;
 * dist_rows_ref through occ_all4, bwt_char_occ and occ_one, and the
   sharded SA walk, against JAX's sharded kernels on the virtual 8-device
   CPU mesh (tests/test_shard_index.py:48-82);
@@ -49,13 +53,16 @@ from bwamem2_tpu.parallel.shard_index import (
     index_specs, shard_index as jax_shard_index, sharded_kernel,
     sharded_seed_extend_sharded_index as jax_sharded_step)
 from bwamem2_tpu_torch import cli, ops
+from bwamem2_tpu_torch.index.build import build_index
 from bwamem2_tpu_torch.index.fmindex import FMIndex
+from bwamem2_tpu_torch.index.klut import build_klut
 from bwamem2_tpu_torch.io.fastq import FastxReader, read_chunk
 from bwamem2_tpu_torch.native import hostrt
 from bwamem2_tpu_torch.ops import smem
 from bwamem2_tpu_torch.ops.backend import TorchBackend, pivot_cap
 from bwamem2_tpu_torch.ops.cuda_build import CSRC
 from bwamem2_tpu_torch.ops.device_index import (DeviceFMIndex,
+                                                backward_ext_full,
                                                 bwt_char_occ,
                                                 dist_rows_ref, occ_all4,
                                                 occ_one)
@@ -212,44 +219,76 @@ def test_round2_backward_and_resume_match_jax(jdfm, views, grid, pivots, D):
 
 
 # ---------------------------------- the lane bodies as host C++
-SHIM = r'''
+SHIM = r"""
 #include "seed_stages.cuh"
 #include "sa_group.cuh"
 template <class V>
 static long long r1(const V &f, const int8_t *enc, const int *lens, int N,
-                    int L, int cap, int *npiv, int *px) {
-  int64_t steps = 0;
-  for (int r = 0; r < N; ++r)
+                    int L, int cap, int *npiv, int *px, int64_t *per) {
+  long long total = 0;
+  for (int r = 0; r < N; ++r) {
+    int64_t steps = 0;
     npiv[r] = stage_round1_chain(f, enc + (int64_t)r * L, lens[r], cap,
                                  px + (int64_t)r * cap, &steps);
-  return steps;
+    per[r] = steps;
+    total += steps;
+  }
+  return total;
 }
 template <class V>
 static long long r3(const V &f, const int8_t *enc, const int *lens, int N,
                     int L, int64_t mx, int ml, int cap, int *nout, int *ox,
-                    int *on, int64_t *os, int64_t *ok) {
-  int64_t steps = 0;
+                    int *on, int64_t *os, int64_t *ok, int64_t *per) {
+  long long total = 0;
   for (int r = 0; r < N; ++r) {
     const int64_t o = (int64_t)r * cap;
+    int64_t steps = 0;
     nout[r] = stage_round3(f, enc + (int64_t)r * L, lens[r], mx, ml, cap,
                            ox + o, on + o, os + o, ok + o, &steps);
+    per[r] = steps;
+    total += steps;
+  }
+  return total;
+}
+template <class V>
+static long long r2f(const V &f, const int8_t *enc, int N, int L,
+                     const int *rid, const int *x, const int64_t *mi, int P,
+                     int C, int *cn, int64_t *ck, int64_t *cl, int64_t *cs,
+                     int *nc) {
+  int64_t steps = 0;
+  for (int p = 0; p < P; ++p) {
+    const int64_t o = (int64_t)p * C;
+    nc[p] = stage_round2_forward(f, enc, (int64_t)N * L, L, rid[p], x[p],
+                                 mi[p], C, cn + o, ck + o, cl + o, cs + o,
+                                 &steps);
   }
   return steps;
 }
 extern "C" long long h_r1(const int64_t *t, const int8_t *enc,
                           const int *lens, int N, int L, int cap, int *npiv,
-                          int *px) {
-  return t[0] == 1 ? r1(fm_view_of(t), enc, lens, N, L, cap, npiv, px)
-                   : r1(fm_shard_view_of(t), enc, lens, N, L, cap, npiv, px);
+                          int *px, int64_t *per) {
+  return t[0] == 1
+      ? r1(fm_view_of(t), enc, lens, N, L, cap, npiv, px, per)
+      : r1(fm_shard_view_of(t), enc, lens, N, L, cap, npiv, px, per);
 }
 extern "C" long long h_r3(const int64_t *t, const int8_t *enc,
                           const int *lens, int N, int L, int64_t mx, int ml,
                           int cap, int *nout, int *ox, int *on, int64_t *os,
-                          int64_t *ok) {
+                          int64_t *ok, int64_t *per) {
   return t[0] == 1
-      ? r3(fm_view_of(t), enc, lens, N, L, mx, ml, cap, nout, ox, on, os, ok)
+      ? r3(fm_view_of(t), enc, lens, N, L, mx, ml, cap, nout, ox, on, os, ok,
+           per)
       : r3(fm_shard_view_of(t), enc, lens, N, L, mx, ml, cap, nout, ox, on,
-           os, ok);
+           os, ok, per);
+}
+extern "C" long long h_r2f(const int64_t *t, const int8_t *enc, int N, int L,
+                           const int *rid, const int *x, const int64_t *mi,
+                           int P, int C, int *cn, int64_t *ck, int64_t *cl,
+                           int64_t *cs, int *nc) {
+  return t[0] == 1
+      ? r2f(fm_view_of(t), enc, N, L, rid, x, mi, P, C, cn, ck, cl, cs, nc)
+      : r2f(fm_shard_view_of(t), enc, N, L, rid, x, mi, P, C, cn, ck, cl, cs,
+            nc);
 }
 extern "C" void h_sa(const int64_t *t, const int64_t *pos, int64_t n,
                      int64_t *out) {
@@ -258,7 +297,7 @@ extern "C" void h_sa(const int64_t *t, const int64_t *pos, int64_t n,
   SaWarp g;
   sa_group_run<1>(g, b);
 }
-'''
+"""
 
 
 @pytest.fixture(scope="module")
@@ -270,7 +309,7 @@ def host_stages(tmp_path_factory):
     subprocess.run(["g++", "-O2", "-std=c++17", "-shared", "-fPIC", "-I",
                     CSRC, src, "-o", so], check=True, capture_output=True)
     lib = ctypes.CDLL(so)
-    for name in ("h_r1", "h_r3"):
+    for name in ("h_r1", "h_r3", "h_r2f"):
         getattr(lib, name).restype = ctypes.c_longlong
     return lib
 
@@ -291,75 +330,225 @@ def _call(fn, *args):
     return fn(*conv)
 
 
+def _chains_match_plain(lib, v, enc, lens, min_len=MSL1):
+    """round1_chain's and round3_replay's bodies (host build, one read
+    after another, as the kernels' threads) on the index view v ==
+    round1_chain_ref and round3_replay_ref (max_intv 20), with the plain
+    versions' backward_ext counts, in all and per read (`longest`,
+    `longest_read`).  Returns {"r1" / "r3": (plain outputs, stats)}."""
+    N, L = enc.shape
+    cap, cap3 = pivot_cap(L), L // min_len + 1
+    tab = fm_table(v)
+    out = {}
+    for kind, ref, params, got in (
+            ("r1", smem.round1_chain_ref, (cap,),
+             (torch.zeros(N, dtype=torch.int32),
+              torch.full((N, cap), -1, dtype=torch.int32))),
+            ("r3", smem.round3_replay_ref, (np.int64(20), min_len, cap3),
+             (torch.zeros(N, dtype=torch.int32),
+              *(torch.full((N, cap3), -1, dtype=torch.int32)
+                for _ in range(2)),
+              *(torch.zeros((N, cap3), dtype=torch.int64)
+                for _ in range(2))))):
+        st: dict = {}
+        want = ref(v, enc, lens, *(int(p) for p in params), st)
+        per = torch.zeros(N, dtype=torch.int64)
+        steps = _call(getattr(lib, "h_" + kind), tab, enc, lens, N, L,
+                      *params, *got, per)
+        same(got, want)
+        assert steps == st["steps"] == int(per.sum()) > 0
+        assert int(per.max()) == st["longest"]
+        assert int(per[st["longest_read"]]) == st["longest"]
+        out[kind] = (want, st)
+    return out
+
+
 @pytest.mark.parametrize("D", SHARDS)
 def test_lane_bodies_host_build_match_plain(host_stages, views, grid,
                                             pivots, D):
     """csrc/seed_stages.cuh (host build: round1_chain's and round3_replay's
     bodies) == the plain versions, over the replicated index (FmView) and
-    over 2 and 3 shards (FmShardView), with the same step counts;
-    sa_group.cuh over FmShardView == sa_resolve_ref."""
+    over 2 and 3 shards (FmShardView), with the same step counts in all
+    and per read; sa_group.cuh over FmShardView == sa_resolve_ref."""
     _, (enc, lens) = grid
     v = views[D]
-    tab = fm_table(v)
-    N, L = enc.shape
-    cap, cap3 = pivot_cap(L), L // MSL1 + 1
-    e, ln = t(enc), t(lens)
-    st: dict = {}
-    want = smem.round1_chain_ref(v, e, ln, cap, st)
-    got = (torch.zeros(N, dtype=torch.int32),
-           torch.full((N, cap), -1, dtype=torch.int32))
-    steps = _call(host_stages.h_r1, tab, e, ln, N, L, cap, *got)
-    same(got, want)
-    assert steps == st["steps"] > 0
-    want = smem.round3_replay_ref(v, e, ln, 20, MSL1, cap3, st)
-    got = (torch.zeros(N, dtype=torch.int32),
-           *(torch.full((N, cap3), -1, dtype=torch.int32) for _ in range(2)),
-           *(torch.zeros((N, cap3), dtype=torch.int64) for _ in range(2)))
-    steps = _call(host_stages.h_r3, tab, e, ln, N, L, np.int64(20), MSL1,
-                  cap3, *got)
-    same(got, want)
-    assert steps == st["steps"] > 0
+    _chains_match_plain(host_stages, v, t(enc), t(lens))
     if D > 1:
         rng = np.random.default_rng(D)
         pos = t(rng.integers(0, int(v.counts[4]), 3000).astype(np.int64))
         out = torch.zeros(3000, dtype=torch.int64)
-        _call(host_stages.h_sa, tab, pos, np.int64(3000), out)
+        _call(host_stages.h_sa, fm_table(v), pos, np.int64(3000), out)
         same([out], [sa_resolve_ref(views[1], pos)])
 
 
-# ------------- round 2's redesigned bodies (lane groups, refilled lanes)
+@pytest.mark.parametrize("D", SHARDS)
+def test_round2_forward_host_build_match_plain(host_stages, views, grid,
+                                               pivots, D):
+    """csrc/seed_stages.cuh:stage_round2_forward (host build, one pivot
+    after another, as round2_forward.cu's threads) == round2_forward_ref
+    and JAX's round2_forward_kernel over the replicated index and 2 and 3
+    shards, at C 24 and 4 (pivots over the cap), with the plain version's
+    backward_ext count.  The pivots hold pad pivots (rid -1), pivots at x
+    0, min_intv 3 and walks that reach an N."""
+    _, (enc, _) = grid
+    ridp, xp, mi, fwd, _, _ = pivots
+    N, L = enc.shape
+    live = ridp >= 0
+    assert (~live).any() and (xp[live] == 0).any() and (mi > 1).any()
+    assert (enc == 4).any()
+    v = views[D]
+    tab = fm_table(v)
+    P = len(ridp)
+    e = t(enc)
+    for C_ in (C, 4):
+        st: dict = {}
+        want = smem.round2_forward_ref(v, e, t(ridp), t(xp), t(mi), C_, st)
+        if C_ == C:
+            same(want, fwd)
+        else:
+            assert int((want[4] > C_).sum()) > 20
+        got = (torch.full((P, C_), -1, dtype=torch.int32),
+               *(torch.zeros((P, C_), dtype=torch.int64) for _ in range(3)),
+               torch.zeros(P, dtype=torch.int32))
+        steps = _call(host_stages.h_r2f, tab, e, N, L, t(ridp), t(xp), t(mi),
+                      P, C_, *got)
+        same(got, want)
+        assert steps == st["steps"] > 0
+
+
+def test_kmer_table_matches_stepped_extension():
+    """index/klut.py's table at K = 6 on ref_tiny.fa: for every K-mer, the
+    bi-interval read from it (k = start[code], l = start of the reverse
+    complement's code, s = size[code]) == K forward extensions from
+    scratch (backward_ext_full on the RC twin, k and l swapped, as
+    round1_chain_ref steps); s alone where it is 0."""
+    fm = FMIndex.load(os.path.join(FIXTURES, "ref_tiny.fa"))
+    K, start, size = build_klut(fm, 6)
+    dfm = DeviceFMIndex.from_host(fm, "cpu", (K, start, size))
+    code = torch.arange(4 ** K)
+    base = [(code >> (2 * (K - 1 - i))) & 3 for i in range(K)]
+    rc = sum((3 - base[i]) << (2 * i) for i in range(K))
+    k, l, s = smem._start(dfm.counts, base[0])
+    for c in base[1:]:
+        l, k, s = backward_ext_full(dfm, l, k, s, 3 - c)
+    assert torch.equal(s, dfm.lut_size)
+    occ = s > 0
+    assert 0 < int(occ.sum()) < 4 ** K
+    assert torch.equal(k[occ], dfm.lut_start[occ])
+    assert torch.equal(l[occ], dfm.lut_start[rc][occ])
+
+
+def _exit_genome(tmp_path_factory):
+    """A genome over A, C, G (so a 6-mer with both A and T occurs on
+    neither strand): 30 copies of a 250 bp element between random spacers,
+    then 3,000 random bases; its index on the CPU, and reads that reach
+    each exit of the chain bodies (a name each): the element (its interval
+    stays at 30 rows, above round 3's max_intv, to the read's end: the
+    longest chain), the doubled text's last 40 codes then A's (the text's
+    end), 120 codes across the forward / reverse-complement boundary, an
+    absent 6-mer at a read's start and inside one (segments that die on
+    an empty interval, then followed by an N or the read's end before
+    round 3's least length), Ns inside a segment, an N in round 3's second
+    segment, and unique reads."""
+    rng = np.random.default_rng(11)
+    elem = rng.integers(0, 3, 250)
+    parts = []
+    for _ in range(30):
+        parts += [rng.integers(0, 3, int(rng.integers(60, 140))), elem]
+    g = np.concatenate(parts + [rng.integers(0, 3, 3000)])
+    d = tmp_path_factory.mktemp("exits")
+    fa = str(d / "exits.fa")
+    with open(fa, "w") as f:
+        f.write(">exits\n")
+        s = "".join("ACGT"[c] for c in g)
+        f.write("".join(s[i:i + 80] + "\n" for i in range(0, len(s), 80)))
+    build_index(fa, fa, verbose=False)
+    fm = FMIndex.load(fa)
+    text = fm.ref_string.astype(np.int8)
+    n, lp = len(text), fm.l_pac
+    absent = np.array([0, 0, 3, 3, 0, 0], np.int8)     # AATTAA
+    u = len(g) - 3000                                  # the unique tail
+    cat = lambda *a: np.concatenate([np.asarray(x, np.int8) for x in a])  # noqa
+    with_n = text[u + 100:u + 250].copy()
+    with_n[[2, 70]] = 4
+    r3_n = text[u + 400:u + 550].copy()
+    r3_n[30] = 4
+    reads = {"element": elem[20:170], "text_end": cat(text[n - 40:],
+                                                       np.zeros(30)),
+             "boundary": text[lp - 60:lp + 60],
+             "absent_start": cat(absent, text[u + 600:u + 700]),
+             "absent_inside": cat(text[u + 800:u + 850], absent,
+                                  text[u + 900:u + 950]),
+             "n_in_kmer": with_n, "r3_n": r3_n,
+             "unique": text[u + 1200:u + 1350],
+             "repeat_then_unique": cat(elem[150:250],
+                                       text[u + 1500:u + 1550]),
+             "absent_then_n": cat(absent, [1, 2, 1], [4],
+                                  text[u + 2000:u + 2100]),
+             "absent_at_end": cat(text[u + 2200:u + 2290], absent,
+                                  [2, 1])}
+    return fa, fm, reads
+
+
+@pytest.fixture(scope="module")
+def exit_index(tmp_path_factory):
+    fa, fm, reads = _exit_genome(tmp_path_factory)
+    dfm = DeviceFMIndex.from_host(fm, "cpu")
+    names = list(reads)
+    enc, lens = _pad_reads([reads[k].astype(np.uint8) for k in names])
+    return fa, dfm, names, enc, lens
+
+
+def test_chain_exits_plain_match_jax(exit_index):
+    """round1_chain_ref and round3_replay_ref == JAX's round1_chain_kernel
+    and round3_replay_kernel on the exit genome's reads."""
+    fa, dfm, _, enc, lens = exit_index
+    jd = JaxDFM.from_host(JaxFMIndex.load(fa))
+    L = enc.shape[1]
+    cap, cap3 = pivot_cap(L), L // MSL1 + 1
+    same(smem.round1_chain_ref(dfm, t(enc), t(lens), cap),
+         jsmem.round1_chain_kernel(jd, jnp.asarray(enc), jnp.asarray(lens),
+                                   cap))
+    same(smem.round3_replay_ref(dfm, t(enc), t(lens), 20, MSL1, cap3),
+         jsmem.round3_replay_kernel(jd, jnp.asarray(enc), jnp.asarray(lens),
+                                    jnp.int64(20), jnp.int32(MSL1), cap3))
+
+
+@pytest.mark.parametrize("D", SHARDS)
+def test_chain_exits_host_build_match_plain(host_stages, exit_index, D):
+    """The round-1 and round-3 bodies (host build) == the plain versions
+    on the exit genome's reads, replicated and over 2 and 3 shards, at
+    round 3's min_len 20 and 50, with the step counts in all and per read;
+    and each exit was taken: segments die on the absent 6-mer's empty
+    interval and restart after an N, round 3 stops at an N, and the
+    element's read takes the longest round-3 chain (one segment to the
+    read's end)."""
+    _, dfm, names, enc, lens = exit_index
+    v = dfm if D == 1 else shard_index(dfm, ["cpu"] * D)[0]
+    e, ln = t(enc), t(lens)
+    at = {k: i for i, k in enumerate(names)}
+    out = _chains_match_plain(host_stages, v, e, ln)
+    (npiv, px), _ = out["r1"]
+    assert px[at["absent_start"]][:3].tolist() == [0, 2, 4]
+    assert 3 in px[at["n_in_kmer"]].tolist()
+    (nout, ox, on, _, _), st3 = out["r3"]
+    assert st3["longest_read"] == at["element"]
+    assert int(nout[at["element"]]) == 0
+    r = at["r3_n"]
+    assert 31 in ox[r][:int(nout[r])].tolist()
+    _chains_match_plain(host_stages, v, e, ln, min_len=50)
+
+
+# ------------- round 2's backward body (refilled lanes)
 GROUP_SHIM = r"""
 static long long g_steps = 0;
-#define R2F_STEP_HOOK() (++g_steps)
 #define R2B_STEP_HOOK() (++g_steps)
-#include "r2f_group.cuh"
 #include "r2b_group.cuh"
-template <class V>
-static void r2f(const R2fBatch<V> &b, const int64_t *perm) {
-  R2fGroup g;
-  g.perm = perm;
-  r2f_group_run(g, b);
-}
 template <class V>
 static void r2b(const R2bBatch<V> &b, const int64_t *perm) {
   SaWarp g;
   g.perm = perm;
   r2b_group_run(g, b);
-}
-extern "C" long long h_r2f(const int64_t *t, const int8_t *enc, int N,
-                           int L, const int *rid, const int *x,
-                           const int64_t *mi, int P, int C,
-                           const int64_t *perm, int *cn, int64_t *ck,
-                           int64_t *cl, int64_t *cs, int *nc) {
-  g_steps = 0;
-  const int64_t NL = (int64_t)N * L;
-  if (t[0] == 1)
-    r2f(R2fBatch<FmView>{fm_view_of(t), enc, NL, L, rid, x, mi, P, C, cn,
-                           ck, cl, cs, nc}, perm);
-  else
-    r2f(R2fBatch<FmShardView>{fm_shard_view_of(t), enc, NL, L, rid, x, mi,
-                                P, C, cn, ck, cl, cs, nc}, perm);
-  return g_steps;
 }
 extern "C" long long h_r2b(const int64_t *t, const int8_t *enc, int N,
                            int L, const int *rid, const int *x,
@@ -393,8 +582,7 @@ def host_groups(tmp_path_factory):
     subprocess.run(["g++", "-O2", "-std=c++17", "-shared", "-fPIC", "-I",
                     CSRC, src, "-o", so], check=True, capture_output=True)
     lib = ctypes.CDLL(so)
-    for name in ("h_r2f", "h_r2b"):
-        getattr(lib, name).restype = ctypes.c_longlong
+    lib.h_r2b.restype = ctypes.c_longlong
     return lib
 
 
@@ -403,45 +591,6 @@ def _perms(rng, n):
     reversed order."""
     return [t(rng.permutation(n).astype(np.int64)),
             t(np.arange(n - 1, -1, -1, dtype=np.int64))]
-
-
-@pytest.mark.parametrize("D", SHARDS)
-def test_round2_forward_groups_host_build_match_plain(host_groups, views,
-                                                      grid, pivots, D):
-    """csrc/r2f_group.cuh (host build, 8 lanes in lockstep, one group
-    taking every ticket) == round2_forward_ref and JAX's
-    round2_forward_kernel over the replicated index and 2 and 3 shards, at
-    C 24 and 4 (pivots over the cap), under two permuted ticket orders,
-    with the plain version's backward_ext count.  The pivots hold pad
-    pivots (rid -1), pivots at x 0, min_intv 3 and walks that reach an
-    N."""
-    _, (enc, _) = grid
-    ridp, xp, mi, fwd, _, _ = pivots
-    N, L = enc.shape
-    live = ridp >= 0
-    assert (~live).any() and (xp[live] == 0).any() and (mi > 1).any()
-    assert (enc == 4).any()
-    v = views[D]
-    tab = fm_table(v)
-    P = len(ridp)
-    e = t(enc)
-    perms = _perms(np.random.default_rng(20 + D), P)
-    for C_ in (C, 4):
-        st: dict = {}
-        want = smem.round2_forward_ref(v, e, t(ridp), t(xp), t(mi), C_, st)
-        if C_ == C:
-            same(want, fwd)
-        else:
-            assert int((want[4] > C_).sum()) > 20
-        for perm in perms:
-            got = (torch.full((P, C_), -1, dtype=torch.int32),
-                   *(torch.zeros((P, C_), dtype=torch.int64)
-                     for _ in range(3)),
-                   torch.zeros(P, dtype=torch.int32))
-            steps = _call(host_groups.h_r2f, tab, e, N, L, t(ridp), t(xp),
-                          t(mi), P, C_, perm, *got)
-            same(got, want)
-            assert steps == st["steps"] > 0
 
 
 @pytest.mark.parametrize("D", SHARDS)
