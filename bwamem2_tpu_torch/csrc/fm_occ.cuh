@@ -180,7 +180,11 @@ FM_HD void fm_occ4(const V &f, int64_t pos, int64_t out[4]) {
     for (int c = 0; c < 4; ++c) out[c] = fm_cp(f, r, hi, c) + n[c];
 }
 
-// # of chars equal to c among the first y chars of the row's code words
+// # of chars equal to c among the first y chars of the row's code words.
+// fm_inblock, fm_prefix_mask, fm_cp and fm_count are the older form of
+// the round-1 walk's fm_prefix_count, fm_even_prefix, fm_occ_row and
+// fm_sel4 below (the same counts in fewer instructions); the kernels that
+// still use them move over one at a time, each timed (ROADMAP.md).
 FM_HD int fm_inblock(const uint32_t r[8], int y, int c) {
     const uint32_t pat = (uint32_t)c * 0x55555555u;
     int n = 0;
@@ -236,13 +240,97 @@ FM_HD void fm_backward_ext(const V &f, int64_t k, int64_t l, int64_t s,
 // LF step of one strand: (k', s') of the interval (k, s) extended
 // backward by the base a (0..3), tracking no RC-twin bound: k' = C[a] +
 // occ(k, a), s' = occ(k + s, a) - occ(k, a).  Two row reads
-// (bwamem2_tpu/ops/device_index.py:lf_step).
+// (bwamem2_tpu/ops/device_index.py:lf_step).  The tests hold the walk's
+// steps, fm_walk_step and fm_walk_single, against it.
 template <class V>
 FM_HD void fm_lf_step(const V &f, int64_t k, int64_t s, int a,
                       int64_t *ko, int64_t *so) {
     const int64_t sp = fm_occ_one(f, k, a);
     *ko = fm_count(f, a) + sp;
     *so = fm_occ_one(f, k + s, a) - sp;
+}
+
+// The low bits of the char pairs of the first t / 2 chars of a code word
+// (t even, >= 0; 32 and up: all 16): one funnel shift on the device
+FM_HD uint32_t fm_even_prefix(int t) {
+#ifdef __CUDA_ARCH__
+    return __funnelshift_lc(0x55555555u, 0u, (unsigned)t);
+#else
+    return t >= 32 ? 0x55555555u : t == 0 ? 0u : 0x55555555u >> (32 - t);
+#endif
+}
+
+// # of chars equal to the base of pat (its code x 0x55555555) among the
+// first y chars of row r: per code word an XOR, a shift, one three-input
+// logic operation with the word's prefix, a popcount and an add
+FM_HD int fm_prefix_count(const uint32_t r[8], uint32_t pat, int y) {
+    int n = 0;
+    FM_UNROLL
+    for (int w = 0; w < 4; ++w) {
+        const uint32_t x = r[4 + w] ^ pat;
+        const int t = 2 * y - 32 * w;
+        n += fm_popc(~(x | (x >> 1)) & fm_even_prefix(t < 0 ? 0 : t));
+    }
+    return n;
+}
+
+// v[a] of four values by two selects on a's bits (a in 0..3): neither a
+// run-time index (local memory on the card) nor a branch chain
+template <class T>
+FM_HD T fm_sel4(int a, T v0, T v1, T v2, T v3) {
+    return (a & 2) ? ((a & 1) ? v3 : v2) : ((a & 1) ? v1 : v0);
+}
+
+// occ(pos, a) from pos's row r (and its hi word, read only with HI): the
+// checkpoint, the chars equal to a before pos in the row, less the
+// sentinel's slot (it stores code 0) where it lies before pos in the block
+template <bool HI, class V>
+FM_HD int64_t fm_occ_row(const V &f, const uint32_t r[8], uint32_t hi,
+                         int64_t pos, int a, uint32_t pat) {
+    const int y = (int)(pos & 63);
+    int64_t v = (int64_t)fm_sel4(a, r[0], r[1], r[2], r[3]);
+    if (HI) v += (int64_t)((hi >> (8 * a)) & 0xFFu) << 32;
+    const bool sent = a == 0 && (pos >> 6) == (f.sentinel >> 6)
+                      && (int)(f.sentinel & 63) < y;
+    return v + fm_prefix_count(r, pat, y) - (sent ? 1 : 0);
+}
+
+// The round-1 walk's LF step: fm_lf_step's (k', s') of the interval (k,
+// s) extended backward by the base a, HI: the index has the count-hi
+// plane.  Both rows are loaded before either is counted (the same row
+// twice where both ends share a block: skipping that load split warps and
+// ran slower).  The walk takes it at s > 1, and fm_walk_single at s = 1.
+template <bool HI, class V>
+FM_HD void fm_walk_step(const V &f, int64_t k, int64_t s, int a,
+                        int64_t *ko, int64_t *so) {
+    const int64_t e = k + s;
+    uint32_t r[8], q[8];
+    fm_row(f, k >> 6, r);
+    fm_row(f, e >> 6, q);
+    const uint32_t hk = HI ? fm_hi(f, k >> 6) : 0u;
+    const uint32_t he = HI ? fm_hi(f, e >> 6) : 0u;
+    const uint32_t pat = (uint32_t)a * 0x55555555u;
+    const int64_t occk = fm_occ_row<HI>(f, r, hk, k, a, pat);
+    *ko = fm_sel4(a, f.counts[0], f.counts[1], f.counts[2], f.counts[3])
+          + occk;
+    *so = fm_occ_row<HI>(f, q, he, e, a, pat) - occk;
+}
+
+// The LF step of an interval of one BWT position k (s = 1): s' = [char k
+// == a], 0 at the sentinel (whose slot stores a 0), and k' = C[a] +
+// occ(k, a), both from k's row: one row and one count.  Returns s' and
+// writes k' only where s' = 1 (the walk stops at s' = 0).
+template <bool HI, class V>
+FM_HD int fm_walk_single(const V &f, int64_t k, int a, int64_t *ko) {
+    uint32_t r[8];
+    fm_row(f, k >> 6, r);
+    const uint32_t hk = HI ? fm_hi(f, k >> 6) : 0u;
+    const int y = (int)(k & 63);
+    const uint32_t w = fm_sel4(y >> 4, r[4], r[5], r[6], r[7]);
+    if ((int)((w >> (2 * (y & 15))) & 3u) != a || k == f.sentinel) return 0;
+    *ko = fm_sel4(a, f.counts[0], f.counts[1], f.counts[2], f.counts[3])
+          + fm_occ_row<HI>(f, r, hk, k, a, (uint32_t)a * 0x55555555u);
+    return 1;
 }
 
 // The K-mer interval table of the legacy round-1 walk (index/klut.py):
@@ -267,10 +355,20 @@ struct FmLut {
 // whose K bases ending at n are all bases (n >= K - 1) and whose K-mer
 // occurs (size > 0) starts from the table's interval with b = n - K + 1
 // and walks on from column n - K; every other lane walks from scratch.
-template <bool LUT, class V>
-FM_HD int fm_round1_walk_lut(const V &f, const FmLut &lut,
-                             const int8_t *row, int len, int n, int *bo,
-                             int64_t *ko, int64_t *so) {
+// HI (the index has the count-hi plane) is a compile-time variant too:
+// fm_round1_walk_lut picks the body from the view's has_hi, so a warp
+// runs the body of its index only.  FM_WALK_STEP_HOOK(f, k, s, c) sees
+// the interval and the base before each LF step: the host tests define it
+// to count the steps by class.  It is for those tests alone: no kernel
+// defines it, so on the card it expands to nothing.
+#ifndef FM_WALK_STEP_HOOK
+#define FM_WALK_STEP_HOOK(f, k, s, c)
+#endif
+
+template <bool LUT, bool HI, class V>
+FM_HD int fm_round1_walk_body(const V &f, const FmLut &lut,
+                              const int8_t *row, int len, int n, int *bo,
+                              int64_t *ko, int64_t *so) {
     const int a0 = row[n];
     const bool valid = (unsigned)a0 < 4u && n < len;
     const int c0 = valid ? a0 : 0;
@@ -297,18 +395,34 @@ FM_HD int fm_round1_walk_lut(const V &f, const FmLut &lut,
     for (int col = start; valid && col >= 0; --col) {
         const int c = row[col];
         if ((unsigned)c >= 4u) break;
-        int64_t k2, s2;
-        fm_lf_step(f, k, s, c, &k2, &s2);
+        FM_WALK_STEP_HOOK(f, k, s, c);
         ++steps;
-        if (s2 <= 0) break;
-        k = k2;
-        s = s2;
+        if (s == 1) {               // three steps in four
+            if (!fm_walk_single<HI>(f, k, c, &k)) break;
+        } else {
+            int64_t k2, s2;
+            fm_walk_step<HI>(f, k, s, c, &k2, &s2);
+            if (s2 <= 0) break;
+            k = k2;
+            s = s2;
+        }
         b = col;
     }
     *bo = b;
     *ko = k;
     *so = s;
     return steps;
+}
+
+// The walk of one lane: round1_compact.cuh's, and round1_walk.cu's
+// through fm_round1_walk
+template <bool LUT, class V>
+FM_HD int fm_round1_walk_lut(const V &f, const FmLut &lut,
+                             const int8_t *row, int len, int n, int *bo,
+                             int64_t *ko, int64_t *so) {
+    return f.has_hi
+        ? fm_round1_walk_body<LUT, true>(f, lut, row, len, n, bo, ko, so)
+        : fm_round1_walk_body<LUT, false>(f, lut, row, len, n, bo, ko, so);
 }
 
 // The walk from scratch (lut_k = 0): round1_walk.cu's lane.

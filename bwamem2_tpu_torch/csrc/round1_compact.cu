@@ -18,22 +18,28 @@
 // 2^31 - 1), k (int64) in ascending end column, n = b = -1 and s = k = 0
 // past the count.  The (N, L) walk results never leave the chip.
 //
-// What bounds it.  Operations: the model of round1_walk.cu's header, 63
-// int32 operations per LF step, 8 of them popcounts, the int32 pipe's 55
-// bounding at 64 a clock per SM (16.7 Tops/s on 132 SMs at 1.98 GHz),
-// counted over the LF steps round1_compact_ref's `stats` reports: the
-// steps these reads need, with the LUT start where it applies (a lane the
-// table starts takes up to K steps fewer, plus K code loads and one table
-// read, not counted).  Bytes: the distinct occ rows the walks read (32 B,
-// 36 with the count-hi plane), the read grid (1 B per column) and lengths
-// in, the table entries the lanes read (16 B each, counted as distinct
-// codes would be: not counted, a floor), and the compaction's output: 4 B
-// of count and cap x 20 B of slots per read.  chip_smoke.py reports the
-// larger of the two.
+// What bounds it.  Operations: the model of round1_walk.cu's header, by
+// step class: 63 int32 operations for an s > 1 step whose ends lie in two
+// blocks, 52 in one block, 39 at s = 1 where the interval extends, 13
+// where an s = 1 step empties it (8, 8, 4 and 0 of them popcounts), the
+// int32 pipe's share bounding at 64 a clock per SM (16.7 Tops/s on 132
+// SMs at 1.98 GHz), counted over the LF steps round1_compact_ref's `stats`
+// reports: the steps these reads need, with the LUT start where it
+// applies (a lane the table starts takes up to K steps fewer, plus K code
+// loads and one table read, not counted).  Bytes: the distinct occ rows
+// the walks read (32 B, 36 with the count-hi plane), the read grid (1 B
+// per column) and lengths in, the table entries the lanes read (16 B
+// each, counted as distinct codes would be: not counted, a floor), and
+// the compaction's output: 4 B of count and cap x 20 B of slots per read.
+// chip_smoke.py reports the larger of the two, and the bound of 63
+// operations every step beside it.
 //
 // Design.  One warp per read (smem_group.cuh:SmemGroup<32>): the read's
 // columns 32 at a time, one lane a column, each lane walking until its
 // interval empties; a warp runs each pass as long as its longest walk.
+// The lane's walk is round1_walk's (fm_occ.cuh:fm_round1_walk_lut: one
+// row and one count at s = 1, the count-hi plane in a body of its own),
+// and takes the same fewer instructions a step.
 // b(n + 1) comes from the next lane by a shuffle, the pass's last column
 // waits for the next pass's first (round1_compact.cuh), and the slots go
 // by a ballot and a prefix popcount in column order, so the per-read
@@ -51,7 +57,9 @@
 namespace {
 
 template <bool LUT>
-__global__ void __launch_bounds__(R1X_THREADS)
+// one block an SM at least (.minnctapersm 1): without it ptxas held the
+// walk to 40 registers, and round1_compact<noLUT> spilled
+__global__ void __launch_bounds__(R1X_THREADS, 1)
 round1_compact_kernel(const FmView f, const FmLut lut,
                       const int8_t *__restrict__ enc,
                       const int *__restrict__ lens, int N, int L,

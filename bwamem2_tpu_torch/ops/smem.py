@@ -29,7 +29,13 @@ bodies (csrc/seed_stages.cuh's and round 2's backward r2b_group.cuh)
 compile as host C++ in the tests.  If `stats` is a dict, a plain version
 stores in it the LF steps or backward extensions its lanes took (`steps`,
 each reading two occ rows) and the distinct occ rows they read (`rows`):
-the kernel's work on these inputs; also the steps of its longest walk or
+the kernel's work on these inputs; the steps whose interval's two ends
+lie in one 64-character block (`one_block`), those at s = 1 (`single`:
+one occ row and one count in the round-1 walk, fm_occ.cuh:
+fm_walk_single), those at s = 1 that empty the interval (`single_empty`:
+no count; counted where the plain version passes the new size) and those
+at s > 1 in one block (`wide_one_block`), the classes of the round-1
+walk's bound; also the steps of its longest walk or
 chain (`longest`: a kernel thread's dependent loads) and, for the
 round-1 and round-3 chains, the read that takes them (`longest_read`).
 
@@ -77,6 +83,10 @@ class _Work:
                  lockstep: bool = False, lanes: int = 0):
         self.stats = stats
         self.steps = 0
+        self.one_block = 0
+        self.single = 0
+        self.single_empty = 0
+        self.wide_one_block = 0
         self.calls = 0
         self.lockstep = lockstep
         self.per = (torch.zeros(lanes, dtype=torch.int64, device=dev)
@@ -86,9 +96,16 @@ class _Work:
                                     device=dev))
 
     def add(self, k: torch.Tensor, s: torch.Tensor,
-            lanes: torch.Tensor | None = None) -> None:
+            lanes: torch.Tensor | None = None,
+            s2: torch.Tensor | None = None) -> None:
         if self.stats is not None:
             self.steps += k.numel()
+            one = (k >> 6) == ((k + s) >> 6)
+            self.one_block += one.sum()
+            self.single += (s == 1).sum()
+            if s2 is not None:
+                self.single_empty += ((s == 1) & (s2 <= 0)).sum()
+            self.wide_one_block += (one & (s > 1)).sum()
             self.calls += 1
             self.touched[k >> 6] = True
             self.touched[(k + s) >> 6] = True
@@ -98,6 +115,10 @@ class _Work:
     def done(self) -> None:
         if self.stats is not None:
             self.stats.update(steps=self.steps,
+                              one_block=int(self.one_block),
+                              single=int(self.single),
+                              single_empty=int(self.single_empty),
+                              wide_one_block=int(self.wide_one_block),
                               rows=int(self.touched.sum()))
             if self.lockstep:
                 self.stats["longest"] = self.calls
@@ -173,7 +194,7 @@ def round1_walk_ref(dfm: DeviceFMIndex, enc: torch.Tensor,
             break
         kk, ss = k[lane], s[lane]
         k2, s2 = lf_step(dfm, kk, ss, c)
-        work.add(kk, ss)
+        work.add(kk, ss, s2=s2)
         ext = s2 > 0
         lane, col = lane[ext], col[ext]
         k[lane], s[lane], b[lane] = k2[ext], s2[ext], col

@@ -17,9 +17,14 @@ max_occ-sampled SA positions (FusedSeeder's compaction of that output) and
 sa_resolve's milliseconds on them, each the mean of --reps launches after
 a warm-up.  --pairs and --task-bases pick another chunk (chip_smoke.py's
 run (a): --scale 0.25 --pairs 10000 --task-bases 2250000).  --walk also
-times round1_walk (the seed-extend step's round-1 walk; the checkout must
-have it) on the chunk and reports its ptxas registers and stack frame
-per index view where this process built the library.  --stages seeds the
+times the round-1 walk kernels on the chunk (the checkout must have them):
+round1_walk (the seed-extend step's) over the replicated index and over
+the index in 2 shards on the card, and round1_compact (the legacy round
+1) at the index's K-mer depth (index/klut.py:default_k) and at K = 0,
+with the registers, stack frame and spill of each instantiation where
+this process built the library, and each instantiation's SASS
+instructions and the order of its 16-byte loads and popcounts (from a
+cubin of the checkout's source).  --stages seeds the
 chunk through a TorchBackend over the index in 2 shards on the card (the
 sharded index's per-stage seeding, as chip_smoke.py's run (g)), captures
 its round1_chain, round2_forward, round2_backward (both entries) and
@@ -39,6 +44,8 @@ Run (a)'s chunk, parent, change, change, parent in one call:
     python bwamem2_tpu_torch/tools/seed_probe.py --root DIR \
         --data .tmp/bench_scale0.25 --scale 0.25 --pairs 10000 \
         --task-bases 2250000 --stages --reps 5
+
+(--walk in place of --stages for the round-1 walk kernels).
 """
 
 from __future__ import annotations
@@ -110,20 +117,7 @@ def main() -> None:
     sm_ms = timed(lambda: seed.smem_collect(*args))
     pos = seed.compact_and_expand(*out[:5], off, int(opt.max_occ))[3]
     sa_ms = timed(lambda: sa(dfm, pos))
-    walk = {}
-    if a.walk:
-        import re
-        from bwamem2_tpu_torch.ops.smem import round1_walk
-        walk["round1_walk_ms"] = timed(lambda: round1_walk(dfm, e, ln))
-        for ln_ in round1_walk.build_log.splitlines():
-            m = re.search(r"Function properties for (\w+)|Used (\d+) "
-                          r"registers|(\d+) bytes stack frame", ln_)
-            if m and m[1]:
-                view = "FmShardView" if "ILi1E" in m[1] else "FmView"
-            elif m and m[2]:
-                walk[f"round1_walk_registers_{view}"] = int(m[2])
-            elif m and m[3]:
-                walk[f"round1_walk_stack_{view}"] = int(m[3])
+    walk = walk_kernels(fm, prefix, dfm, e, ln, timed) if a.walk else {}
     stages = (stage_launches(fm, opt, reads, timed, torch.device("cuda", 0))
               if a.stages else {})
     card = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
@@ -138,10 +132,86 @@ def main() -> None:
         flush=True)
 
 
-def ptxas(kernel) -> dict:
-    """{"FmView" / "FmShardView": [registers, stack bytes, spill bytes]} of
-    a stage kernel's instantiations from its build log (empty where the
-    library was built before this process)."""
+def walk_kernels(fm, prefix: str, dfm, e, ln, timed) -> dict:
+    """round1_walk on the chunk over the replicated index and over the
+    index in 2 shards on the same card, and round1_compact (the legacy
+    round 1, min_seed_len 19, 24 slots a read) at K = default_k (the index
+    with its K-mer table) and at K = 0, each timed; with the registers,
+    stack frame and spill ptxas gave each instantiation where this
+    process built the library, and each instantiation's SASS (sass_order)."""
+    from bwamem2_tpu_torch.index.klut import load_or_build_klut
+    from bwamem2_tpu_torch.ops.device_index import DeviceFMIndex
+    from bwamem2_tpu_torch.ops.smem import round1_compact, round1_walk
+    from bwamem2_tpu_torch.parallel.shard_index import shard_index
+    walk = {"round1_walk_ms": timed(lambda: round1_walk(dfm, e, ln))}
+    two = shard_index(dfm, [dfm.device, dfm.device])[0]
+    walk["round1_walk_2shards_ms"] = timed(lambda: round1_walk(two, e, ln))
+    lut = load_or_build_klut(fm, prefix)
+    dl = DeviceFMIndex.from_host(fm, dfm.device, lut)
+    for K in (lut[0], 0):
+        walk[f"round1_compact_K{K}_ms"] = timed(
+            lambda: round1_compact(dl, e, ln, K, 19, 24))
+    for name, kern, names in (
+            ("round1_walk", round1_walk, ("FmView", "FmShardView")),
+            ("round1_compact", round1_compact, ("noLUT", "LUT"))):
+        for view, (reg, stack, spill) in ptxas(kern, names).items():
+            walk[f"{name}_registers_{view}"] = reg
+            walk[f"{name}_stack_{view}"] = stack
+            walk[f"{name}_spill_{view}"] = spill
+        for view, (n, order) in sass_order(name, names).items():
+            walk[f"{name}_sass_{view}"] = n
+            walk[f"{name}_order_{view}"] = order
+    return walk
+
+
+def sass_order(name: str, names: tuple) -> dict:
+    """{instantiation: (SASS instructions, order)} of csrc/`name`.cu,
+    compiled to a cubin for sm_90a (nvcc -cubin) and read by cuobjdump
+    -sass; `order` is the kernel's 16-byte global loads and popcounts in
+    address order (L a load, l a predicated load, p a popcount): whether a
+    step issues its rows' loads before it counts.  Instantiations are
+    named as ptxas() names them."""
+    import re
+    import tempfile
+    from bwamem2_tpu_torch.ops.cuda_build import CSRC, _nvcc
+    with tempfile.TemporaryDirectory() as d:
+        cubin = os.path.join(d, name + ".cubin")
+        subprocess.run([_nvcc(), "-gencode", "arch=compute_90a,code=sm_90a",
+                        "-std=c++17", "-O3", "-cubin", "-o", cubin,
+                        os.path.join(CSRC, name + ".cu")], check=True,
+                       capture_output=True)
+        text = subprocess.run([os.path.join(os.path.dirname(_nvcc()),
+                                            "cuobjdump"), "-sass", cubin],
+                              check=True, capture_output=True,
+                              text=True).stdout
+    out, fn, body = {}, None, []
+
+    def close():
+        if fn:
+            order = "".join(("l" if ins.startswith("@") else "L")
+                            if "LDG.E.128" in ins else "p" for ins in body
+                            if "LDG.E.128" in ins or "POPC" in ins)
+            out[names[1] if re.search(r"IL[ib]1E", fn) else names[0]] = (
+                len(body), order)
+
+    for ln in text.splitlines():
+        m = re.search(r"Function : (\S+)", ln)
+        if m:
+            close()
+            fn, body = m[1], []
+            continue
+        m = re.match(r"\s+/\*[0-9a-f]{4}\*/\s+(.*?)\s*;", ln)
+        if m and fn:
+            body.append(m[1])
+    close()
+    return out
+
+
+def ptxas(kernel, names: tuple = ("FmView", "FmShardView")) -> dict:
+    """{instantiation: [registers, stack bytes, spill bytes]} of a kernel's
+    two instantiations from its build log (empty where the library was
+    built before this process): names[1] is the one whose template
+    argument is 1 or true (FmShardView; round1_compact's LUT)."""
     import re
     out, view = {}, None
     for ln in kernel.build_log.splitlines():
@@ -149,7 +219,7 @@ def ptxas(kernel) -> dict:
                       r"frame, (\d+) bytes spill stores|Used (\d+) "
                       r"registers", ln)
         if m and m[1]:
-            view = "FmShardView" if "ILi1E" in m[1] else "FmView"
+            view = names[1] if re.search(r"IL[ib]1E", m[1]) else names[0]
             out.setdefault(view, [0, 0, 0])
         elif m and m[2] and view:
             out[view][1:] = [int(m[2]), int(m[3])]

@@ -20,11 +20,12 @@ Phases, each of which fails the run (non-zero exit, no result line):
      shared-memory frame; none may spill or have a stack frame), each
      kswv and kswv_phase instantiation (u8/i16 x
      register bucket or shared-memory stripes), each round1_compact
-     instantiation (with and without the K-mer table; neither may have a
-     stack frame), each smem_collect
+     instantiation (with and without the K-mer table; neither may spill
+     or have a stack frame), each smem_collect
      instantiation, each sa_resolve instantiation (walks per lane) and
      round1_walk, the last two of which must have no stack frame (each
-     over both index views, FmView and FmShardView), each per-stage
+     over both index views, FmView and FmShardView; round1_walk's may not
+     spill either), each per-stage
      seeding kernel over both views (round2_forward's and
      round2_backward's may not spill or have a stack frame);
   3. data: a synthetic 11.7 Mbp genome (scale 0.25 of the chr21 class, the
@@ -134,7 +135,11 @@ Phases, each of which fails the run (non-zero exit, no result line):
         equals the one-card step; on the chunk, round1_walk, the step's
         bsw_extend launch and its sa_resolve launch each timed against
         its plain version on the card, beside its bound (round1_walk's
-        from the LF steps and distinct occ rows its plain version counts);
+        from the LF steps by class (s = 1, both ends in one block, two
+        blocks) and the distinct occ rows its plain version counts, with
+        the two-count bound beside it); round1_walk again over the
+        index with an all-zero count-hi plane marked present (the
+        kernel's has_hi body, the same answers);
      g. round1_chain, round2_forward, round2_backward (both entries) and
         round3_replay against their plain versions on the card on the
         launches of run (g)'s first chunk, exact, timed with CUDA events
@@ -144,15 +149,17 @@ Phases, each of which fails the run (non-zero exit, no result line):
         round3_replay: the plain version's per-read count); each also over
         the replicated index (exact, timed); sa_resolve over the two
         shards against the replicated index on that chunk's positions,
-        round1_walk over two shards against the replicated one on run
-        (a)'s first chunk, and
+        round1_walk over two shards against its plain version on run
+        (a)'s first chunk (also with the zero hi plane), and
         the seed-extend step over a 2-shard index against phase f's
         replicated step, each exact and the first two timed; with several
         cards, sa_resolve over one shard per card (peer loads);
      h. round1_compact against round1_compact_ref on run (h)'s first-chunk
-        launch at K = 8 and at K = 0, exact, timed beside the bound from
-        the LF steps, distinct occ rows and table entries its plain
-        version counts, with each instantiation's ptxas numbers and
+        launch at K = 8 and at K = 0, exact (also with the zero hi
+        plane), timed beside the bound from the LF steps by class,
+        distinct occ rows and table entries its plain version counts
+        (and the two-count bound), with each instantiation's ptxas
+        numbers and
         round1_walk's 5f time beside them; run (h)'s first-chunk
         round2_forward, round2_backward and round3_replay launches as in
         g (over the replicated index it ran on and over 2 shards);
@@ -273,9 +280,14 @@ PROBE_SIZES_MB = (4, 16, 64, 256, 1024, 2048, 4096)
 MAX_OVERFLOW = 0.01      # share of main-path reads allowed to the oracle
 # the --shard phase's task size: 5 chunks of run (a)'s 20,000 reads
 SHARD_TASK_BASES = 600_000
-# round1_walk bound model (csrc/round1_walk.cu header): the least int32
-# operations per LF step and the popcounts among them
-R1_OPS_PER_STEP, R1_POPC_PER_STEP = 63, 8
+# round1_walk and round1_compact bound model (csrc/round1_walk.cu
+# header): the least int32 operations and popcounts of an LF step by
+# class: s > 1 with its ends in two blocks, s > 1 in one block, s = 1 with
+# the interval extended, s = 1 with the interval emptied;
+# R1_OPS_PER_STEP, R1_POPC_PER_STEP: the earlier model, two counts a step
+R1_CLASS_OPS = dict(two_row=(63, 8), one_block=(52, 8), single=(39, 4),
+                    single_empty=(13, 0))
+R1_OPS_PER_STEP, R1_POPC_PER_STEP = R1_CLASS_OPS["two_row"]
 # the legacy round-1 configuration (phases 4h, 5h): the K-mer table's
 # depth at the smoke genome's size (index/klut.py:default_k) and the
 # one-phase kswv and tile-form bsw_shear batches
@@ -428,9 +440,10 @@ def build_all() -> dict:
                 log(f"  ptxas round1_compact<LUT={int(lut)}>: "
                     f"{v.get('registers')} registers, {v.get('spill')} B "
                     f"spilled, {v.get('stack')} B stack frame")
-            if len(inst) != 2 or any(v.get("stack") for _, v in inst):
-                fail(f"round1_compact: stack frames {inst} (neither "
-                     "instantiation may have one)")
+            if len(inst) != 2 or any(v.get("stack") or v.get("spill")
+                                     for _, v in inst):
+                fail(f"round1_compact: instantiations {inst} (neither may "
+                     "spill or have a stack frame)")
             continue
         if name == "smem_collect":
             for (G, lcap), v in inst:
@@ -489,9 +502,9 @@ def build_all() -> dict:
                     f"registers, {v.get('spill')} B spilled, "
                     f"{v.get('stack')} B stack frame")
             if name == "round1_walk" and (len(inst) != 2 or any(
-                    v.get("stack") for _, v in inst)):
-                fail(f"round1_walk: stack frames {inst} (the kernel must "
-                     "have none, over either view)")
+                    v.get("stack") or v.get("spill") for _, v in inst)):
+                fail(f"round1_walk: instantiations {inst} (neither view's "
+                     "may spill or have a stack frame)")
             if name.startswith("round2") and (len(inst) != 2 or any(
                     v.get("stack") or v.get("spill") for _, v in inst)):
                 fail(f"{name}: instantiations {inst} (one over each view, "
@@ -802,6 +815,35 @@ def smem_bounds(nbwd: int, N: int, L: int, nsm: int) -> tuple:
     nbytes = nbwd * 64 + N * (L + 4) + nsm * 24 + N * 12
     ops_s = int_ops_s(nbwd * SMEM_OPS_PER_EXT, nbwd * SMEM_POPC_PER_EXT)
     return nbytes / HBM_BYTES_PER_S * 1e3, ops_s * 1e3
+
+
+def r1_bounds(stats: dict) -> dict:
+    """The round-1 walk's operations bound (ms) from its plain version's
+    step counts by class (R1_CLASS_OPS), the two-count bound beside
+    it, and the shares of steps with both ends in one block, at s = 1 and
+    at s = 1 emptying the interval."""
+    n = dict(single=stats["single"] - stats["single_empty"],
+             single_empty=stats["single_empty"],
+             one_block=stats["wide_one_block"])
+    n["two_row"] = stats["steps"] - stats["single"] - n["one_block"]
+    ops = sum(n[c] * R1_CLASS_OPS[c][0] for c in n)
+    popc = sum(n[c] * R1_CLASS_OPS[c][1] for c in n)
+    return dict(ops_ms=int_ops_s(ops, popc) * 1e3,
+                ops63_ms=int_ops_s(stats["steps"] * R1_OPS_PER_STEP,
+                                   stats["steps"] * R1_POPC_PER_STEP) * 1e3,
+                one_block_share=stats["one_block"] / stats["steps"],
+                single_share=stats["single"] / stats["steps"],
+                single_empty_share=stats["single_empty"] / stats["steps"])
+
+
+def zero_hi(dfm):
+    """The replicated index `dfm` with an all-zero count-hi plane marked
+    present: the round-1 kernels then run their has_hi bodies (an index
+    with counts past 2^32 has one) and must give the same answers."""
+    import dataclasses
+    import torch
+    return dataclasses.replace(dfm, has_hi=True, occ_hi=torch.zeros(
+        dfm.occp.shape[0], dtype=torch.int32, device=dfm.occp.device))
 
 
 def seeding_vs_plain(torch, fm, passes, opt) -> dict:
@@ -1862,15 +1904,20 @@ def stage_vs_plain(torch, card: str, captured: dict, prefix: str, fq1: str,
     e, ln = torch.from_numpy(enc).to(dev), torch.from_numpy(lens).to(dev)
     w_ms = cuda_ms(torch, lambda: smem.round1_walk(views[0], e, ln), 3)
     w_rep = cuda_ms(torch, lambda: smem.round1_walk(rep, e, ln), 3)
-    w_err = max(int((g.long() - w.long()).abs().max()) for g, w in zip(
-        smem.round1_walk(views[0], e, ln), smem.round1_walk(rep, e, ln)))
+    want = smem.round1_walk_ref(rep, e, ln)
+    hi_view = shard_index(zero_hi(rep), [dev, dev])[0]
+    w_err = max(int((g.long() - w.long()).abs().max())
+                for v in (views[0], hi_view)
+                for g, w in zip(smem.round1_walk(v, e, ln), want))
     if sa["err"] or w_err:
-        fail(f"5g: over 2 shards sa_resolve err {sa['err']}, round1_walk "
-             f"err {w_err} against the replicated index")
+        fail(f"5g: over 2 shards sa_resolve err {sa['err']} against the "
+             f"replicated index, round1_walk err {w_err} against "
+             "round1_walk_ref")
     log(f"  sa_resolve over 2 shards on {sa['positions']} positions: "
-        f"{sa['ms']:.4f} ms (replicated {sa['rep_ms']:.4f} ms); round1_walk "
-        f"over 2 shards on chunk (a): {w_ms:.4f} ms (replicated "
-        f"{w_rep:.4f} ms); both == the replicated index [{card}]")
+        f"{sa['ms']:.4f} ms (replicated {sa['rep_ms']:.4f} ms), == the "
+        f"replicated index; round1_walk over 2 shards on chunk (a): "
+        f"{w_ms:.4f} ms (replicated {w_rep:.4f} ms), == round1_walk_ref "
+        f"(also through the has_hi body) [{card}]")
     t0 = time.perf_counter()
     got = sharded_seed_extend_sharded_index([dev, dev], rep, enc, lens)
     st_s = time.perf_counter() - t0
@@ -2012,23 +2059,35 @@ def step_phase(torch, card: str, prefix: str, fq1: str, fq2: str) -> dict:
     p_ms = ev[0].elapsed_time(ev[1])
     err = max(int((x.long() - y.long()).abs().max())
               for x, y in zip(round1_walk(d, e, ln), want))
-    if err:
+    dh = zero_hi(d)
+    err_hi = max(int((x.long() - y.long()).abs().max())
+                 for x, y in zip(round1_walk(dh, e, ln), want))
+    if err or err_hi:
         fail(f"round1_walk differs from round1_walk_ref on chunk (a) (max "
-             f"abs err {err})")
+             f"abs err {err}; through its has_hi body {err_hi})")
+    hi_ms = cuda_ms(torch, lambda: round1_walk(dh, e, ln), 5)
     row_b = 32 + (4 if d.has_hi else 0)
     nbytes = stats["rows"] * row_b + N * L * (1 + 20) + 4 * N
     mem_ms = nbytes / HBM_BYTES_PER_S * 1e3
-    ops_ms = int_ops_s(stats["steps"] * R1_OPS_PER_STEP,
-                       stats["steps"] * R1_POPC_PER_STEP) * 1e3
+    rb = r1_bounds(stats)
+    ops_ms = rb["ops_ms"]
     r1 = dict(reads=N, L=L, lanes=N * L, steps=stats["steps"],
-              rows=stats["rows"], ms=k_ms, plain_ms=p_ms, mem_ms=mem_ms,
-              ops_ms=ops_ms, bound_ms=max(mem_ms, ops_ms),
+              one_block=stats["one_block"], single=stats["single"],
+              single_empty=stats["single_empty"],
+              wide_one_block=stats["wide_one_block"],
+              rows=stats["rows"], ms=k_ms, hi_body_ms=hi_ms, plain_ms=p_ms,
+              mem_ms=mem_ms, **rb, bound_ms=max(mem_ms, ops_ms),
+              bound63_ms=max(mem_ms, rb["ops63_ms"]),
               bound_by="operations" if ops_ms >= mem_ms else "bytes", err=err)
     log(f"  round1_walk on chunk (a) ({N * L} lanes, {stats['steps']} LF "
-        f"steps, {stats['rows']} distinct occ rows): kernel {k_ms:.4f} ms, "
+        f"steps: {rb['one_block_share']:.4f} with both ends in one block, "
+        f"{rb['single_share']:.4f} at s = 1, "
+        f"{rb['single_empty_share']:.4f} at s = 1 emptying the interval; "
+        f"{stats['rows']} distinct occ "
+        f"rows): kernel {k_ms:.4f} ms (has_hi body {hi_ms:.4f}), "
         f"plain {p_ms:.1f} ms, bound {r1['bound_ms']:.5f} ms by "
-        f"{r1['bound_by']} (bytes {mem_ms:.5f}, operations {ops_ms:.5f}), "
-        f"identical [{card}]")
+        f"{r1['bound_by']} (bytes {mem_ms:.5f}, operations {ops_ms:.5f}; "
+        f"two counts a step: {r1['bound63_ms']:.5f}), identical [{card}]")
     # the step's bsw_tiles launch and sa_resolve launch on the chunk
     log(f"  bsw_tiles' bsw_extend launch of the step on chunk (a):")
     bt = bsw_main_path(torch, calls["bsw"][-1:])
@@ -2226,44 +2285,58 @@ def legacy_vs_plain(torch, card: str, calls: dict, fm, opt,
     ptx = {int(k[0]): v for k, v in
            instances(kernels()["round1_compact"].build_log,
                      "round1_compact").items()}
+    dfm_hi = zero_hi(dfm)
     for k_ in (K, 0):
         args = (dfm, enc, lens, k_, msl, cap)
         got = round1_compact.launch(*args)
+        got_hi = round1_compact.launch(dfm_hi, *args[1:])
         stats: dict = {}
         want, p_ms = plain_ms(lambda: round1_compact_ref(*args, stats=stats))
         err = max(int((g.long() - w.long()).abs().max()) for g, w in
                   zip(got, want))
-        if err:
+        err_hi = max(int((g.long() - w.long()).abs().max()) for g, w in
+                     zip(got_hi, want))
+        if err or err_hi:
             fail(f"5h: round1_compact at K={k_} differs from "
-                 f"round1_compact_ref (max abs err {err})")
+                 f"round1_compact_ref (max abs err {err}; through its "
+                 f"has_hi body {err_hi})")
         k_ms = cuda_ms(torch, lambda: round1_compact.launch(*args), 5)
         row_b = 32 + (4 if dfm.has_hi else 0)
         nbytes = (stats["rows"] * row_b + N * (L + 4)
                   + stats["lut_rows"] * 16 + N * (4 + cap * 20))
         mem_ms = nbytes / HBM_BYTES_PER_S * 1e3
-        ops_ms = int_ops_s(stats["steps"] * R1_OPS_PER_STEP,
-                           stats["steps"] * R1_POPC_PER_STEP) * 1e3
+        rb = r1_bounds(stats)
+        ops_ms = rb["ops_ms"]
         inst = ptx.get(int(bool(k_)), {})
         over = int((got[0] > cap).sum())
         r = dict(K=k_, reads=N, L=L, steps=stats["steps"],
+                 one_block=stats["one_block"], single=stats["single"],
+                 single_empty=stats["single_empty"],
+                 wide_one_block=stats["wide_one_block"],
                  rows=stats["rows"], lut_rows=stats["lut_rows"],
                  emitted=int(got[0].sum()), over_cap=over, ms=k_ms,
-                 plain_ms=p_ms, mem_ms=mem_ms, ops_ms=ops_ms,
+                 plain_ms=p_ms, mem_ms=mem_ms, **rb,
                  bound_ms=max(mem_ms, ops_ms),
+                 bound63_ms=max(mem_ms, rb["ops63_ms"]),
                  bound_by="operations" if ops_ms >= mem_ms else "bytes",
                  err=err, registers=inst.get("registers"),
                  spill_bytes=inst.get("spill"),
                  stack_bytes=inst.get("stack"))
         out[f"round1_compact_K{k_}"] = r
         log(f"  round1_compact K={k_} on run (a)'s first chunk ({N} reads x "
-            f"L={L}; {stats['steps']} LF steps, {stats['rows']} distinct "
+            f"L={L}; {stats['steps']} LF steps: "
+            f"{rb['one_block_share']:.4f} with both ends in one block, "
+            f"{rb['single_share']:.4f} at s = 1, "
+            f"{rb['single_empty_share']:.4f} at s = 1 emptying the "
+            f"interval; {stats['rows']} distinct "
             f"occ rows, {stats['lut_rows']} table entries; {r['emitted']} "
             f"SMEMs, {over} reads over {cap}): kernel {k_ms:.4f} ms, plain "
             f"{p_ms:.1f} ms, bound {r['bound_ms']:.5f} ms by "
             f"{r['bound_by']} (bytes {mem_ms:.5f}, operations "
-            f"{ops_ms:.5f}), identical; {inst.get('registers')} registers, "
-            f"{inst.get('spill')} B spilled, {inst.get('stack')} B stack "
-            f"frame [{card}]")
+            f"{ops_ms:.5f}; two counts a step: {r['bound63_ms']:.5f}), "
+            f"identical (also through the has_hi body); "
+            f"{inst.get('registers')} registers, {inst.get('spill')} B "
+            f"spilled, {inst.get('stack')} B stack frame [{card}]")
     log(f"  round1_walk (K = 0, phase 5f) on the same chunk: "
         f"{r1walk['ms']:.4f} ms, bound {r1walk['bound_ms']:.5f} ms; its "
         f"ptxas line is phase 2's [{card}]")
@@ -2832,6 +2905,7 @@ def main() -> None:
              plain_ms=round(st["round1_walk"]["plain_ms"], 3),
              bound_ms=round(st["round1_walk"]["bound_ms"], 5),
              bound_by=st["round1_walk"]["bound_by"], library_ms=None,
+             bound63_ms=round(st["round1_walk"]["bound63_ms"], 5),
              library_note="no PyTorch call walks an FM-index",
              shape=f"{st['round1_walk']['lanes']} lanes (run (a)'s first "
                    f"chunk, {st['round1_walk']['reads']} reads x L="
@@ -2848,7 +2922,7 @@ def main() -> None:
              max_abs_err=max(lh["round1_compact_K0"]["err"], r1k["err"]),
              ms=round(r1k["ms"], 4), plain_ms=round(r1k["plain_ms"], 3),
              bound_ms=round(r1k["bound_ms"], 5), bound_by=r1k["bound_by"],
-             library_ms=None,
+             library_ms=None, bound63_ms=round(r1k["bound63_ms"], 5),
              library_note="no PyTorch call walks an FM-index",
              shape=f"run (a)'s first chunk, {r1k['reads']} reads x L="
                    f"{r1k['L']}, K={LEGACY_K}, {r1k['steps']} LF steps "

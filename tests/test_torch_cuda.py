@@ -467,6 +467,36 @@ def test_round1_walk_matches_ref_on_card(card):
 
 
 @pytest.mark.cuda
+def test_round1_walk_has_hi_body_on_card(card):
+    """round1_walk and round1_compact run a second body where the index has
+    the count-hi plane (counts past 2^32, fm_occ.cuh:fm_round1_walk_lut):
+    over the fixture index with an all-zero hi plane marked present, that
+    body gives the plain versions' answers, replicated and over 2 shards
+    on one card."""
+    import dataclasses
+    from bwamem2_tpu_torch.index.klut import build_klut
+    from bwamem2_tpu_torch.ops.smem import (round1_compact, round1_compact_ref,
+                                            round1_walk, round1_walk_ref)
+    from bwamem2_tpu_torch.parallel.shard_index import shard_index
+    fm = FMIndex.load(PREFIX)
+    lut = build_klut(fm, 6)
+    dfm, dfm_h = (DeviceFMIndex.from_host(fm, d, lut) for d in (card, "cpu"))
+    hi = dataclasses.replace(dfm, has_hi=True, occ_hi=torch.zeros(
+        dfm.occp.shape[0], dtype=torch.int32, device=card))
+    enc, lens = step_batch(fm, 64, 152, 3)
+    e, ln = torch.from_numpy(enc), torch.from_numpy(lens)
+    want = round1_walk_ref(dfm_h, e, ln)
+    for view in (hi, shard_index(hi, [card, card])[0]):
+        got = round1_walk(view, e.to(card), ln.to(card))
+        for g, w in zip(got, want):
+            np.testing.assert_array_equal(g.cpu().numpy(), w.numpy())
+    for K in (0, 6):
+        got = round1_compact(hi, e.to(card), ln.to(card), K, 19, 24)
+        for g, w in zip(got, round1_compact_ref(dfm_h, e, ln, K, 19, 24)):
+            np.testing.assert_array_equal(g.cpu().numpy(), w.numpy())
+
+
+@pytest.mark.cuda
 def test_bsw_tiles_match_ref_on_card(card):
     """bsw_tiles (bsw_extend) on the card against the same adapter on the
     CPU (bsw_desc_ref)."""

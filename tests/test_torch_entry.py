@@ -5,7 +5,12 @@
   the tiny index's mutated reads (as tests/test_mesh.py builds them) and
   on reads with N codes, short and empty lengths; the kernel's lane walk
   (csrc/fm_occ.cuh:fm_round1_walk, compiled as host C++) equals it, LF
-  step counts included.
+  step counts included (in all, with both ends in one block, at s = 1,
+  at s = 1 emptying the interval);
+  its LF steps (fm_walk_step, and fm_walk_single at s = 1) equal
+  fm_lf_step on every base and every (k, s) starting in the first, the
+  sentinel's and the last block, and in every block of an index with the
+  count-hi plane.
 * bsw_tiles equals bwamem2_tpu.ops.bsw.bsw_kernel on random tiles at
   several (Qmax, Tmax, w, h0).
 * seed_extend_step equals the JAX seed_extend_step, all five outputs, on
@@ -35,6 +40,7 @@ from bwamem2_tpu_torch.ops.entry import seed_extend_step
 from bwamem2_tpu_torch.ops.smem import round1_walk, round1_walk_ref
 
 from conftest import FIXTURES
+from test_torch_device_index import synthetic_hi
 
 # one intra-op thread: the suite runs several xdist workers side by side
 torch.set_num_threads(1)
@@ -93,52 +99,129 @@ def test_round1_walk_ref_matches_jax(index, edges):
     assert (got[0].numpy() < np.arange(128)).mean() > 0.5
 
 
-SHIM = r'''
+# the kernel's lane walk and its LF steps built as host C++: h_round1 runs
+# the walk of every (read, end) lane, counting the steps whose two ends
+# share a block, those at s = 1 and those of them that empty the interval
+# (FM_WALK_STEP_HOOK); h_step_sweep holds
+# fm_walk_step and fm_walk_single against fm_lf_step on every c and every
+# (k, s) with k in the given blocks
+SHIM = r"""
+// the steps by class: both ends in one block, s = 1, and s = 1 where the
+// step (fm_lf_step's) empties the interval
+static long long walk_cls[3];
+#define FM_WALK_STEP_HOOK(f, k, s, c) do { \
+    int64_t k_, s_; \
+    fm_lf_step(f, k, s, c, &k_, &s_); \
+    walk_cls[0] += ((k) >> 6) == (((k) + (s)) >> 6); \
+    walk_cls[1] += (s) == 1; \
+    walk_cls[2] += (s) == 1 && s_ <= 0; \
+  } while (0)
 #include "fm_occ.cuh"
+static FmView mk(const int32_t *occp, const int32_t *occ_hi, int has_hi,
+                 const int64_t *counts, int64_t sent) {
+  return FmView{occp, occ_hi, {counts[0], counts[1], counts[2], counts[3],
+                               counts[4]}, sent, has_hi};
+}
 extern "C" long long h_round1(const int32_t *occp, const int32_t *occ_hi,
                               int has_hi, const int64_t *counts,
                               int64_t sent, const int8_t *enc,
                               const int *lens, int N, int L, int *b,
-                              int64_t *k, int64_t *s) {
-  const FmView f{occp, occ_hi, {counts[0], counts[1], counts[2], counts[3],
-                                counts[4]}, sent, has_hi};
+                              int64_t *k, int64_t *s, long long *cls) {
+  const FmView f = mk(occp, occ_hi, has_hi, counts, sent);
   long long steps = 0;
+  walk_cls[0] = walk_cls[1] = walk_cls[2] = 0;
   for (long long t = 0; t < (long long)N * L; ++t) {
     const long long r = t / L;
     steps += fm_round1_walk(f, enc + r * L, lens[r], (int)(t - r * L),
                             b + t, k + t, s + t);
   }
+  for (int i = 0; i < 3; ++i) cls[i] = walk_cls[i];
   return steps;
 }
-'''
+// fm_walk_step (every s) and fm_walk_single (s = 1) against fm_lf_step;
+// cases [0] all, [1] one block, [2] s = 1 at k & 63 == 63, [3] k & 63 +
+// s == 64, [4] s = 1 with s' = 1; returns the cases whose (k', s') differ
+template <bool HI>
+static long long sweep(const FmView &f, int64_t n, const int64_t *blocks,
+                       int nblk, long long *cases) {
+  long long bad = 0;
+  for (int i = 0; i < nblk; ++i)
+    for (int64_t k = blocks[i] * 64; k < blocks[i] * 64 + 64 && k <= n; ++k)
+      for (int64_t s = 0; k + s <= n; ++s)
+        for (int c = 0; c < 4; ++c) {
+          int64_t k1, s1, k2, s2;
+          fm_lf_step(f, k, s, c, &k1, &s1);
+          fm_walk_step<HI>(f, k, s, c, &k2, &s2);
+          bad += k1 != k2 || s1 != s2;
+          if (s == 1) {
+            int64_t k3 = -1;
+            const int s3 = fm_walk_single<HI>(f, k, c, &k3);
+            bad += s3 != s1 || (s3 == 1 && k3 != k1);
+            cases[4] += s3 == 1;
+          }
+          cases[0] += 1;
+          cases[1] += (k >> 6) == ((k + s) >> 6);
+          cases[2] += s == 1 && (k & 63) == 63;
+          cases[3] += (k & 63) + s == 64;
+        }
+  return bad;
+}
+extern "C" long long h_step_sweep(const int32_t *occp, const int32_t *occ_hi,
+                                  int has_hi, const int64_t *counts,
+                                  int64_t sent, int64_t n,
+                                  const int64_t *blocks, int nblk,
+                                  long long *cases) {
+  const FmView f = mk(occp, occ_hi, has_hi, counts, sent);
+  return has_hi ? sweep<true>(f, n, blocks, nblk, cases)
+                : sweep<false>(f, n, blocks, nblk, cases);
+}
+"""
 
 
-def test_round1_lane_walk_source_matches_ref(index, tmp_path):
-    """The kernel's per-lane walk, built with g++ as the kernel's launch
-    loop would run it (one lane per (read, end)), equals round1_walk_ref,
-    and takes the LF steps the plain version counts."""
-    fm, dfm, _ = index
-    src = tmp_path / "r1.cpp"
+@pytest.fixture(scope="module")
+def host_walk(tmp_path_factory):
+    d = tmp_path_factory.mktemp("r1walk")
+    src = d / "r1.cpp"
     src.write_text(SHIM)
-    so = str(tmp_path / "r1.so")
+    so = str(d / "r1.so")
     subprocess.run(["g++", "-O2", "-std=c++17", "-shared", "-fPIC", "-I",
                     CSRC, str(src), "-o", so], check=True,
                    capture_output=True)
     lib = ctypes.CDLL(so)
-    lib.h_round1.restype = ctypes.c_longlong
+    lib.h_round1.restype = lib.h_step_sweep.restype = ctypes.c_longlong
+    return lib
+
+
+def _p(a):
+    return ctypes.c_void_p(a.ctypes.data)
+
+
+def _fm_args(dfm):
+    """(arrays to keep alive through the call, the FmView arguments)."""
+    keep = [np.ascontiguousarray(x.numpy()) for x in
+            (dfm.occp, dfm.occ_hi, dfm.counts)]
+    return keep, [_p(keep[0]), _p(keep[1]), ctypes.c_int(int(dfm.has_hi)),
+                  _p(keep[2]), ctypes.c_int64(int(dfm.sentinel))]
+
+
+def test_round1_lane_walk_source_matches_ref(index, host_walk):
+    """The kernel's per-lane walk, built with g++ as the kernel's launch
+    loop would run it (one lane per (read, end)), equals round1_walk_ref,
+    and takes the LF steps the plain version counts, with as many whose
+    two ends share a block, as many at s = 1 and as many of those that
+    empty the interval."""
+    fm, dfm, _ = index
     enc, lens = mutated_batch(fm, 24, 96, 5, edges=True)
     enc = np.ascontiguousarray(enc.astype(np.int8))
     N, L = enc.shape
     b = np.zeros((N, L), np.int32)
     k = np.zeros((N, L), np.int64)
     s = np.zeros((N, L), np.int64)
-    keep = [np.ascontiguousarray(x.numpy()) for x in
-            (dfm.occp, dfm.occ_hi, dfm.counts)]
-    p = lambda a: ctypes.c_void_p(a.ctypes.data)  # noqa: E731
-    steps = lib.h_round1(p(keep[0]), p(keep[1]), ctypes.c_int(dfm.has_hi),
-                         p(keep[2]), ctypes.c_int64(int(dfm.sentinel)),
-                         p(enc), p(lens), ctypes.c_int(N), ctypes.c_int(L),
-                         p(b), p(k), p(s))
+    cls = np.zeros(3, np.int64)
+    keep, args = _fm_args(dfm)
+    steps = host_walk.h_round1(*args, _p(enc), _p(lens), ctypes.c_int(N),
+                               ctypes.c_int(L), _p(b), _p(k), _p(s),
+                               _p(cls))
     stats = {}
     want = round1_walk_ref(dfm, torch.from_numpy(enc),
                            torch.from_numpy(lens), stats)
@@ -146,6 +229,38 @@ def test_round1_lane_walk_source_matches_ref(index, tmp_path):
         np.testing.assert_array_equal(g, w.numpy())
     assert steps == stats["steps"] > N * L
     assert 0 < stats["rows"] <= dfm.occp.shape[0]
+    assert list(cls) == [stats["one_block"], stats["single"],
+                         stats["single_empty"]]
+    assert 0 < stats["single"] < stats["one_block"] < stats["steps"]
+    assert 0 < stats["single_empty"] < stats["single"]
+
+
+@pytest.mark.parametrize("which", ["tiny", "has_hi"])
+def test_walk_step_matches_lf_step_exhaustively(host_walk, which):
+    """The walk's LF steps equal fm_lf_step on every base and every (k, s),
+    k + s up to the BWT length, with k in the first, the sentinel's and the
+    last block of ref_tiny.fa's index, and in every block of the has_hi
+    synthetic index (counts above 2^32, a negative packed hi word):
+    fm_walk_step at every s, fm_walk_single (one row, one count) at s = 1,
+    k & 63 == 63 and k & 63 + s == 64 included."""
+    if which == "tiny":
+        fm = FMIndex.load(TINY)
+        dfm = DeviceFMIndex.from_host(fm, "cpu")
+        n = fm.ref_seq_len
+    else:
+        bwt, _, _, _, dfm = synthetic_hi()
+        n = len(bwt)
+    sent = int(dfm.sentinel)
+    assert n >> 6 < dfm.occp.shape[0]       # the row of k + s = n exists
+    blocks = np.unique(np.array([0, sent >> 6, n >> 6] if which == "tiny"
+                                else range((n >> 6) + 1), np.int64))
+    cases = np.zeros(5, np.int64)
+    keep, args = _fm_args(dfm)
+    bad = host_walk.h_step_sweep(*args, ctypes.c_int64(n), _p(blocks),
+                                 ctypes.c_int(len(blocks)), _p(cases))
+    assert bad == 0
+    assert cases[0] > cases[1] > 0 and cases[2] > 0 and cases[3] > 0
+    assert cases[4] > 0
 
 
 def random_tiles(seed, P, Qmax, Tmax):

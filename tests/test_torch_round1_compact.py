@@ -191,6 +191,16 @@ def test_round1_compact_ref_matches_jax(fm, indexes, K, cap):
 
 
 SHIM = r'''
+// the steps by class: both ends in one block, s = 1, and s = 1 where the
+// step (fm_lf_step's) empties the interval
+static long long walk_cls[3];
+#define FM_WALK_STEP_HOOK(f, k, s, c) do { \
+    int64_t k_, s_; \
+    fm_lf_step(f, k, s, c, &k_, &s_); \
+    walk_cls[0] += ((k) >> 6) == (((k) + (s)) >> 6); \
+    walk_cls[1] += (s) == 1; \
+    walk_cls[2] += (s) == 1 && s_ <= 0; \
+  } while (0)
 #include "round1_compact.cuh"
 static FmView view(const int32_t *occp, const int32_t *occ_hi, int has_hi,
                    const int64_t *c, int64_t sent) {
@@ -201,10 +211,11 @@ extern "C" void h_r1c(const int32_t *occp, const int32_t *occ_hi,
                       const int64_t *lk, const int64_t *ls, int K,
                       const int8_t *enc, const int *lens, int N, int L,
                       int min_len, int cap, int *cnt, int *on, int *ob,
-                      int *os, int64_t *ok) {
+                      int *os, int64_t *ok, long long *cls) {
   const FmView f = view(occp, occ_hi, has_hi, counts, sent);
   const FmLut lut{lk, ls, K};
   const SmemGroup<32> g;
+  walk_cls[0] = walk_cls[1] = walk_cls[2] = 0;
   for (int r = 0; r < N; ++r) {
     const int len = lens[r] < L ? lens[r] : L;
     const long long o = (long long)r * cap;
@@ -214,15 +225,18 @@ extern "C" void h_r1c(const int32_t *occp, const int32_t *occ_hi,
                                  min_len, cap, on + o, ob + o, os + o,
                                  ok + o);
   }
+  for (int i = 0; i < 3; ++i) cls[i] = walk_cls[i];
 }
 extern "C" long long h_walk(const int32_t *occp, const int32_t *occ_hi,
                             int has_hi, const int64_t *counts, int64_t sent,
                             const int64_t *lk, const int64_t *ls, int K,
                             const int8_t *enc, const int *lens, int N, int L,
-                            int *b, int64_t *k, int64_t *s) {
+                            int *b, int64_t *k, int64_t *s,
+                            long long *cls) {
   const FmView f = view(occp, occ_hi, has_hi, counts, sent);
   const FmLut lut{lk, ls, K};
   long long steps = 0;
+  walk_cls[0] = walk_cls[1] = walk_cls[2] = 0;
   for (long long t = 0; t < (long long)N * L; ++t) {
     const long long r = t / L;
     const int n = (int)(t - r * L);
@@ -231,6 +245,7 @@ extern "C" long long h_walk(const int32_t *occp, const int32_t *occ_hi,
                : fm_round1_walk(f, enc + r * L, lens[r], n, b + t, k + t,
                                 s + t);
   }
+  for (int i = 0; i < 3; ++i) cls[i] = walk_cls[i];
   return steps;
 }
 '''
@@ -269,7 +284,9 @@ def test_round1_compact_body_source_matches_ref(fm, indexes, host_r1c, K,
     """The kernel's read body, built with g++ as the launch runs it (one
     lane group per read, 32 columns a pass, reads longer than a pass),
     equals round1_compact_ref, the slots of overflowing reads and the
-    empty slots included."""
+    empty slots included, and its walks take as many one-row steps (both
+    ends in one block), steps at s = 1 and steps at s = 1 that empty the
+    interval as the plain version counts."""
     dfm, _ = indexes[K]
     enc, lens = legacy_reads(fm, n=40, L=152, seed=11)
     N, L = enc.shape
@@ -279,13 +296,21 @@ def test_round1_compact_body_source_matches_ref(fm, indexes, host_r1c, K,
     cnt = np.full(N, -7, np.int32)
     on, ob, os_ = (np.full((N, cap), -7, np.int32) for _ in range(3))
     ok = np.full((N, cap), -7, np.int64)
+    cls = np.zeros(3, np.int64)
     host_r1c.h_r1c(*args, p(enc), p(lens), ctypes.c_int(N),
                    ctypes.c_int(L), ctypes.c_int(msl), ctypes.c_int(cap),
-                   p(cnt), p(on), p(ob), p(os_), p(ok))
+                   p(cnt), p(on), p(ob), p(os_), p(ok), p(cls))
+    st: dict = {}
     want = smem.round1_compact_ref(dfm, torch.from_numpy(enc),
-                                   torch.from_numpy(lens), K, msl, cap)
+                                   torch.from_numpy(lens), K, msl, cap, st)
     for g, w in zip((cnt, on, ob, os_, ok), want):
         np.testing.assert_array_equal(g, w.numpy())
+    # the walk's steps by class: one row (both ends in a block), s = 1,
+    # s = 1 emptying the interval
+    assert list(cls) == [st["one_block"], st["single"],
+                         st["single_empty"]]
+    assert 0 < st["single"] < st["one_block"] < st["steps"]
+    assert 0 < st["single_empty"] < st["single"]
     if cap == 2:
         assert (cnt > cap).sum() >= 3
 
@@ -293,7 +318,8 @@ def test_round1_compact_body_source_matches_ref(fm, indexes, host_r1c, K,
 @pytest.mark.parametrize("K", [0, 4, 6])
 def test_lut_walk_source_matches_ref(fm, indexes, host_r1c, K):
     """fm_occ.cuh's walk with the LUT start (K > 0) and from scratch, built
-    with g++, equals round1_walk_ref, LF steps included."""
+    with g++, equals round1_walk_ref, LF steps included (in all, with both
+    ends in one block, at s = 1 and at s = 1 emptying the interval)."""
     dfm, _ = indexes[K]
     enc, lens = legacy_reads(fm, n=24, L=96, seed=5)
     N, L = enc.shape
@@ -302,14 +328,19 @@ def test_lut_walk_source_matches_ref(fm, indexes, host_r1c, K):
     b = np.zeros((N, L), np.int32)
     k = np.zeros((N, L), np.int64)
     s = np.zeros((N, L), np.int64)
+    cls = np.zeros(3, np.int64)
     steps = host_r1c.h_walk(*args, p(enc), p(lens), ctypes.c_int(N),
-                            ctypes.c_int(L), p(b), p(k), p(s))
+                            ctypes.c_int(L), p(b), p(k), p(s), p(cls))
     st: dict = {}
     want = smem.round1_walk_ref(dfm, torch.from_numpy(enc),
                                 torch.from_numpy(lens), st, K)
     for g, w in zip((b, k, s), want):
         np.testing.assert_array_equal(g, w.numpy())
     assert steps == st["steps"] > 0
+    assert list(cls) == [st["one_block"], st["single"],
+                         st["single_empty"]]
+    assert 0 < st["single"] < st["one_block"] < st["steps"]
+    assert 0 < st["single_empty"] < st["single"]
 
 
 def test_round1_compact_refuses_cpu_launch_and_wrong_depth(fm, indexes):
