@@ -36,7 +36,11 @@
 // It has two implementations: on the card (__CUDACC__) one int per thread
 // and the warp intrinsics over the group's lanes only; in host C++ the NL
 // lanes as an int[NL] lane vector stepped in lockstep (leader() is always
-// true there, scalar code runs once).  The kernel and the host tests compile
+// true there, scalar code runs once).  A group may give each lane S
+// sub-threads (KswvGroup<NL, S>, the split form of kswv_phase_split:
+// thread t = s * NL + l, with publish/get exchanges, an AND over the lanes
+// of one s and map2(f(l, s)) beside the calls above; shared memory and a
+// barrier between warps when NL x S > 32).  The kernel and the host tests compile
 // this one source.  Every branch that ends a loop is decided from values the
 // whole group shares: a reduction, a vote or a broadcast.
 //
@@ -85,6 +89,7 @@
 #define KSWV_NO_LIMIT 0x10000   // endsc / minsc meaning "none"
 #define KSWV_SWEEPS 16          // lazy-F sweeps at most per row
 #define KSWV_MAX_THREADS 128    // threads per block at most
+#define KSWV_FAR 0x3fffffff     // "no segment" in the split form's stop
 
 // Called after each row's lazy-F with the number of sweeps it ran (the host
 // tests count them).
@@ -139,6 +144,14 @@ KSWV_D int kswv_max3(int x, int y, int z) {
     return kswv_max(kswv_max(x, y), z);
 #endif
 }
+// the lowest set bit of x != 0
+KSWV_D int kswv_ctz(int x) {
+#ifdef __CUDA_ARCH__
+    return __ffs(x) - 1;
+#else
+    return __builtin_ctz((unsigned)x);
+#endif
+}
 // prmt (__byte_perm's PTX instruction): byte n of the result is byte
 // (sel >> 4n) & 7 of hi:lo, or that byte's sign in all 8 bits where bit 3
 // of the nibble is set.
@@ -161,34 +174,101 @@ KSWV_D int kswv_prmt(unsigned lo, unsigned hi, int sel) {
 
 #ifdef __CUDACC__
 
-// The card's group: NL consecutive lanes of a warp, one int per thread.
-template <int N>
+// The card's group: NL lanes x S sub-threads, one int per thread, thread
+// t = s * NL + l (sub-thread s of lane l).  A group of at most 32 threads
+// is a run of consecutive lanes of a warp, and every crossing is a warp
+// intrinsic over its threads; a larger one (the split form at S * NL > 32)
+// is a whole block, whose crossings between warps go through `xch`, a
+// shared-memory buffer of 2 x T ints (two halves used in turn, so that
+// one barrier per exchange suffices).  A lane's NL sub-thread-s threads
+// always lie in one warp.
+template <int N, int S_ = 1>
 struct KswvGroup {
-    static constexpr int NL = N;
+    static constexpr int NL = N, S = S_, T = N * S_;
+    static constexpr int W = T > 32 ? T / 32 : 1;      // warps
+    static constexpr int WIDTH = T > 32 ? 32 : T;      // shuffle width
     using V = int;
-    unsigned mask;
-    int l;
-    __device__ KswvGroup() {
+    unsigned mask, lmask;
+    int l, s, t;
+    int *xch;
+    mutable int half;
+    __device__ explicit KswvGroup(int *x = nullptr) : xch(x), half(0) {
         const int wl = threadIdx.x & 31;
-        l = wl & (NL - 1);
-        mask = ((NL == 32) ? 0xffffffffu : ((1u << NL) - 1u))
-               << (wl & ~(NL - 1));
+        t = W > 1 ? (int)threadIdx.x : wl & (T - 1);
+        l = t & (NL - 1);
+        s = t / NL;
+        mask = W > 1 ? 0xffffffffu
+                     : ((T == 32) ? 0xffffffffu : ((1u << T) - 1u))
+                           << (wl & ~(T - 1));
+        lmask = ((NL == 32) ? 0xffffffffu : ((1u << NL) - 1u))
+                << (wl & ~(NL - 1));
     }
     KSWV_D int lane() const { return l; }
-    KSWV_D bool leader() const { return l == 0; }
+    KSWV_D int sub() const { return s; }
+    KSWV_D bool leader() const { return t == 0; }
     KSWV_D int shfl_up0(int x) const {
         const int y = __shfl_up_sync(mask, x, 1, NL);
         return l ? y : 0;
     }
     KSWV_D bool all(bool p) const { return __all_sync(mask, p); }
-    KSWV_D int reduce_max(int x) const { return __reduce_max_sync(mask, x); }
-    KSWV_D int reduce_min(int x) const { return __reduce_min_sync(mask, x); }
-    KSWV_D int broadcast(int x, int s) const {
-        return __shfl_sync(mask, x, s, NL);
+    // One exchange: every thread offers x; get(src) is thread src's.
+    struct Xch {
+        const KswvGroup &g;
+        int x;
+        const int *p;
+        KSWV_D int get(int src) const {
+            if constexpr (W > 1)
+                return p[src];
+            else
+                return __shfl_sync(g.mask, x, src, T);
+        }
+    };
+    KSWV_D Xch publish(int x) const {
+        if constexpr (W > 1) {
+            int *p = xch + half * T;
+            half ^= 1;
+            p[t] = x;
+            __syncthreads();
+            return Xch{*this, x, p};
+        } else {
+            return Xch{*this, x, nullptr};
+        }
+    }
+    KSWV_D int shfl(int x, int src) const { return publish(x).get(src); }
+    KSWV_D int reduce_max(int x) const {
+        const int r = __reduce_max_sync(mask, x);
+        if constexpr (W > 1) {
+            const Xch e = publish(r);
+            int m = e.get(0);
+            KSWV_UNROLL
+            for (int w = 1; w < W; ++w) m = kswv_max(m, e.get(32 * w));
+            return m;
+        }
+        return r;
+    }
+    KSWV_D int reduce_min(int x) const {
+        const int r = __reduce_min_sync(mask, x);
+        if constexpr (W > 1) {
+            const Xch e = publish(r);
+            int m = e.get(0);
+            KSWV_UNROLL
+            for (int w = 1; w < W; ++w) m = kswv_min(m, e.get(32 * w));
+            return m;
+        }
+        return r;
+    }
+    // the AND over the NL lanes of this thread's sub-thread index
+    KSWV_D int reduce_and_lanes(int x) const {
+        return (int)__reduce_and_sync(lmask, (unsigned)x);
+    }
+    KSWV_D int broadcast(int x, int r) const {
+        return __shfl_sync(mask, x, r, WIDTH);
     }
     KSWV_D int select(bool m, int a, int b) const { return m ? a : b; }
     template <class F>
     KSWV_D int map(F f) const { return f(l); }
+    template <class F>           // f(lane, sub-thread)
+    KSWV_D int map2(F f) const { return f(l, s); }
     KSWV_D int ld16(const int16_t *p) const { return p[l]; }
     KSWV_D void st16(int16_t *p, int x) const { p[l] = (int16_t)x; }
     KSWV_D int ld8(const uint8_t *p) const { return p[l]; }
@@ -222,9 +302,11 @@ struct KswvLanes {
     KSWV_LANE_OP(-)
     KSWV_LANE_OP(*)
     KSWV_LANE_OP(|)
+    KSWV_LANE_OP(&)
     KSWV_LANE_OP(>)
     KSWV_LANE_OP(<=)
     KSWV_LANE_OP(==)
+    KSWV_LANE_OP(!=)
 #undef KSWV_LANE_OP
     friend KswvLanes kswv_max(const KswvLanes &x, const KswvLanes &y) {
         return apply([&](int l) { return kswv_max(x.v[l], y.v[l]); });
@@ -237,50 +319,78 @@ struct KswvLanes {
         return apply(
             [&](int l) { return kswv_max3(x.v[l], y.v[l], z.v[l]); });
     }
+    friend KswvLanes kswv_ctz(const KswvLanes &x) {
+        return apply([&](int l) { return kswv_ctz(x.v[l]); });
+    }
 };
 
-// The host's group: the NL lanes stepped in lockstep.
-template <int N>
+// The host's group: the NL x S threads stepped in lockstep (thread t =
+// s * NL + l).
+template <int N, int S_ = 1>
 struct KswvGroup {
-    static constexpr int NL = N;
-    using V = KswvLanes<NL>;
-    V lane() const { return V::apply([](int l) { return l; }); }
+    static constexpr int NL = N, S = S_, T = N * S_;
+    using V = KswvLanes<T>;
+    explicit KswvGroup(int * = nullptr) {}
+    V lane() const { return V::apply([](int t) { return t % NL; }); }
+    V sub() const { return V::apply([](int t) { return t / NL; }); }
     bool leader() const { return true; }
     V shfl_up0(const V &x) const {
-        return V::apply([&](int l) { return l ? x.v[l - 1] : 0; });
+        return V::apply([&](int t) { return t % NL ? x.v[t - 1] : 0; });
     }
     bool all(const V &p) const {
-        for (int l = 0; l < NL; ++l)
+        for (int l = 0; l < T; ++l)
             if (!p.v[l]) return false;
         return true;
     }
+    struct Xch {
+        V x;
+        V get(const V &src) const {
+            return V::apply([&](int t) { return x.v[src.v[t]]; });
+        }
+        int get(int src) const { return x.v[src]; }
+    };
+    Xch publish(const V &x) const { return Xch{x}; }
+    V shfl(const V &x, const V &src) const { return publish(x).get(src); }
     int reduce_max(const V &x) const {
         int r = x.v[0];
-        for (int l = 1; l < NL; ++l) r = kswv_max(r, x.v[l]);
+        for (int l = 1; l < T; ++l) r = kswv_max(r, x.v[l]);
         return r;
     }
     int reduce_min(const V &x) const {
         int r = x.v[0];
-        for (int l = 1; l < NL; ++l) r = kswv_min(r, x.v[l]);
+        for (int l = 1; l < T; ++l) r = kswv_min(r, x.v[l]);
         return r;
+    }
+    V reduce_and_lanes(const V &x) const {
+        return V::apply([&](int t) {
+            int r = -1;
+            for (int l = 0; l < NL; ++l) r &= x.v[t / NL * NL + l];
+            return r;
+        });
     }
     int broadcast(const V &x, int s) const { return x.v[s]; }
     V select(const V &m, const V &a, const V &b) const {
         return V::apply([&](int l) { return m.v[l] ? a.v[l] : b.v[l]; });
     }
     template <class F>
-    V map(F f) const { return V::apply(f); }
+    V map(F f) const {
+        return V::apply([&](int t) { return f(t % NL); });
+    }
+    template <class F>
+    V map2(F f) const {
+        return V::apply([&](int t) { return f(t % NL, t / NL); });
+    }
     V ld16(const int16_t *p) const {
-        return V::apply([&](int l) { return (int)p[l]; });
+        return V::apply([&](int t) { return (int)p[t % NL]; });
     }
     void st16(int16_t *p, const V &x) const {
-        for (int l = 0; l < NL; ++l) p[l] = (int16_t)x.v[l];
+        for (int l = 0; l < T; ++l) p[l % NL] = (int16_t)x.v[l];
     }
     V ld8(const uint8_t *p) const {
-        return V::apply([&](int l) { return (int)p[l]; });
+        return V::apply([&](int t) { return (int)p[t % NL]; });
     }
     void st8(uint8_t *p, const V &x) const {
-        for (int l = 0; l < NL; ++l) p[l] = (uint8_t)x.v[l];
+        for (int l = 0; l < T; ++l) p[l % NL] = (uint8_t)x.v[l];
     }
     V prmt(unsigned lo, unsigned hi, const V &s) const {
         return V::apply([&](int l) { return kswv_prmt(lo, hi, s.v[l]); });
@@ -374,6 +484,44 @@ inline int kswv_bucket(int u8, int Qmax) {
 struct alignas(16) KswvRow8 {
     int16_t v[8];
 };
+
+// The leader's end of a phase: the second best from the b-array (an
+// entry merges only into the entry of the immediately preceding row; the
+// first best outside te +- ceil(score / maxsc) wins) and the row of 6.
+KSWV_D void kswv_write(const KswvDesc &d, const int16_t *rm, int rowstop,
+                       int score, int te, int qe, int sat, int maxsc,
+                       int *out) {
+    int best2 = -1, te2 = -1;
+    if (d.minsc <= 0xFFFF && d.live) {
+        const int i2 = (score + maxsc - 1) / maxsc;
+        const int low = te - i2, high = te + i2;
+        bool have = false;
+        int val = 0, row = -2;
+        for (int i0 = 0; i0 < rowstop; i0 += 8) {
+            const KswvRow8 r8 = *(const KswvRow8 *)(rm + i0);
+            KSWV_UNROLL
+            for (int u = 0; u < 8; ++u) {
+                const int i = i0 + u, v = r8.v[u];
+                if (i >= rowstop || v < d.minsc) continue;
+                if (have && row + 1 == i) {
+                    if (v > val) val = v, row = i;
+                    continue;
+                }
+                if (have && (row < low || row > high) && val > best2)
+                    best2 = val, te2 = row;
+                val = v, row = i, have = true;
+            }
+        }
+        if (have && (row < low || row > high) && val > best2)
+            best2 = val, te2 = row;
+    }
+    out[0] = score;
+    out[1] = te;
+    out[2] = qe;
+    out[3] = best2;
+    out[4] = te2;
+    out[5] = sat;
+}
 
 // One phase of one problem in group g with stripes st; qcap/tcap bound
 // qlen/tlen to the stripes and to the row array rm.  The leader writes out
@@ -516,42 +664,223 @@ KSWV_D KswvEnd kswv_phase(const G &g, S &st, const KswvBatch &b,
         const int mv = g.reduce_max(bv);
         qe = g.reduce_min(g.select(bv == mv, bp, V(INT_MAX)));
     }
-    if (g.leader()) {
-        // second best from the b-array: an entry merges only into the entry
-        // of the immediately preceding row; the first best outside te +-
-        // ceil(score / maxsc) wins
-        int best2 = -1, te2 = -1;
-        if (d.minsc <= 0xFFFF && d.live) {
-            const int i2 = (score + maxsc - 1) / maxsc;
-            const int low = te - i2, high = te + i2;
-            bool have = false;
-            int val = 0, row = -2;
-            for (int i0 = 0; i0 < rowstop; i0 += 8) {
-                const KswvRow8 r8 = *(const KswvRow8 *)(rm + i0);
-                KSWV_UNROLL
-                for (int u = 0; u < 8; ++u) {
-                    const int i = i0 + u, v = r8.v[u];
-                    if (i >= rowstop || v < d.minsc) continue;
-                    if (have && row + 1 == i) {
-                        if (v > val) val = v, row = i;
-                        continue;
-                    }
-                    if (have && (row < low || row > high) && val > best2)
-                        best2 = val, te2 = row;
-                    val = v, row = i, have = true;
-                }
-            }
-            if (have && (row < low || row > high) && val > best2)
-                best2 = val, te2 = row;
-        }
-        out[0] = score;
-        out[1] = te;
-        out[2] = qe;
-        out[3] = best2;
-        out[4] = te2;
-        out[5] = sat;
-    }
+    if (g.leader()) kswv_write(d, rm, rowstop, score, te, qe, sat, maxsc, out);
     return KswvEnd{score, te, qe, sat};
+}
+
+// One phase of one problem in the split form, G::S > 1 sub-threads a
+// lane (register stripes of SMAX segments): kswv_phase's cells, stop and
+// output, value for value.  Lane l keeps its columns [l*slen, (l+1)*slen),
+// so the stripes, and with them the row maximum taken before the lazy-F
+// fixup, are kswv_phase's; its segments are cut into runs of m =
+// ceil(slen / S), sub-thread s holding segments s*m .. s*m + n - 1 as its
+// registers 0 .. n - 1.
+//   * main pass: F into the next segment is max(F - a, b_j), a =
+//     min(e_ins, oe_ins) and b_j = max(X_j - oe_ins, 0), where X_j =
+//     max(sat(diag + score), E_j) is known before F; a run composes to F
+//     -> max(F - n*a, B).  Pass 1 finds each run's B (F entering at
+//     -inf), one exchange gives every sub-thread its lane's S values, each
+//     folds those before it into its entering F (and all of them into the
+//     lane's F out), and pass 2 runs its segments as kswv_phase does.
+//   * lazy-F: F only decays, max(F - e_ins, 0), so a sweep's F at any
+//     segment follows from the lane's entering F.  Each sub-thread votes
+//     on its segments without writing them; an AND over the NL lanes of
+//     the same runs and a min over the group find the first segment at
+//     which every lane stops, and only the segments up to it are written.
+// Per row: one exchange for the diagonal (the previous run's last H, or
+// lane l-1's), one for the runs' B, a min per lazy-F sweep, the row max.
+template <int SMAX, bool U8, class G, class St>
+KSWV_D KswvEnd kswv_phase_split(const G &g, St &st, const KswvBatch &b,
+                                const KswvDesc &d, int qcap, int tcap,
+                                int16_t *rm, int *out) {
+    static_assert(SMAX > 0, "the split form keeps its stripes in registers");
+    using V = typename G::V;
+    constexpr int NL = G::NL, S = G::S;
+    const KswvParams &sp = b.sp;
+    const int shift = kswv_max(kswv_max(-sp.a, sp.b), 1);
+    const int maxsc = kswv_max(kswv_max(sp.a, -sp.b), 1);
+    const int oe_del = sp.o_del + sp.e_del, oe_ins = sp.o_ins + sp.e_ins;
+    const int fa = kswv_min(sp.e_ins, oe_ins);
+    const int qlen = d.qlen < qcap ? d.qlen : qcap;
+    const int tlen = d.tlen < tcap ? d.tlen : tcap;
+    const int slen = (qlen + NL - 1) / NL;
+    const int m = (slen + S - 1) / S;
+    const int slast = m ? (slen - 1) / m : 0;   // the run holding slen - 1
+    const V l = g.lane(), s = g.sub();
+    const V j0 = s * m;
+    const V n = kswv_min(kswv_max(slen - j0, 0), m);
+
+    KSWV_UNROLL
+    for (int jj = 0; jj < SMAX; ++jj) {
+        if (jj < m)
+            st.set_code(jj, g.map2([&](int ll, int ss) {
+                const int j = ss * m + jj, c = ll * slen + j;
+                if (j >= slen || c >= qlen) return 5;     // pad column
+                int64_t qp = d.qoff + (int64_t)d.qdir * c;
+                qp = qp < 0 ? 0 : (qp > b.n_enc - 1 ? b.n_enc - 1 : qp);
+                int qc = b.enc[qp];
+                if (d.qcomp && qc < 4) qc = 3 - qc;
+                return (unsigned)qc < 4u ? qc : 4;
+            }));
+    }
+    const int bias = U8 ? shift : 0;
+    const unsigned ap = (unsigned)(sp.a + bias) & 0xffu;
+    const unsigned amb = (unsigned)(bias - 1) & 0xffu;
+    const unsigned t_mis = ((unsigned)(bias - sp.b) & 0xffu) * 0x01010101u;
+    const unsigned t_amb = amb * 0x01010101u;
+    const unsigned thi = amb | ((unsigned)bias << 8);
+
+    st.init(slen);
+    V last = 0;       // H at this run's last segment
+    int gmax = 0, te = -1, rowstop = d.live ? tlen : 0;
+    auto tload = [&](int i0) {
+        return g.map([&](int ll) {
+            return bsw_ref_at(b.ref, b.n_ref, b.packed,
+                              d.toff + (int64_t)d.tdir * (i0 + ll));
+        });
+    };
+    V tcur = 0, tnxt = 0;
+    if (d.live && tlen > 0) {
+        tcur = tload(0);
+        tnxt = tload(NL);
+    }
+    // where a run's first diagonal comes from: the lane's previous run, or
+    // lane l-1's run holding slen - 1 (lane 0's first run: 0)
+    const V d_zero = (s == 0) & (l == 0);
+    const V d_src = kswv_max(
+        g.select(s > 0, (s - 1) * NL + l, slast * NL + l - 1), 0);
+    for (int i = 0; d.live && i < tlen; ++i) {
+        const int r = i & (NL - 1);
+        const int ti = g.broadcast(tcur, r);
+        if (r == NL - 1) {
+            tcur = tnxt;
+            tnxt = tload(i + 1 + NL);
+        }
+        const unsigned tlo =
+            ti < 4 ? (t_mis & ~(0xffu << (8 * ti))) | (ap << (8 * ti))
+                   : t_amb;
+        const V h0 = g.select(d_zero, 0, g.shfl(last, d_src));
+        // pass 1: the run's B
+        V h = h0, B = -KSWV_FAR;
+        KSWV_UNROLL
+        for (int jj = 0; jj < SMAX; ++jj) {
+            if (jj >= m) continue;
+            V hh = h + g.prmt(tlo, thi, st.sel(jj));
+            hh = U8 ? kswv_min(hh, 255) - shift : kswv_min(hh, 32767);
+            B = g.select(n > jj,
+                         kswv_max3(B - fa, kswv_max(hh, st.E(jj)) - oe_ins,
+                                   0),
+                         B);
+            h = st.H(jj);
+        }
+        // the entering F of this run and the lane's F out
+        V f = 0, fl = 0;
+        {
+            const auto xb = g.publish(B);
+            KSWV_UNROLL
+            for (int u = 0; u < S; ++u) {
+                const int nu = kswv_min(kswv_max(slen - u * m, 0), m);
+                fl = kswv_max(fl - nu * fa, xb.get(u * NL + l));
+                f = g.select(s == u + 1, fl, f);
+            }
+        }
+        // pass 2: kswv_phase's main pass over the run
+        h = h0;
+        V mx = 0;
+        KSWV_UNROLL
+        for (int jj = 0; jj < SMAX; ++jj) {
+            if (jj >= m) continue;
+            V hh = h + g.prmt(tlo, thi, st.sel(jj));
+            if (U8)
+                hh = kswv_min(hh, 255) - shift;
+            else
+                hh = kswv_min(hh, 32767);
+            const V ee = st.E(jj);
+            hh = kswv_max3(hh, ee, f);
+            mx = g.select(n > jj, kswv_max(mx, hh), mx);
+            h = st.H(jj);
+            st.setH(jj, hh);
+            last = g.select(n == jj + 1, hh, last);
+            st.setE(jj, kswv_max3(ee - sp.e_del, hh - oe_del, 0));
+            f = kswv_max3(f - sp.e_ins, hh - oe_ins, 0);
+        }
+        // lazy-F: sweep k enters lane l with lane l-1's F
+        V fin = g.shfl_up0(fl);
+        bool go = true;
+        int k = 0;
+        for (; go && k < KSWV_SWEEPS; ++k) {
+            if (k) fin = g.shfl_up0(kswv_max(fin - slen * sp.e_ins, 0));
+            const V f0 = kswv_max(fin - j0 * sp.e_ins, 0);
+            V fv = f0, votes = 0;
+            KSWV_UNROLL
+            for (int jj = 0; jj < SMAX; ++jj) {
+                if (jj >= m) continue;
+                const V hh = kswv_max(st.H(jj), fv);
+                fv = kswv_max(fv - sp.e_ins, 0);
+                votes = votes | g.select((n > jj) & (fv <= kswv_max(
+                                                         hh - oe_ins, 0)),
+                                         1 << jj, 0);
+            }
+            const V all = g.reduce_and_lanes(votes);
+            const int stop = g.reduce_min(
+                g.select(all != 0, j0 + kswv_ctz(all | (all == 0)),
+                         KSWV_FAR));
+            fv = f0;
+            KSWV_UNROLL
+            for (int jj = 0; jj < SMAX; ++jj) {
+                if (jj >= m) continue;
+                const V hh = kswv_max(st.H(jj), fv);
+                const V up = j0 + jj <= stop;
+                st.setH(jj, g.select(up, hh, st.H(jj)));
+                last = g.select(up & (n == jj + 1), hh, last);
+                fv = kswv_max(fv - sp.e_ins, 0);
+            }
+            go = stop == KSWV_FAR;
+        }
+        KSWV_SWEEP_HOOK(k);
+        const int imax = g.reduce_max(mx);
+        if (g.leader()) rm[i] = (int16_t)imax;
+        if (imax > gmax) {
+            gmax = imax;
+            te = i;
+            st.keep(slen);
+            if ((U8 && gmax + shift >= 255) || gmax >= d.endsc) {
+                rowstop = i + 1;
+                break;
+            }
+        }
+    }
+
+    const int sat = U8 && d.live && gmax + shift >= 255;
+    const int score = sat ? 255 : gmax;
+    int qe = -1;
+    if (d.live && te >= 0) {
+        const V col0 = l * slen + j0;
+        V bv = -1, bp = INT_MAX;
+        KSWV_UNROLL
+        for (int jj = 0; jj < SMAX; ++jj) {
+            if (jj >= m) continue;
+            const V v = g.select(n > jj, st.M(jj), -1);
+            const auto up = v > bv;
+            bp = g.select(up, col0 + jj, bp);
+            bv = g.select(up, v, bv);
+        }
+        const int mv = g.reduce_max(bv);
+        qe = g.reduce_min(g.select(bv == mv, bp, V(INT_MAX)));
+    }
+    if (g.leader()) kswv_write(d, rm, rowstop, score, te, qe, sat, maxsc, out);
+    return KswvEnd{score, te, qe, sat};
+}
+
+// One phase in group g: the split form where G::S > 1, else kswv_phase.
+template <int SMAX, bool U8, class G, class St>
+KSWV_D KswvEnd kswv_one_phase(const G &g, St &st, const KswvBatch &b,
+                              const KswvDesc &d, int qcap, int tcap,
+                              int16_t *rm, int *out) {
+    if constexpr (G::S > 1)
+        return kswv_phase_split<SMAX, U8>(g, st, b, d, qcap, tcap, rm, out);
+    else
+        return kswv_phase<SMAX, U8>(g, st, b, d, qcap, tcap, rm, out);
 }
 
 // Both phases of problem p: phase 0 forward with the b-array floor minsc,
@@ -570,7 +899,7 @@ KSWV_D void kswv_both(const G &g, S &st, const KswvBatch &b, int p,
     KSWV_NO_UNROLL
     for (int ph = 0; ph < 2; ++ph) {
         const KswvEnd r =
-            kswv_phase<SMAX, U8>(g, st, b, d, qcap, b.Tmax, rm, out);
+            kswv_one_phase<SMAX, U8>(g, st, b, d, qcap, b.Tmax, rm, out);
         const int want =
             !r.sat && r.score >= b.minsc && r.te >= 0 && r.qe >= 0;
         d = KswvDesc{qoff + (int64_t)qdir * r.qe, -qdir, qcomp,
@@ -588,10 +917,10 @@ KSWV_D void kswv_both(const G &g, S &st, const KswvBatch &b, int p,
 template <bool U8, int SMAX, class G, class F>
 KSWV_D void kswv_with_stripes(const G &g, const KswvBatch &b, void *stripes,
                               F body) {
-    constexpr int NL = G::NL;
+    constexpr int NL = G::NL, Q = SMAX * NL * G::S;
     if constexpr (SMAX > 0) {
         KswvRegStripes<G, SMAX, U8> st;
-        body(st, b.Qmax < SMAX * NL ? b.Qmax : SMAX * NL);
+        body(st, b.Qmax < Q ? b.Qmax : Q);
     } else {
         KswvPtrStripes<G, U8> st(g, stripes, b.Qmax / NL);
         body(st, b.Qmax);
@@ -629,6 +958,6 @@ KSWV_D void kswv_run_phase(const G &g, const KswvBatch &b,
     int16_t *rm = b.rowmax + (int64_t)p * b.Tpad;
     int *out = b.out + (int64_t)p * 6;
     kswv_with_stripes<U8, SMAX>(g, b, stripes, [&](auto &st, int qcap) {
-        kswv_phase<SMAX, U8>(g, st, b, d, qcap, b.Tmax, rm, out);
+        kswv_one_phase<SMAX, U8>(g, st, b, d, qcap, b.Tmax, rm, out);
     });
 }

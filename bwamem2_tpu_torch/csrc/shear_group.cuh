@@ -76,7 +76,9 @@
 
 // One launch: pairs [p0, P), pair p's output row at out[p * 6]; the band
 // radius Wh (>= every pair's w), the row cap Tmax and the memory frame's
-// slots per lane C.
+// slots per lane C.  When n16 is set (a count on the card, which the host
+// never reads), the 16-bit body's kernel runs pairs [p0, *n16) and the
+// int32 body's [*n16, P), each launched for all of them.
 struct ShearBatch {
     const int8_t *enc;
     int64_t n_enc;
@@ -89,6 +91,7 @@ struct ShearBatch {
     int p0, P, Wh, Tmax, C;
     BswParams sp;
     int *out;
+    const int *n16;
 };
 
 #define SHEAR_G 32   // lanes per pair: one warp
@@ -758,6 +761,326 @@ BSW_D void shear_pair_s16(const Grp &g, const ShearBatch &b, int p) {
         E[R - 1] = s16_prmt2(
             e_first, g.select(last_lane, 0, g.shfl_down(e_first, 1)), 0x5432);
         if (at_end) s.at_end(i, g.reduce_max(hv));
+        if (s.stop(sp, i, row_m, mj + org)) break;
+        s.shrink(first, last, org);
+    }
+    if (g.leader()) s.write(b.out + (int64_t)p * 6);
+}
+
+// ---------------------------------------------------------------------
+// The split-band form: one pair on the K warps of a block, G = 32 K lanes
+// of C int32 slots each (SHEAR_BLK_BUCKETS), for launches whose pairs are
+// too few to fill the card one warp a pair.  The frame and the row are
+// shear_pair_i32's; a warp runs C = (its frame) / 32 K slots a row, and
+// what crosses warps goes through shared memory in two exchanges a row
+// (one barrier each), the rest through the warp's shuffles:
+//   * after pass 1: each warp's F carry (its last lane's inclusive scan)
+//     and its lane 0's old S[0] and H[0] (the previous warp's lane 31
+//     takes them as the next lane's); a warp enters F with the fold of
+//     the warps before it;
+//   * after pass 2: each warp's row maximum and its rightmost column, H
+//     at the band's end, the band shrink's first and last non-zero slot,
+//     and lane 0's E after the row.  So that the shrink need not wait for
+//     the next lane's E, each lane takes its own first E, which lands in
+//     the previous lane's last slot, as a candidate at col0 - 1 (as
+//     shear_pair_s16 does).
+// The two exchanges use separate slots, so no third barrier is needed: a
+// warp writes one only after every warp has passed the other's barrier.
+enum {
+    SHEAR_X_TOT, SHEAR_X_S0, SHEAR_X_H0,       // after pass 1
+    SHEAR_X_EF, SHEAR_X_M, SHEAR_X_J, SHEAR_X_HV, SHEAR_X_FS, SHEAR_X_LS,
+    SHEAR_X_SLOTS
+};
+
+// The split form's buckets, X(K, C, Wh at most): K warps a pair, C int32
+// slots a lane, the frame of 32 K C slots holding 2 Wh + 3.  (K = 4, C = 2
+// and 4 ran slower than K = 2 on an H100 at 64 and 512 pairs.)
+#define SHEAR_BLK_BUCKETS(X) X(2, 4, 110) X(2, 7, 206)
+
+#ifdef __CUDACC__
+
+// The card's block of K warps: a lane is a thread, `xch` the block's
+// SHEAR_X_SLOTS x K ints of shared memory.
+template <int K_>
+struct ShearBlock {
+    static constexpr int K = K_, G = 32 * K_;
+    using V = int;
+    int l, wl, w;
+    int *xch;
+    __device__ explicit ShearBlock(int *x) : xch(x) {
+        l = threadIdx.x;
+        wl = l & 31;
+        w = l >> 5;
+    }
+    BSW_D int lane() const { return l; }
+    BSW_D int wlane() const { return wl; }
+    BSW_D int warp() const { return w; }
+    BSW_D bool leader() const { return l == 0; }
+    BSW_D int shfl_up_w(int x, int k) const {
+        return __shfl_up_sync(0xffffffffu, x, k);
+    }
+    BSW_D int shfl_down_w(int x, int k) const {
+        return __shfl_down_sync(0xffffffffu, x, k);
+    }
+    BSW_D int broadcast(int x, int r) const {   // lane r of this warp
+        return __shfl_sync(0xffffffffu, x, r);
+    }
+    BSW_D int wmax(int x) const { return __reduce_max_sync(0xffffffffu, x); }
+    BSW_D int wmin(int x) const { return __reduce_min_sync(0xffffffffu, x); }
+    // lane `src` of each warp offers x in slot k; get(k, u) after sync()
+    BSW_D void put(int k, int x, int src) const {
+        if (wl == src) xch[k * K + w] = x;
+    }
+    BSW_D void sync() const { __syncthreads(); }
+    BSW_D int get(int k, int u) const { return xch[k * K + u]; }
+    BSW_D int select(bool m, int a, int b) const { return m ? a : b; }
+    template <class F>
+    BSW_D int map(F f) const { return f(l); }
+    BSW_D int prmt(unsigned lo, unsigned hi, int s) const {
+        return bsw_prmt(lo, hi, s);
+    }
+};
+
+#else
+
+// The host's block: G lanes in one lane vector, the warps' shuffles and
+// reductions within each run of 32.
+template <int K_>
+struct ShearBlock {
+    static constexpr int K = K_, G = 32 * K_;
+    using V = BswLanes<G>;
+    int *xch;
+    explicit ShearBlock(int *x) : xch(x) {}
+    V lane() const { return V::apply([](int l) { return l; }); }
+    V wlane() const { return V::apply([](int l) { return l & 31; }); }
+    V warp() const { return V::apply([](int l) { return l >> 5; }); }
+    bool leader() const { return true; }
+    V shfl_up_w(const V &x, int k) const {
+        return V::apply(
+            [&](int l) { return (l & 31) >= k ? x.v[l - k] : x.v[l]; });
+    }
+    V shfl_down_w(const V &x, int k) const {
+        return V::apply(
+            [&](int l) { return (l & 31) + k < 32 ? x.v[l + k] : x.v[l]; });
+    }
+    // lane r of the first warp: the callers' values are the same in every
+    // warp
+    int broadcast(const V &x, int r) const { return x.v[r]; }
+    V wmax(const V &x) const {
+        return V::apply([&](int l) {
+            int r = x.v[l & ~31];
+            for (int u = 1; u < 32; ++u) r = bsw_max(r, x.v[(l & ~31) + u]);
+            return r;
+        });
+    }
+    V wmin(const V &x) const {
+        return V::apply([&](int l) {
+            int r = x.v[l & ~31];
+            for (int u = 1; u < 32; ++u) r = bsw_min(r, x.v[(l & ~31) + u]);
+            return r;
+        });
+    }
+    void put(int k, const V &x, int src) const {
+        for (int u = 0; u < K; ++u) xch[k * K + u] = x.v[32 * u + src];
+    }
+    void sync() const {}
+    int get(int k, int u) const { return xch[k * K + u]; }
+    V select(const V &m, const V &a, const V &b) const {
+        return V::apply([&](int l) { return m.v[l] ? a.v[l] : b.v[l]; });
+    }
+    template <class F>
+    V map(F f) const { return V::apply(f); }
+    V prmt(unsigned lo, unsigned hi, const V &s) const {
+        return V::apply([&](int l) { return bsw_prmt(lo, hi, s.v[l]); });
+    }
+};
+
+#endif
+
+// The split-band body: pair p on block g (ShearBlock<K>), C int32 slots a
+// lane in registers; shear_pair_i32's rows, value for value.
+template <int C, class Grp>
+BSW_D void shear_pair_blk(const Grp &g, const ShearBatch &b, int p) {
+    using V = typename Grp::V;
+    constexpr int G = Grp::G, K = Grp::K;
+    constexpr int F = G * C;
+    const BswParams &sp = b.sp;
+    ShearPair s(b, p);
+    const int Wh = b.Wh;
+
+    const V col0 = g.lane() * C;
+    const V wl = g.wlane(), wp = g.warp();
+    const V last_lane = g.lane() == G - 1;
+    V H[C], E[C], S[C], M[C], U[C];
+    BSW_UNROLL
+    for (int c = 0; c < C; ++c) {
+        H[c] = g.map([&](int l) { return s.h_init(sp, l * C + c - Wh - 1); });
+        E[c] = 0;
+        S[c] = g.map(
+            [&](int l) { return BSW_SEL(s.code(b, l * C + c - Wh - 1)); });
+    }
+    const int bias = sp.b > 1 ? sp.b : 1;
+    const unsigned t_mis = (unsigned)(bias - sp.b);
+    const unsigned t_amb = (unsigned)(bias - 1);
+    const unsigned t_hit = (unsigned)(sp.a + bias);
+    const int step = C * sp.e_ins;     // F's decay over one lane's slots
+
+    auto tload = [&](int i0) {
+        return g.map([&](int l) { return s.target(b, i0 + (l & 31)); });
+    };
+    auto qload = [&](int i0) {
+        return g.map([&](int l) {
+            return BSW_SEL(s.code(b, i0 + (l & 31) + F - Wh - 1));
+        });
+    };
+    V tcur = 0, tnxt = 0, qcur = 0, qnxt = 0;
+    if (s.rows > 0) {
+        tcur = tload(0);
+        tnxt = tload(32);
+        qcur = qload(0);
+        qnxt = qload(32);
+    }
+    // the next warp's value of slot k, for each warp's lane 31
+    auto next_warp = [&](int k) {
+        V x = 0;
+        BSW_UNROLL
+        for (int u = 0; u + 1 < K; ++u) x = g.select(wp == u, g.get(k, u + 1), x);
+        return x;
+    };
+
+    for (int i = 0; i < s.rows; ++i) {
+        const int r = i & 31;
+        const int ti = g.broadcast(tcur, r);
+        const int q_enter = g.broadcast(qcur, r);
+        if (r == 31) {
+            tcur = tnxt;
+            tnxt = tload(i + 33);
+            qcur = qnxt;
+            qnxt = qload(i + 33);
+        }
+        const int h1_0 = s.row(sp, i);
+        const unsigned tlo =
+            ti < 4 ? ((t_mis * 0x01010101u) & ~(0xffu << (8 * ti)))
+                         | (t_hit << (8 * ti))
+                   : t_amb * 0x01010101u;
+        const unsigned thi = t_amb | ((ti < 4 ? t_mis : t_amb) << 8);
+        const int org = i - Wh - 1;
+        const V lo = s.beg - org - col0, hi = s.end - org - col0;
+
+        // pass 1, as shear_pair_i32
+        V fc = 0;
+        BSW_UNROLL
+        for (int c = 0; c < C; ++c) {
+            M[c] = g.select(H[c] != 0, H[c] + g.prmt(tlo, thi, S[c]) - bias,
+                            0);
+            U[c] = g.select(lo <= c, bsw_addmax(M[c], -(sp.o_ins + sp.e_ins),
+                                                0), 0);
+            fc = bsw_addmax(fc, -sp.e_ins, U[c]);
+        }
+        // F's scan: in the warp, then across the warps (exchange 1)
+        BSW_UNROLL
+        for (int k = 1; k < 32; k <<= 1) {
+            const V y = g.shfl_up_w(fc, k);
+            fc = g.select(wl >= k, bsw_addmax(y, -k * step, fc), fc);
+        }
+        g.put(SHEAR_X_TOT, fc, 31);
+        g.put(SHEAR_X_S0, S[0], 0);
+        g.put(SHEAR_X_H0, H[0], 0);
+        g.sync();
+        V fw = 0;
+        {
+            int acc = 0;
+            BSW_UNROLL
+            for (int u = 0; u + 1 < K; ++u) {
+                acc = bsw_max(acc - 32 * step, g.get(SHEAR_X_TOT, u));
+                fw = g.select(wp == u + 1, acc, fw);
+            }
+        }
+        V f = bsw_max(fw - wl * step,
+                      g.select(wl == 0, 0, g.shfl_up_w(fc, 1)));
+
+        const V lane31 = wl == 31;
+        const V s_in = g.select(lane31, next_warp(SHEAR_X_S0),
+                                g.shfl_down_w(S[0], 1));
+        BSW_UNROLL
+        for (int c = 0; c + 1 < C; ++c) S[c] = S[c + 1];
+        S[C - 1] = g.select(last_lane, q_enter, s_in);
+        const V h_in = g.select(
+            last_lane, s.h_init(sp, i + F - Wh - 1),
+            g.select(lane31, next_warp(SHEAR_X_H0), g.shfl_down_w(H[0], 1)));
+
+        // pass 2, as shear_pair_i32
+        V bv = 0, bc = -1, e_first = 0;
+        BSW_UNROLL
+        for (int c = 0; c < C; ++c) {
+            const V inb = (lo <= c) & (c < hi);
+            const V h = g.select(inb, bsw_max3(M[c], E[c], f), 0);
+            const V up = h >= bv;
+            bv = g.select(up, h, bv);
+            bc = g.select(up, col0 + c, bc);
+            const V e = bsw_max(E[c] - sp.e_del,
+                                bsw_addmax(M[c], -(sp.o_del + sp.e_del), 0));
+            const V ea = g.select(inb, e, g.select(c == hi, 0, E[c]));
+            const V hold = c + 1 < C ? H[c + 1 < C ? c + 1 : c] : h_in;
+            H[c] = g.select((lo <= c + 1) & (c + 1 <= hi),
+                            g.select(c + 1 == lo, h1_0, h), hold);
+            if (c == 0)
+                e_first = ea;
+            else
+                E[c - 1] = ea;
+            f = bsw_addmax(f, -sp.e_ins, U[c]);
+        }
+
+        // the warp's row maximum (rightmost column), H at the band's end,
+        // and the band shrink's slots: this lane's slots but E of its
+        // last (the next lane's e_first), and its own e_first at col0 - 1
+        const V lo1 = lo - 1, hi1 = hi - 1;
+        const V wm = g.wmax(bv);
+        const V wj = g.wmax(g.select(bv == wm, bc, -1));
+        V hv = -1;
+        BSW_UNROLL
+        for (int c = 0; c < C; ++c) hv = g.select(hi1 == c, H[c], hv);
+        V bits = 0;
+        BSW_UNROLL
+        for (int c = 0; c < C; ++c)
+            bits = bits | g.select((c + 1 < C ? H[c] | E[c] : H[c]) != 0,
+                                   1 << c, 0);
+        const V clo = bsw_min(bsw_max(lo1, 0), C);
+        const V below = (1 << clo) - 1;
+        const V band = (1 << bsw_min(bsw_max(hi1, 0), C)) - 1 - below;
+        const V bandE = (1 << bsw_min(bsw_max(hi1 + 1, 0), C)) - 1 - below;
+        const V nb = bits & band, nbE = bits & bandE;
+        V fs = g.select(nb != 0, col0 + bsw_ctz(nb), BSW_FAR);
+        V ls = g.select(nbE != 0, col0 + bsw_msb(nbE), -1);
+        const V e_nz = (e_first != 0) & (lo1 <= -1);
+        fs = g.select(e_nz & (hi1 > -1), bsw_min(fs, col0 - 1), fs);
+        ls = g.select(e_nz & (hi1 >= -1), bsw_max(ls, col0 - 1), ls);
+        // exchange 2
+        g.put(SHEAR_X_EF, e_first, 0);
+        g.put(SHEAR_X_M, wm, 0);
+        g.put(SHEAR_X_J, wj, 0);
+        g.put(SHEAR_X_HV, g.wmax(hv), 0);
+        g.put(SHEAR_X_FS, g.wmin(fs), 0);
+        g.put(SHEAR_X_LS, g.wmax(ls), 0);
+        g.sync();
+        int row_m = g.get(SHEAR_X_M, 0), mj = g.get(SHEAR_X_J, 0);
+        int hvr = g.get(SHEAR_X_HV, 0), first = g.get(SHEAR_X_FS, 0);
+        int last = g.get(SHEAR_X_LS, 0);
+        BSW_UNROLL
+        for (int u = 1; u < K; ++u) {
+            const int m = g.get(SHEAR_X_M, u);
+            mj = m > row_m ? g.get(SHEAR_X_J, u)
+                           : m == row_m ? bsw_max(mj, g.get(SHEAR_X_J, u))
+                                        : mj;
+            row_m = bsw_max(row_m, m);
+            hvr = bsw_max(hvr, g.get(SHEAR_X_HV, u));
+            first = bsw_min(first, g.get(SHEAR_X_FS, u));
+            last = bsw_max(last, g.get(SHEAR_X_LS, u));
+        }
+        E[C - 1] = g.select(
+            last_lane, 0,
+            g.select(lane31, next_warp(SHEAR_X_EF), g.shfl_down_w(e_first, 1)));
+        if (s.end == s.qlen) s.at_end(i, hvr);
         if (s.stop(sp, i, row_m, mj + org)) break;
         s.shrink(first, last, org);
     }

@@ -564,7 +564,8 @@ class DeviceBSW:
         descriptor order, so that each launch starts its longest pairs
         first."""
         rows = long_rows(qls, tls, w)
-        idxs = np.lexsort((-rows, ~np.asarray(fit, bool)))
+        idxs = long_first(torch.from_numpy(np.asarray(fit, bool)),
+                          torch.from_numpy(rows)).numpy()
         return idxs, rows[idxs]
 
     def _put(self, desc: dict, idxs: np.ndarray):
@@ -684,7 +685,9 @@ def _tile_descriptors(q: torch.Tensor, t: torch.Tensor, qlen, tlen):
     """Tiles as descriptors: the q tile int[P, Qmax] becomes the read grid
     (row p's query at flat offset p*Qmax, walked forward) and the t tile
     int[P, Tmax] an unpacked genome (row p's target at p*Tmax).  Raises
-    unless every qlen <= Qmax and tlen <= Tmax."""
+    unless every qlen <= Qmax and tlen <= Tmax: at once on the CPU, and on
+    the card through an assertion the device checks (torch._assert_async:
+    no copy to the host, no wait)."""
     P, Qmax = q.shape
     Tmax = t.shape[1]
     if t.shape[0] != P or qlen.shape[0] != P or tlen.shape[0] != P:
@@ -693,8 +696,13 @@ def _tile_descriptors(q: torch.Tensor, t: torch.Tensor, qlen, tlen):
     if P * max(Qmax, 1) >= 1 << 31:
         raise ValueError(f"{P} x {Qmax} query tile: the read grid's int32 "
                          "offsets take fewer than 2^31 cells")
-    if bool(((qlen < 0) | (qlen > Qmax) | (tlen < 0) | (tlen > Tmax)).any()):
-        raise ValueError(f"lengths outside the ({Qmax}, {Tmax}) tiles")
+    bad = (qlen < 0) | (qlen > Qmax) | (tlen < 0) | (tlen > Tmax)
+    if q.device.type == "cpu":
+        if bool(bad.any()):
+            raise ValueError(f"lengths outside the ({Qmax}, {Tmax}) tiles")
+    else:
+        torch._assert_async(~bad.any(),
+                            f"lengths outside the ({Qmax}, {Tmax}) tiles")
     dev = q.device
     row = torch.arange(P, device=dev)
     one = torch.ones(P, dtype=I32, device=dev)
@@ -736,21 +744,48 @@ def bsw_shear_tiles(q, t, qlen, tlen, h0, w, Wh: int, mat_a: int,
     Returns int32[P, 6]: score qle tle gtle gscore max_off.  The tiles go
     to bsw_shear as descriptors (its kernels on CUDA tensors,
     bsw_shear_desc_ref on the CPU) in the order of an extension call's
-    launches (DeviceBSW.long_order: the pairs that fit 16 bits first, each
-    part by descending rows), and the rows come back in tile order."""
-    from .bsw_shear_cuda import bsw_shear
-    P = q.shape[0]
+    launches (tile_long_order, DeviceBSW.long_order's on the device: the
+    pairs that fit 16 bits first, each part by descending rows), and the
+    rows come back in tile order.  Nothing here waits for the card: the
+    order and the 16-bit count stay on it (bsw_shear reads the count
+    there), the row cap is the tile's width, and the lengths are checked
+    by a device assertion."""
+    from .bsw_shear_cuda import BswShear, bsw_shear
     ref, enc, *desc = _tile_descriptors(q, t, qlen, tlen)
-    ql, tl, hz = (x.cpu().numpy() for x in (desc[2], desc[5], h0))
-    fit = bsw_shear.fits16(ql, hz, Wh, mat_a, mat_b, o_del, e_del, o_ins,
-                           e_ins, max_sc)
-    order, rows = DeviceBSW.long_order(ql, tl, Wh, fit)
-    idx = torch.from_numpy(order).to(q.device)
-    res = bsw_shear(ref, enc, *(x[idx].contiguous() for x in desc),
-                    h0.to(I32)[idx].contiguous(), w.to(I32)[idx].contiguous(),
-                    Wh, int(rows.max()) if P else 0, mat_a, mat_b, o_del,
+    h0 = h0.to(I32)
+    order, n16 = tile_long_order(desc[2], desc[5], h0, Wh, mat_a, mat_b,
+                                 o_del, e_del, o_ins, e_ins, max_sc)
+    if Wh > BswShear.REG_WH_MAX:     # the memory frame: every pair int32
+        n16 = 0
+    res = bsw_shear(ref, enc, *(x[order] for x in desc), h0[order],
+                    w.to(I32)[order], Wh, t.shape[1], mat_a, mat_b, o_del,
                     e_del, o_ins, e_ins, zdrop, end_bonus, max_sc,
-                    n16=int(fit.sum()))
+                    n16=n16 if q.device.type == "cuda" else 0)
     out = torch.empty_like(res)
-    out[idx] = res
+    out[order] = res
     return out
+
+
+def tile_long_order(qlen: torch.Tensor, tlen: torch.Tensor,
+                    h0: torch.Tensor, Wh: int, mat_a: int, mat_b: int,
+                    o_del: int, e_del: int, o_ins: int, e_ins: int,
+                    max_sc: int) -> tuple:
+    """DeviceBSW.long_order on tensors, on their device (no copy to the
+    host): (pair indices, int64, in launch order: the pairs that fit 16
+    bits (BswShear.fits16_t) first, each part by descending rows min(tlen,
+    qlen + Wh + 2), ties in index order; how many fit, an int32 tensor of
+    one element)."""
+    from .bsw_shear_cuda import BswShear
+    fit = BswShear.fits16_t(qlen, h0, Wh, mat_a, mat_b, o_del, e_del, o_ins,
+                            e_ins, max_sc)
+    rows = torch.minimum(tlen.to(torch.int64), qlen.to(torch.int64) + Wh + 2)
+    return long_first(fit, rows), fit.sum(dtype=torch.int32).reshape(1)
+
+
+def long_first(fit: torch.Tensor, rows: torch.Tensor) -> torch.Tensor:
+    """Pair indices in the order of a call's bsw_shear launches: the pairs
+    that fit 16 bits first, each part by descending rows, ties in index
+    order (one key, the 16-bit pairs' below the rest's, in a stable sort);
+    on the tensors' device."""
+    key = (~fit).to(torch.int64) * (1 << 40) - rows.to(torch.int64)
+    return torch.sort(key, stable=True).indices

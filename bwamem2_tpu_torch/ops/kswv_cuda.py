@@ -14,7 +14,12 @@ The kernel runs one lane group per problem (16 lanes u8, 8 lanes i16) and
 keeps the striped H, E and Hmax in registers or shared memory, so a launch
 allocates only its output and the int16 row maxima, [P, Tmax rounded up to
 8].  `kswv.plan` reports the launch's shape: the register bucket (0 for
-shared-memory stripes), groups per block and shared memory per block.
+shared-memory stripes), groups per block, shared memory per block and S,
+the threads a lane.  kswv_phase spreads each lane's segments over S = 2, 4
+or 8 threads when the batch's lanes are too few to hide a lane's chain of
+segments (the split form, csrc/kswv.cu:kswv_plan); `KswvPhase.split`
+forces S (0: the plan's choice), for the tests and the probes that time
+both forms.
 """
 
 from __future__ import annotations
@@ -51,19 +56,24 @@ class Kswv(CudaKernel):
             return kswv_two_phase_ref(*args)
         return self.launch(*args)
 
+    SPLIT = -1       # kswv_plan's split argument: the two-phase kernel's S = 1
+
     def plan(self, P: int, Qmax: int, u8: bool, dev
-             ) -> tuple[int, int, int]:
+             ) -> tuple[int, int, int, int]:
         """(register bucket, 0 for shared-memory stripes; groups per block;
-        dynamic shared memory bytes per block) of a launch on CUDA device
-        `dev`."""
-        plan = (ctypes.c_int * 3)()
-        err = self._query(dev, "kswv_plan", [I32, I32, I32, VP],
-                          int(bool(u8)), Qmax, P, ctypes.addressof(plan))
+        dynamic shared memory bytes per block; S, threads per lane) of a
+        launch on CUDA device `dev`."""
+        plan = (ctypes.c_int * 4)()
+        err = self._query(dev, "kswv_plan", [I32, I32, I32, I32, VP],
+                          int(bool(u8)), Qmax, P, self.SPLIT,
+                          ctypes.addressof(plan))
         if err:
             raise ValueError(
-                f"kswv: no launch for Qmax={Qmax} in the "
-                f"{'u8' if u8 else 'i16'} class (CUDA error {err}): one "
-                f"problem's stripes need {7 * Qmax} bytes of shared memory")
+                f"{self.NAME}: no launch for Qmax={Qmax} in the "
+                f"{'u8' if u8 else 'i16'} class at split={self.SPLIT} "
+                f"(CUDA error {err}): one problem's stripes need "
+                f"{7 * Qmax} bytes of shared memory, and a split lane 2 to "
+                "16 segments a thread")
         return tuple(plan)
 
     def _check(self, dev, want: dict, Qmax: int, Tmax: int, mat_a: int,
@@ -132,8 +142,16 @@ class KswvPhase(Kswv):
     NAME = "kswv_phase"
     LIBRARY = "kswv"
     SIGNATURE = ("kswv_phase_launch",
-                 [VP, I64, VP, I64, I32] + [VP] * 9 + [I32] * 12
+                 [VP, I64, VP, I64, I32] + [VP] * 9 + [I32] * 13
                  + [VP] * 3)
+
+    def __init__(self, split: int = 0):
+        super().__init__()
+        self.split = split    # 0: the plan picks S; 1, 2, 4, 8: forced
+
+    @property
+    def SPLIT(self) -> int:
+        return self.split
 
     def __call__(self, ref, enc, qoff, qdir, qcomp, qlen, toff, tdir, tlen,
                  endsc, do_lane, Qmax: int, Tmax: int, minsc: int,
@@ -169,8 +187,8 @@ class KswvPhase(Kswv):
             qcomp.data_ptr(), qlen.data_ptr(), toff.data_ptr(),
             tdir.data_ptr(), tlen.data_ptr(), endsc.data_ptr(),
             do_lane.data_ptr(), P, Qmax, Tmax, Tpad, int(bool(u8)), minsc,
-            mat_a, mat_b, o_del, e_del, o_ins, e_ins, rowmax.data_ptr(),
-            out.data_ptr())
+            mat_a, mat_b, o_del, e_del, o_ins, e_ins, self.split,
+            rowmax.data_ptr(), out.data_ptr())
         return out
 
 

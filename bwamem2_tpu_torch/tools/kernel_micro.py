@@ -25,7 +25,12 @@ Wh = 100).
 
 --device defaults to cuda and raises without a card (no silent CPU run);
 --device cpu runs the plain versions.  The first line is the card's name
-and power limit (nvidia-smi).
+and power limit (nvidia-smi).  The kswv_phase and bsw_shear_tiles lines
+also give the least time the card could take for the same work, from the
+models of csrc/kswv.cu's and csrc/bsw_shear.cu's headers (as chip_smoke.py
+phase 5h counts them: int32 operations per cell the plain version counts
+on these inputs, at the card's INT32 issue rate, against the bytes
+moved).
 """
 
 from __future__ import annotations
@@ -48,6 +53,16 @@ N_SA = 32768
 BSW_RUNGS = ((512, 127, 96), (512, 255, 320), (1024, 127, 96))
 KSWV_SHAPES = ((512, 160, 512), (512, 160, 1024))
 SHEAR_TILE = (256, (4000, 8000), 100)     # pairs, query lengths, Wh
+
+# the bounds' models (chip_smoke.py's constants): H100 SXM INT32 issue
+# rate (132 SMs x 64 lanes x 1.98 GHz) and HBM rate; int32 operations per
+# kswv cell (u8 main pass; i16 9) and per lazy-F cell of a row's first
+# sweep; per banded-SW cell; bytes of a descriptor and an output row
+INT32_OPS_PER_S = 132 * 64 * 1.98e9
+HBM_BYTES_PER_S = 3.35e12
+KSWV_OPS_PER_CELL, KSWV_LAZY_OPS = {True: 10, False: 9}, 4
+KSWV_DESC_BYTES = 25
+SHEAR_OPS_PER_CELL, SHEAR_DESC_BYTES, SHEAR_OUT_BYTES = 10, 36, 24
 
 
 def card(dev: torch.device) -> str:
@@ -114,10 +129,11 @@ def main(argv=None) -> int:
     from ..index.fmindex import FMIndex
     from ..index.klut import default_k, load_or_build_klut
     from ..ops import resolve_device
-    from ..ops.bsw import bsw_shear_tiles
+    from ..ops.bsw import (_tile_descriptors, bsw_shear_desc_ref,
+                           bsw_shear_tiles)
     from ..ops.bsw_cuda import bsw_extend
     from ..ops.device_index import DeviceFMIndex
-    from ..ops.kswv import NO_LIMIT
+    from ..ops.kswv import NO_LIMIT, kswv_phase_ref
     from ..ops.kswv_cuda import kswv_phase
     from ..ops.seed import sa_resolve
     from ..ops.smem import (round1_chain, round1_compact, round2_backward,
@@ -138,8 +154,14 @@ def main(argv=None) -> int:
     put = lambda a: torch.from_numpy(np.ascontiguousarray(a)).to(dev)  # noqa
     reps = args.reps
 
-    def line(name: str, shape: str, ms: float) -> None:
+    def line(name: str, shape: str, ms: float, bound=None) -> None:
+        if bound is not None:       # the time stays last on the line
+            shape = f"{shape:<40} (bound {bound[0]:.5f} ms, {bound[1]})"
         print(f"{name:<15} {shape:<40} {ms:10.4f} ms", flush=True)
+
+    def bound(ops: float, nbytes: float) -> tuple:
+        o, b = ops / INT32_OPS_PER_S * 1e3, nbytes / HBM_BYTES_PER_S * 1e3
+        return (o, "operations") if o >= b else (b, "bytes")
 
     # --- seeding round 1: the chain kernel, one lane a read ---
     N, L = N_READS, READ_L
@@ -194,20 +216,34 @@ def main(argv=None) -> int:
         tlen = put(np.full(P, min(T, 500), np.int32))
         endsc = put(np.full(P, NO_LIMIT, np.int32))
         live = put(np.ones(P, bool))
-        line("kswv_phase", f"u8 P={P} Q={Q} T={T}", timed(
-            dev, lambda: kswv_phase(
-                dfm.ref, enc, qoff, one, qcomp, qlen, toff, one, tlen,
-                endsc, live, Q, T, opt.min_seed_len * opt.a, *scores,
-                dfm.ref_packed, True), reps))
+        kargs = (dfm.ref, enc, qoff, one, qcomp, qlen, toff, one, tlen,
+                 endsc, live, Q, T, opt.min_seed_len * opt.a, *scores,
+                 dfm.ref_packed, True)
+        work: list = []
+        kswv_phase_ref(*kargs, work=work)
+        cells, rows = work[0]
+        line("kswv_phase", f"u8 P={P} Q={Q} T={T}",
+             timed(dev, lambda: kswv_phase(*kargs), reps),
+             bound(cells * KSWV_OPS_PER_CELL[True] + rows * 16
+                   * KSWV_LAZY_OPS, P * (KSWV_DESC_BYTES + 9 + 24)
+                   + int(qlen.sum()) + int(tlen.sum())))
     # --- long-read tiles on the sheared band (no JAX counterpart) ---
     P, qr, Wh = SHEAR_TILE
     q, t, qlen, tlen = shear_tiles(rng, P, qr, dev)
     h0 = put(rng.integers(20, 200, P).astype(np.int32))
     w = put(np.full(P, Wh, np.int32))
+    sargs = (q, t, qlen, tlen, h0, w, Wh, *scores, opt.zdrop,
+             opt.pen_clip5, max(opt.a, 1))
+    ref, enc_t, *desc = _tile_descriptors(q, t, qlen, tlen)
+    cells: list = []
+    bsw_shear_desc_ref(ref, enc_t, *desc, h0, w, Wh, t.shape[1], *scores,
+                       opt.zdrop, opt.pen_clip5, max(opt.a, 1), cells=cells)
+    ql, tl = qlen.long(), tlen.long()
     line("bsw_shear_tiles", f"P={P} Q={q.shape[1]} T={t.shape[1]} Wh={Wh}",
-         timed(dev, lambda: bsw_shear_tiles(
-             q, t, qlen, tlen, h0, w, Wh, *scores, opt.zdrop,
-             opt.pen_clip5, max(opt.a, 1)), reps))
+         timed(dev, lambda: bsw_shear_tiles(*sargs), reps),
+         bound(cells[0] * SHEAR_OPS_PER_CELL,
+               P * (SHEAR_DESC_BYTES + SHEAR_OUT_BYTES) + int(ql.sum())
+               + int(torch.minimum(tl, ql + Wh + 2).sum())))
     return 0
 
 

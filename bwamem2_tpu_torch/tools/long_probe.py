@@ -15,10 +15,11 @@ that two checkouts' outputs compare.  With --shear (cuda), the run's
 bsw_shear launches are kept per extension call (DeviceBSW._enqueue_long:
 one side and band try), and after the run each call's launches are timed
 together with CUDA events (after a warm-up, the mean of 3), as is the
-call's longest pair launched alone in the body it took (its rows,
-min(tlen, qlen + w + 2), and microseconds a row) and in the int32 body
-(its h0 raised by 32,700, past 16 bits, which changes its scores but not
-its rows when it runs them all), and the whole call with every h0 so
+call's longest pair launched alone in the body it took, one warp a pair
+(its rows, min(tlen, qlen + w + 2), and microseconds a row) and in the
+int32 body (its h0 raised by 32,700, past 16 bits, which changes its
+scores but not its rows when it runs them all), and the whole call with
+every h0 so
 raised, all in the int32 body: whatever the checkout's dispatch (a launch
 per row rung, or one per body), the same pairs on the same card.
 chip_smoke.py's run (d) makes such inputs under .tmp/bench_scale0.25/
@@ -82,15 +83,24 @@ def shear_call(torch, kernel, launches: list) -> dict:
     kw1 = {"n16": int(j < kw["n16"])} if "n16" in kw else {}
     kw32 = {"n16": 0} if "n16" in kw else {}
     us = lambda ms: ms * 1e3 / rows  # noqa: E731
-    one_ms = cuda_ms(torch, lambda: kernel.launch(*one, **kw1))
+    # a lone pair in one warp, as a checkout without the split-band form
+    # runs it (a checkout with it would give a lone pair that form)
+    split = getattr(kernel, "split", None)
+    if split is not None:
+        kernel.split = 1
+    try:
+        one_ms = cuda_ms(torch, lambda: kernel.launch(*one, **kw1))
+        one32_ms = cuda_ms(torch, lambda: kernel.launch(*big, **kw32))
+    finally:
+        if split is not None:
+            kernel.split = split
     return dict(Wh=args[10], launches=len(launches),
                 pairs=sum(a[2].shape[0] for a, _ in launches),
                 ms=cuda_ms(torch, run),
                 ms_int32=cuda_ms(torch, lambda: run(True)), longest_rows=rows,
                 longest_ms=one_ms, longest_us_per_row=us(one_ms),
                 longest_body=("16-bit" if kw1.get("n16") else "int32"),
-                us_per_row_int32=us(cuda_ms(
-                    torch, lambda: kernel.launch(*big, **kw32))))
+                us_per_row_int32=us(one32_ms))
 
 
 def main() -> None:

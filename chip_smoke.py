@@ -164,9 +164,13 @@ Phases, each of which fails the run (non-zero exit, no result line):
         round2_forward, round2_backward and round3_replay launches as in
         g (over the replicated index it ran on and over 2 shards);
         kswv_phase against kswv_phase_ref on a u8 and an i16 batch with
-        mixed target directions, live flags and stop scores;
-        bsw_shear_tiles against bsw_shear_desc_ref on 64 long-read tiles of
-        1-3 kb, a quarter of them past 16 bits (both bodies launch);
+        mixed target directions, live flags and stop scores, and on a
+        large batch of each class, each in the planner's form and the
+        other (one thread a lane, or S threads a lane: the split form),
+        one launch a call; bsw_shear_tiles against bsw_shear_desc_ref on
+        64 long-read tiles of 1-3 kb and on 1,024, a quarter of them past
+        16 bits, each in both forms (one warp a pair: a launch per body,
+        on two streams; the split band, K = 2 warps a pair: one launch);
   6. the gather probe (bwamem2_tpu_torch/tools/gather_scale_probe.py) on
      cuda, its path's launch counter set to 0 before and read after; then
      row_gather against tab[idx] and torch.index_select at the probe's
@@ -293,6 +297,12 @@ R1_OPS_PER_STEP, R1_POPC_PER_STEP = R1_CLASS_OPS["two_row"]
 # one-phase kswv and tile-form bsw_shear batches
 LEGACY_K = 8
 PHASE_U8, PHASE_I16 = 2048, 512        # one-phase kswv problems per class
+# the large batches at which 5h holds both forms of kswv_phase (u8, i16)
+# and bsw_shear_tiles to their plain versions
+PHASE_LARGE_U8, PHASE_LARGE_I16, SHEAR_LARGE = 16384, 2048, 1024
+# run (b)'s first-chunk kswv launches (phase 5c), saved for
+# bwamem2_tpu_torch/tools/small_batch_probe.py --kswv-b
+KSWV_B: list = []
 SHEAR_TILES = (64, (1000, 3000), 100)  # tile pairs, query lengths, Wh
 
 
@@ -428,10 +438,21 @@ def build_all() -> dict:
                 log(f"  ptxas {name}<{'u8' if u8 else 'i16'}, SMAX={smax}>: "
                     f"{v.get('registers')} registers, {v.get('spill')} B "
                     f"spilled, {v.get('stack')} B stack frame")
-            if name == "kswv_phase" and any(v.get("spill") or v.get("stack")
-                                            for _, v in inst):
-                fail(f"kswv_phase: instantiations {inst} (none may spill "
-                     "or have a stack frame)")
+            if name == "kswv_phase":
+                # the split form: S threads a lane, SMAX segments each
+                split = sorted(instances(text, "kswv_split").items())
+                for (u8, smax, S), v in split:
+                    log(f"  ptxas kswv_phase split<{'u8' if u8 else 'i16'}, "
+                        f"SMAX={smax}, S={S}>: {v.get('registers')} "
+                        f"registers, {v.get('spill')} B spilled, "
+                        f"{v.get('stack')} B stack frame")
+                if text and len(split) != 6:
+                    fail(f"kswv_phase: {len(split)} split instantiations "
+                         "(6 expected)")
+                if any(v.get("spill") or v.get("stack")
+                       for _, v in inst + split):
+                    fail(f"kswv_phase: instantiations {inst + split} (none "
+                         "may spill or have a stack frame)")
             continue
         if name == "round1_compact":
             if not k.build_log:
@@ -469,15 +490,21 @@ def build_all() -> dict:
                      for (r,), v in s16]
             rows += [("bsw_shear_wide (int32, frame in shared memory, C at "
                       "run time)", v) for v in wide]
+            blk = sorted(instances(k.build_log, "bsw_shear_blk").items())
+            rows += [(f"bsw_shear_blk<K={K_}, C={C}> (split band, {K_} "
+                      f"warps a pair, frame {32 * K_ * C})", v)
+                     for (K_, C), v in blk]
             for label, v in rows:
                 log(f"  ptxas {label}: {v.get('registers')} registers, "
                     f"{v.get('spill')} B spilled, {v.get('stack')} B stack "
                     "frame")
-            if len(inst) != 2 or len(s16) != 2 or len(wide) != 1 or any(
-                    v.get("spill") or v.get("stack") for _, v in rows):
+            if len(inst) != 2 or len(s16) != 2 or len(wide) != 1 \
+                    or len(blk) != 2 or any(v.get("spill") or v.get("stack")
+                                            for _, v in rows):
                 fail(f"bsw_shear: instantiations {rows} (two register "
-                     "buckets in each body and the shared-memory frame, "
-                     "none spilling or with a stack frame)")
+                     "buckets in each body, the shared-memory frame and "
+                     "two split-band buckets, none spilling or with a "
+                     "stack frame)")
             continue
         if name == "sa_resolve":
             if not k.build_log:
@@ -700,6 +727,8 @@ def shear_main_path(torch, calls) -> dict:
            instances(bsw_shear.build_log, "bsw_shear_s16").items()}
     ptx.update({(False,) + k: v for k, v in
                 instances(bsw_shear.build_log, "bsw_shear").items()})
+    ptx.update({("blk",) + k: v for k, v in
+                instances(bsw_shear.build_log, "bsw_shear_blk").items()})
     ev = lambda: torch.cuda.Event(enable_timing=True)  # noqa: E731
     log(f"  {'call':>4} {'Wh':>4} {'pairs':>6} {'16-bit':>6} {'int32':>5} "
         f"{'cells':>11} {'kernel_ms':>10} {'plain_ms':>10} {'bound_ms':>9} "
@@ -727,11 +756,17 @@ def shear_main_path(torch, calls) -> dict:
         qlen, tlen = args[4].long(), args[7].long()
         rows = long_rows(qlen.cpu().numpy(), tlen.cpu().numpy(), Wh)
         routes = dict(s16=n16, int32=P - n16)
-        # the longest pair alone, in its body
+        # the longest pair alone, in its body (one warp: the form the
+        # call's launch took), and in the split-band form the planner
+        # gives a lone pair
         j = int(rows.argmax())
         one = (*args[:2], *(t[j:j + 1] for t in args[2:10]), *args[10:])
         body = "16-bit" if j < n16 else "int32"
+        bsw_shear.split = 1
         one_ms = cuda_ms(torch, lambda: bsw_shear.launch(
+            *one, n16=int(j < n16)), 3)
+        bsw_shear.split = 0
+        one_split_ms = cuda_ms(torch, lambda: bsw_shear.launch(
             *one, n16=int(j < n16)), 3)
         us_row = one_ms * 1e3 / max(int(rows[j]), 1)
         nbytes = (P * (DESC_BYTES + OUT_BYTES) + int(qlen.sum())
@@ -739,14 +774,19 @@ def shear_main_path(torch, calls) -> dict:
         ops_ms = cells[0] * OPS_PER_CELL / INT32_OPS_PER_S * 1e3
         mem_ms = nbytes / HBM_BYTES_PER_S * 1e3
         shapes = []
-        for s16, m in ((True, n16), (False, P - n16)):
+        split = bsw_shear.plan(P, Wh, args[1].device)[5] > 1
+        for s16, m in (((False, P),) if split else
+                       ((True, n16), (False, P - n16))):
             if not m:
                 continue
-            C, R, blocks, threads, smem = bsw_shear.plan(
+            C, R, blocks, threads, smem, K_ = bsw_shear.plan(
                 m, Wh, args[1].device, s16)
             inst = ptx.get((s16, R if s16 else C), {}) if R else {}
+            if K_ > 1:
+                inst = ptx.get(("blk", K_, C), {})
             shapes.append(dict(
-                body="16-bit" if s16 else "int32", pairs=m, C=C, R=R,
+                body="16-bit" if s16 else "int32" if K_ == 1 else
+                f"split band, K={K_}", pairs=m, C=C, R=R, K=K_,
                 blocks=blocks, threads=threads, shared_bytes=smem,
                 registers=inst.get("registers"),
                 spill_bytes=inst.get("spill"),
@@ -755,16 +795,19 @@ def shear_main_path(torch, calls) -> dict:
             call=n, Wh=Wh, P=P, routes=routes, cells=cells[0], ms=k_ms,
             plain_ms=p_ms, bound_ms=max(ops_ms, mem_ms),
             longest_rows=int(rows[j]), longest_ms=one_ms,
-            longest_us_per_row=us_row, longest_body=body, launches=shapes))
+            longest_us_per_row=us_row, longest_body=body,
+            longest_split_ms=one_split_ms, launches=shapes))
         shape = "; ".join(
             f"{s['body']} C={s['C']} R={s['R']}, {s['blocks']} blocks x "
-            f"{s['threads']}, {s['registers']} registers" if s["R"] else
+            f"{s['threads']}, {s['registers']} registers"
+            if s["R"] or s["K"] > 1 else
             f"int32 C={s['C']} shared-memory frame {s['shared_bytes']} B, "
             f"{s['blocks']} blocks" for s in shapes)
         log(f"  {n:>4} {Wh:>4} {P:>6} {routes['s16']:>6} "
             f"{routes['int32']:>5} {cells[0]:>11} {k_ms:>10.4f} "
             f"{p_ms:>10.1f} {max(ops_ms, mem_ms):>9.5f} "
-            f"({int(rows[j])}, {us_row:.4f}, {body}), {shape}")
+            f"({int(rows[j])}, {us_row:.4f}, {body}; split band "
+            f"{one_split_ms * 1e3 / max(int(rows[j]), 1):.4f}), {shape}")
         tot["launches"] += len(shapes)
         for key, v in (("pairs", P), ("ms", k_ms), ("plain_ms", p_ms),
                        ("bound_ms", max(ops_ms, mem_ms)),
@@ -1111,7 +1154,11 @@ def rescue_vs_plain(torch, fm, opt, batches) -> dict:
                       + int(desc["tlen"][idx].sum()))
             mem_ms = nbytes / HBM_BYTES_PER_S * 1e3
             cls = "u8" if u8 else "i16"
-            smax, gpb, smem = kswv.plan(len(idx), Qmax, u8, "cuda")
+            smax, gpb, smem, _ = kswv.plan(len(idx), Qmax, u8, "cuda")
+            if tag == "chunk (b)":      # for small_batch_probe.py --kswv-b
+                KSWV_B.append((f"{tag} {'u8' if u8 else 'i16'}", [
+                    x.cpu() if isinstance(x, torch.Tensor) else x
+                    for x in args]))
             inst = ptx.get((u8, smax), {})
             old = ONE_THREAD_KSWV_MS.get((tag, cls))
             r["classes"][cls] = dict(
@@ -2349,30 +2396,31 @@ def legacy_vs_plain(torch, card: str, calls: dict, fm, opt,
         out[name] = stage_calls_vs_plain(torch, card, name, calls, two,
                                          "the legacy run's first chunk")
 
-    # ---- kswv_phase, u8 and i16, mixed tdir / live / endsc
-    ptx = instances(kernels()["kswv_phase"].build_log
-                    or kernels()["kswv"].build_log, "kswv_phase")
+    # ---- kswv_phase, u8 and i16, mixed tdir / live / endsc, at the
+    # batch of each class and a large one, in the planner's form and the
+    # other (one thread a lane, or the split form)
+    text = kernels()["kswv_phase"].build_log or kernels()["kswv"].build_log
+    ptx = instances(text, "kswv_phase")
+    ptx.update(instances(text, "kswv_split"))
     tot = dict(ms=0.0, plain_ms=0.0, bound_ms=0.0, ops_ms=0.0, mem_ms=0.0,
-               err=0, problems=0, classes={})
+               err=0, problems=0, classes={}, forms=[])
     sc = (*opt.mat_scores(), opt.o_del, opt.e_del, opt.o_ins, opt.e_ins)
     minsc = opt.min_seed_len * opt.a
-    for cls, u8, n, L_, qr, tr, Qmax, Tmax in (
-            ("u8", True, PHASE_U8, 160, (100, 161), (150, 700), 160, 700),
-            ("i16", False, PHASE_I16, 512, (250, 513), (300, 2049), 512,
-             2048)):
+    for small, cls, u8, n, L_, qr, tr, Qmax, Tmax in (
+            (1, "u8", True, PHASE_U8, 160, (100, 161), (150, 700), 160,
+             700),
+            (1, "i16", False, PHASE_I16, 512, (250, 513), (300, 2049), 512,
+             2048),
+            (0, "u8", True, PHASE_LARGE_U8, 160, (100, 161), (150, 700),
+             160, 700),
+            (0, "i16", False, PHASE_LARGE_I16, 512, (250, 513), (300, 2049),
+             512, 2048)):
         x = phase_batch(torch, dev, fm.ref_string, 41 if u8 else 43, n, L_,
                         qr, tr)
         ref = torch.from_numpy(fm.ref_string).to(dev)
         args = (ref, *x, Qmax, Tmax, minsc, *sc, False, u8)
-        got = kswv_phase.launch(*args)
         work: list = []
         want, p_ms = plain_ms(lambda: kswv_phase_ref(*args, work=work))
-        err = int((got - want).abs().max())
-        if err:
-            bad = int((got != want).any(1).sum())
-            fail(f"5h: kswv_phase ({cls}) disagrees with kswv_phase_ref on "
-                 f"{bad} of {n} problems (max abs err {err})")
-        k_ms = cuda_ms(torch, lambda: kswv_phase.launch(*args), 5)
         cells, rows = work[0]
         ops_ms = ((cells * KSWV_OPS_PER_CELL[u8]
                    + rows * (16 if u8 else 8) * KSWV_LAZY_OPS)
@@ -2380,78 +2428,139 @@ def legacy_vs_plain(torch, card: str, calls: dict, fm, opt,
         nbytes = (n * (KSWV_DESC_BYTES + 9 + 24) + int(x[4].sum())
                   + int(x[7].sum()))
         mem_ms = nbytes / HBM_BYTES_PER_S * 1e3
-        smax, gpb, smem = kswv_phase.plan(n, Qmax, u8, dev)
-        inst = ptx.get((u8, smax), {})
-        c = dict(P=n, Qmax=Qmax, Tmax=Tmax, cells=cells, rows=rows,
-                 live=int(x[9].sum()), backward=int((x[6] < 0).sum()),
-                 ms=k_ms, plain_ms=p_ms, bound_ms=max(ops_ms, mem_ms),
-                 register_bucket=smax, groups_per_block=gpb,
-                 registers=inst.get("registers"),
-                 spill_bytes=inst.get("spill"),
-                 stack_bytes=inst.get("stack"))
-        tot["classes"][cls] = c
-        for key, v in (("ms", k_ms), ("plain_ms", p_ms),
-                       ("bound_ms", max(ops_ms, mem_ms)), ("ops_ms", ops_ms),
-                       ("mem_ms", mem_ms), ("problems", n)):
-            tot[key] += v
-        log(f"  kswv_phase {cls}: P={n} ({c['live']} live, {c['backward']} "
-            f"targets walked backward, stop scores mixed) Qmax={Qmax} "
-            f"Tmax={Tmax}, {cells} cells in {rows} rows: kernel "
-            f"{k_ms:.4f} ms, plain {p_ms:.1f} ms, bound "
-            f"{max(ops_ms, mem_ms):.5f} ms, identical; SMAX={smax}, {gpb} "
-            f"groups/block, {inst.get('registers')} registers, "
-            f"{inst.get('spill')} B spilled, {inst.get('stack')} B stack "
-            f"frame [{card}]")
+        # the other form: one thread a lane, or the S the planner gives a
+        # small batch (the least leaving a thread 8 segments at most)
+        auto = kswv_phase.plan(n, Qmax, u8, dev)[3]
+        slen = Qmax // (16 if u8 else 8)
+        other = [1] if auto > 1 else [
+            s_ for s_ in (2, 4, 8) if -(-slen // s_) <= 8][:1]
+        for split in [0] + other:
+            kswv_phase.split = split
+            smax, gpb, smem, S = kswv_phase.plan(n, Qmax, u8, dev)
+            n0 = kswv_phase.launches
+            got = kswv_phase.launch(*args)
+            torch.cuda.synchronize()
+            if kswv_phase.launches != n0 + 1:
+                fail(f"5h: kswv_phase made {kswv_phase.launches - n0} "
+                     "launches for one call (1 expected)")
+            err = int((got - want).abs().max())
+            if err:
+                bad = int((got != want).any(1).sum())
+                fail(f"5h: kswv_phase ({cls}, P={n}, S={S}) disagrees with "
+                     f"kswv_phase_ref on {bad} of {n} problems (max abs "
+                     f"err {err})")
+            k_ms = cuda_ms(torch, lambda: kswv_phase.launch(*args), 5)
+            inst = ptx.get((u8, smax, S) if S > 1 else (u8, smax), {})
+            c = dict(P=n, Qmax=Qmax, Tmax=Tmax, cells=cells, rows=rows,
+                     live=int(x[9].sum()), backward=int((x[6] < 0).sum()),
+                     ms=k_ms, plain_ms=p_ms, bound_ms=max(ops_ms, mem_ms),
+                     register_bucket=smax, groups_per_block=gpb, S=S,
+                     planned=split == 0, err=err,
+                     registers=inst.get("registers"),
+                     spill_bytes=inst.get("spill"),
+                     stack_bytes=inst.get("stack"))
+            tot["forms"].append(dict(cls=cls, **c))
+            log(f"  kswv_phase {cls}: P={n} ({c['live']} live, "
+                f"{c['backward']} targets walked backward, stop scores "
+                f"mixed) Qmax={Qmax} Tmax={Tmax}, {cells} cells in {rows} "
+                f"rows, {'the planner' if split == 0 else 'forced'} S={S}: "
+                f"kernel {k_ms:.4f} ms, plain {p_ms:.1f} ms, bound "
+                f"{max(ops_ms, mem_ms):.5f} ms, identical; SMAX={smax}, "
+                f"{gpb} groups/block, {inst.get('registers')} registers, "
+                f"{inst.get('spill')} B spilled, {inst.get('stack')} B "
+                f"stack frame [{card}]")
+            if split or not small:
+                continue
+            # the kernels line: each class's batch in the planner's form
+            tot["classes"][cls] = c
+            for key, v in (("ms", k_ms), ("plain_ms", p_ms),
+                           ("bound_ms", max(ops_ms, mem_ms)),
+                           ("ops_ms", ops_ms), ("mem_ms", mem_ms),
+                           ("problems", n)):
+                tot[key] += v
+        kswv_phase.split = 0
+    if not {f["S"] > 1 for f in tot["forms"]} == {True, False}:
+        fail("5h: kswv_phase ran only one form")
     tot["bound_by"] = "operations" if tot["ops_ms"] >= tot["mem_ms"] \
         else "bytes"
     out["kswv_phase"] = tot
 
-    # ---- bsw_shear_tiles on long-read tiles, both bodies
-    P, qr, Wh = SHEAR_TILES
-    rng = np.random.default_rng(47)
-    q, t, qlen, tlen = shear_tiles(rng, P, qr, dev)
-    h0 = torch.from_numpy(np.where(np.arange(P) % 4 == 0,
-                                   rng.integers(30000, 40000, P),
-                                   rng.integers(20, 200, P))
-                          .astype(np.int32)).to(dev)
-    w = torch.full((P,), Wh, dtype=torch.int32, device=dev)
+    # ---- bsw_shear_tiles on long-read tiles, both bodies, at the 5h batch
+    # and a large one, in the planner's form and the others (one warp a
+    # pair: a launch per body; the split band: one launch)
+    P_small, qr, Wh = SHEAR_TILES
     sc_t = (*sc, opt.zdrop, opt.pen_clip5, max(opt.a, 1))
-    b0 = bsw_shear.launches
-    got = bsw_shear_tiles(q, t, qlen, tlen, h0, w, Wh, *sc_t)
-    n_launch = bsw_shear.launches - b0
-    cells: list = []
-    ref, enc_t, *desc = _tile_descriptors(q, t, qlen, tlen)
-    want, p_ms = plain_ms(lambda: bsw_shear_desc_ref(
-        ref, enc_t, *desc, h0, w, Wh, t.shape[1], *sc_t, cells=cells))
-    err = int((got - want).abs().max())
-    if err:
-        bad = int((got != want).any(1).sum())
-        fail(f"5h: bsw_shear_tiles disagrees with bsw_shear_desc_ref on "
-             f"{bad} of {P} tile pairs (max abs err {err})")
-    k_ms = cuda_ms(torch, lambda: bsw_shear_tiles(q, t, qlen, tlen, h0, w,
-                                                  Wh, *sc_t), 3)
-    fit = bsw_shear.fits16(qlen.cpu().numpy(), h0.cpu().numpy(), Wh, *sc,
-                           max(opt.a, 1))
-    ql, tl = qlen.long(), tlen.long()
-    nbytes = (P * (DESC_BYTES + OUT_BYTES) + int(ql.sum())
-              + int(torch.minimum(tl, ql + Wh + 2).sum()))
-    ops_ms = cells[0] * OPS_PER_CELL / INT32_OPS_PER_S * 1e3
-    mem_ms = nbytes / HBM_BYTES_PER_S * 1e3
-    out["bsw_shear_tiles"] = dict(
-        P=P, Qmax=q.shape[1], Tmax=t.shape[1], Wh=Wh, s16=int(fit.sum()),
-        launches=n_launch, cells=cells[0], ms=k_ms, plain_ms=p_ms,
-        ops_ms=ops_ms, mem_ms=mem_ms, bound_ms=max(ops_ms, mem_ms),
-        bound_by="operations" if ops_ms >= mem_ms else "bytes", err=err)
-    log(f"  bsw_shear_tiles: {P} tile pairs of {qr[0]}-{qr[1]} bases "
-        f"(Qmax {q.shape[1]}, Tmax {t.shape[1]}, Wh {Wh}; {int(fit.sum())} "
-        f"in the 16-bit body, {P - int(fit.sum())} int32, {n_launch} "
-        f"launches), {cells[0]} cells: {k_ms:.4f} ms a call, plain "
-        f"{p_ms:.1f} ms, bound {max(ops_ms, mem_ms):.5f} ms, identical "
-        f"[{card}]")
-    if not 0 < fit.sum() < P or n_launch != 2:
-        fail(f"5h: bsw_shear_tiles ran {n_launch} launches for "
-             f"{int(fit.sum())} of {P} pairs in 16 bits (both bodies "
-             "expected)")
+    sh_ptx = {("blk",) + k: v for k, v in
+              instances(bsw_shear.build_log, "bsw_shear_blk").items()}
+    forms = []
+    for P in (P_small, SHEAR_LARGE):
+        rng = np.random.default_rng(47 if P == P_small else 53)
+        q, t, qlen, tlen = shear_tiles(rng, P, qr, dev)
+        h0 = torch.from_numpy(np.where(np.arange(P) % 4 == 0,
+                                       rng.integers(30000, 40000, P),
+                                       rng.integers(20, 200, P))
+                              .astype(np.int32)).to(dev)
+        w = torch.full((P,), Wh, dtype=torch.int32, device=dev)
+        cells: list = []
+        ref, enc_t, *desc = _tile_descriptors(q, t, qlen, tlen)
+        want, p_ms = plain_ms(lambda: bsw_shear_desc_ref(
+            ref, enc_t, *desc, h0, w, Wh, t.shape[1], *sc_t, cells=cells))
+        fit = bsw_shear.fits16(qlen.cpu().numpy(), h0.cpu().numpy(), Wh,
+                               *sc, max(opt.a, 1))
+        if not 0 < fit.sum() < P:
+            fail(f"5h: {int(fit.sum())} of {P} tile pairs fit 16 bits "
+                 "(both bodies expected)")
+        ql, tl = qlen.long(), tlen.long()
+        nbytes = (P * (DESC_BYTES + OUT_BYTES) + int(ql.sum())
+                  + int(torch.minimum(tl, ql + Wh + 2).sum()))
+        ops_ms = cells[0] * OPS_PER_CELL / INT32_OPS_PER_S * 1e3
+        mem_ms = nbytes / HBM_BYTES_PER_S * 1e3
+        for split in (0, 1, 2):
+            bsw_shear.split = split
+            K_ = bsw_shear.plan(P, Wh, dev)[5]
+            if split and any(f["P"] == P and f["K"] == K_ for f in forms):
+                continue            # the planner's form, already run
+            b0 = bsw_shear.launches
+            got = bsw_shear_tiles(q, t, qlen, tlen, h0, w, Wh, *sc_t)
+            torch.cuda.synchronize()
+            n_launch = bsw_shear.launches - b0
+            err = int((got - want).abs().max())
+            if err:
+                bad = int((got != want).any(1).sum())
+                fail(f"5h: bsw_shear_tiles (P={P}, K={K_}) disagrees with "
+                     f"bsw_shear_desc_ref on {bad} of {P} tile pairs (max "
+                     f"abs err {err})")
+            if n_launch != (1 if K_ > 1 else 2):
+                fail(f"5h: bsw_shear_tiles made {n_launch} launches at K="
+                     f"{K_} ({1 if K_ > 1 else 2} expected: "
+                     f"{'one split-band launch' if K_ > 1 else 'one per body'})")
+            k_ms = cuda_ms(torch, lambda: bsw_shear_tiles(
+                q, t, qlen, tlen, h0, w, Wh, *sc_t), 3)
+            plan = bsw_shear.plan(P, Wh, dev)
+            inst = sh_ptx.get(("blk", K_, plan[0]), {}) if K_ > 1 else {}
+            f = dict(P=P, Qmax=q.shape[1], Tmax=t.shape[1], Wh=Wh,
+                     s16=int(fit.sum()), K=K_, planned=split == 0,
+                     launches=n_launch, cells=cells[0], ms=k_ms,
+                     plain_ms=p_ms, ops_ms=ops_ms, mem_ms=mem_ms,
+                     bound_ms=max(ops_ms, mem_ms),
+                     bound_by="operations" if ops_ms >= mem_ms else "bytes",
+                     err=err, registers=inst.get("registers"),
+                     spill_bytes=inst.get("spill"),
+                     stack_bytes=inst.get("stack"))
+            forms.append(f)
+            log(f"  bsw_shear_tiles: {P} tile pairs of {qr[0]}-{qr[1]} "
+                f"bases (Qmax {q.shape[1]}, Tmax {t.shape[1]}, Wh {Wh}; "
+                f"{int(fit.sum())} fit 16 bits), {cells[0]} cells, "
+                f"{'the planner' if split == 0 else 'forced'} K={K_} "
+                f"({'split band' if K_ > 1 else 'one warp a pair'}, "
+                f"{n_launch} launches): {k_ms:.4f} ms a call, plain "
+                f"{p_ms:.1f} ms, bound {max(ops_ms, mem_ms):.5f} ms, "
+                f"identical; {inst.get('registers')} registers [{card}]")
+        bsw_shear.split = 0
+    if {f["K"] > 1 for f in forms} != {True, False}:
+        fail("5h: bsw_shear_tiles ran only one form")
+    planned = next(f for f in forms if f["P"] == P_small and f["planned"])
+    out["bsw_shear_tiles"] = dict(planned, forms=forms)
     return out
 
 
@@ -2783,6 +2892,8 @@ def main() -> None:
             torch, fm.ref_string, "i16 a=52 batch", 17, [
                 (N_I16, (250, 513), (300, 2049), False)]),)))
         del cap_a, cap_b
+        torch.save(KSWV_B, os.path.join(WORK, "kswv_b_first.pt"))
+        KSWV_B.clear()
         log(f"[6] gather probe on {name} [{card}]:")
         gt = gather_phase(torch, fm)
         log("[7] goldens on cuda:")

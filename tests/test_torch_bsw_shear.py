@@ -181,10 +181,12 @@ def host_shear(tmp_path_factory):
     choose for Wh, or the one given (C int32 slots per lane, in registers
     or, with wide, in the memory frame): pairs [0, n16) in the 16-bit
     body, the rest in the int32 body, as the wrapper's two launches do;
-    the pairs run in the order perm gives, when one is given.  It returns C (+
-    1000 for the memory frame) and records per pair why its row loop
-    ended (0 zero row maximum, 1 z-drop, 2 ran every row) and the body
-    that ran it (0 int32, 1 16-bit)."""
+    the pairs run in the order perm gives, when one is given; or, with
+    split K > 1, every pair in the split-band form (shear_pair_blk on a
+    block of K warps, one lane vector of 32 K lanes).  It returns C (+
+    1000 for the memory frame, 100 K + C for the split form) and records
+    per pair why its row loop ended (0 zero row maximum, 1 z-drop, 2 ran
+    every row) and the body that ran it (0 int32, 1 16-bit, 2 split)."""
     d = tmp_path_factory.mktemp("shear_group")
     shim = d / "shim.cpp"
     shim.write_text(r"""
@@ -207,6 +209,16 @@ static void run_reg(const ShearBatch &b, int n16, const int64_t *perm,
     }
   }
 }
+template <int K, int C>
+static void run_blk(const ShearBatch &b, const int64_t *perm, int *route) {
+  int xch[SHEAR_X_SLOTS * K];
+  const ShearBlock<K> g(xch);
+  for (int t = 0; t < b.P; ++t) {
+    const int p = perm ? (int)perm[t] : t;
+    shear_pair_blk<C>(g, b, p);
+    route[p] = 2;
+  }
+}
 static void run_wide(const ShearBatch &b, const int64_t *perm, int *route) {
   const BswGroup<SHEAR_G> g;
   std::vector<BswLanes<SHEAR_G>> mem(SHEAR_ARRAYS * b.C);
@@ -221,7 +233,7 @@ extern "C" int shear_host(const int8_t *enc, int64_t n_enc,
     const int *qdir, const int *qlen, const int64_t *toff, const int *tdir,
     const int *tlen, const int *h0, const int *w, int P, int Wh, int Tmax,
     const int *sc, int C, int wide, int n16, const int64_t *perm, int *out,
-    int *stops, int *route) {
+    int *stops, int *route, int split) {
   int ct = wide ? 0 : C;
   if (!C && (ct = shear_bucket(Wh, &C)) < 0) return 0;
   const ShearBatch b{enc, n_enc, ref, n_ref, packed, qoff, qdir, qlen, toff,
@@ -230,6 +242,13 @@ extern "C" int shear_host(const int8_t *enc, int64_t n_enc,
                       sc[8]}, out};
   shear_stops = stops;
   for (int p = 0; p < P; ++p) stops[p] = 2;
+  if (split > 1) {     // the split-band form: the plan's bucket for K, Wh
+#define SHEAR_HOST_BLK(k, c, wh) \
+    if (split == k && Wh <= wh) { run_blk<k, c>(b, perm, route); \
+                                  return 100 * k + c; }
+    SHEAR_BLK_BUCKETS(SHEAR_HOST_BLK)
+    return 0;
+  }
   if (ct == 0) { run_wide(b, perm, route); return 1000 + C; }
 #define SHEAR_HOST_CASE(c_, r_) \
   if (ct == c_) { run_reg<c_, r_>(b, n16, perm, route); return C; }
@@ -251,11 +270,12 @@ def fit16(d, Wh, scoring):
 
 
 def run_host(lib, d, Wh, scoring, C=0, ref=None, packed=False, Tmax=None,
-             wide=False, n16=None, perm=None):
-    """(out int32[P, 6], bucket C (+ 1000 for the memory frame), stop
-    reason per pair, body per pair).  n16 None: as the dispatch routes the
-    pairs, which fits16 must give as a prefix of them (none in the memory
-    frame)."""
+             wide=False, n16=None, perm=None, split=1):
+    """(out int32[P, 6], bucket C (+ 1000 for the memory frame, 100 K + C
+    for the split form), stop reason per pair, body per pair).  n16 None:
+    as the dispatch routes the pairs, which fits16 must give as a prefix
+    of them (none in the memory frame); split K > 1: the split-band form
+    on every pair."""
     ref_a, enc, qoff, qdir, qlen, toff, tdir, tlen, h0, _ = (
         np.ascontiguousarray(x) for x in d)
     if ref is not None:
@@ -282,7 +302,7 @@ def run_host(lib, d, Wh, scoring, C=0, ref=None, packed=False, Tmax=None,
                          ctypes.c_int(P), ctypes.c_int(Wh),
                          ctypes.c_int(Tmax), ptr(sc), ctypes.c_int(C),
                          ctypes.c_int(int(wide)), ctypes.c_int(n16), perm_p,
-                         ptr(out), ptr(stops), ptr(route))
+                         ptr(out), ptr(stops), ptr(route), ctypes.c_int(split))
     assert (route >= 0).all()
     return out, got, stops, route
 
@@ -388,6 +408,72 @@ def test_cuda_shear_routes_match_ref(host_shear, name, route):
     np.testing.assert_array_equal(got, want)
 
 
+# the split form's bucket (100 K + C) for a band radius
+def blk_bucket(K, Wh):
+    return 100 * K + (4 if Wh <= 110 else 7)
+
+
+@pytest.mark.parametrize("name", REG_HOST)
+def test_cuda_shear_split_matches_ref(host_shear, name, K=2):
+    """The split-band form (shear_pair_blk, K = 2 warps a pair) equals the
+    plain version on every register case, its pairs run in a shuffled
+    order: stops on a zero row maximum, on z-drop (the -d 10 case) and
+    after the last row; and on the mixed call, a third of its pairs past
+    16 bits, which the form runs in one launch."""
+    Wh, scoring, _, _, d, want = host_case(name)
+    P = len(d[1])
+    perm = np.random.default_rng(Wh + K).permutation(P)
+    got, used, stops, route = run_host(host_shear, d, Wh, scoring,
+                                       perm=perm, split=K)
+    assert used == blk_bucket(K, Wh)
+    np.testing.assert_array_equal(got, want)
+    assert {0, 2} <= set(stops)
+    assert (stops == 1).sum() >= (5 if scoring is ZDROP10 else 0)
+    assert (route == 2).all()
+    d, _, want = mixed_case(name)
+    got, *_ = run_host(host_shear, d, Wh, scoring, perm=perm, split=K)
+    np.testing.assert_array_equal(got, want)
+
+
+def make_gapped(seed, P, qr=(500, 800)):
+    """P pairs whose queries copy the target but for one long insertion
+    (30-95 random bases) and one long deletion (30-95 target bases
+    skipped), with few other errors: under cheap gaps (-x pacbio's) the
+    best path runs long horizontal and vertical gaps, so F carries across
+    many lanes and, in the split-band form, across warps.  Same tuple as
+    make_long."""
+    d = list(make_long(seed, P, qr, err=0.01))
+    rng = np.random.default_rng(seed)
+    ref, enc = d[0], d[1].copy()
+    for p in range(P):
+        ql, qd = int(d[4][p]), int(d[3][p])
+        row = enc[p, :ql] if qd > 0 else enc[p, :ql][::-1]
+        q = row.copy()
+        a = ql // 3
+        g1, g2 = int(rng.integers(30, 96)), int(rng.integers(30, 96))
+        q = np.concatenate([q[:a], rng.integers(0, 4, g1).astype(np.int8),
+                            q[a:2 * a], q[2 * a + g2:]])[:ql]
+        q = np.concatenate([q, rng.integers(0, 4, ql - len(q)).astype(
+            np.int8)])
+        enc[p, :ql] = q if qd > 0 else q[::-1]
+    d[1] = enc
+    return tuple(d)
+
+
+def test_cuda_shear_split_long_gaps(host_shear, K=2):
+    """The split-band form and the one-warp int32 body on pairs whose best
+    paths run long insertions and deletions (make_gapped): F's scan
+    crosses lanes and warps and the band shrink meets E-only slots."""
+    d = make_gapped(67, 16)
+    want = run_ref(d, 100, PACBIO)
+    assert (want[:, 0] > 300).sum() >= 8          # the gapped paths score
+    got, used, stops, route = run_host(host_shear, d, 100, PACBIO, split=K)
+    assert used == blk_bucket(K, 100) and (route == 2).all()
+    np.testing.assert_array_equal(got, want)
+    got, *_ = run_host(host_shear, d, 100, PACBIO, n16=0)
+    np.testing.assert_array_equal(got, want)
+
+
 def test_cuda_shear_source_packed_ref(host_shear, monkeypatch):
     """The kernel's 2-bit packed genome path against the plain version's,
     in each body."""
@@ -439,7 +525,8 @@ def test_cuda_shear_16bit_edge(host_shear, scoring):
     max_sc a column) with h0 + (qlen + 1) * max_sc at 32766 and 32767 (the
     16-bit body) and at 32768 and 32769 (the int32 body); h0 + qlen *
     max_sc = 32767 and 32768 among them.  The dispatch's order and routes
-    (fits16) and every pair in the int32 body equal the plain version."""
+    (fits16), every pair in the int32 body and every pair in the
+    split-band form equal the plain version."""
     a = scoring[0]
     d = list(make_long(41, 8, (600, 1200), err=0.0))
     qlen = d[4]
@@ -457,6 +544,9 @@ def test_cuda_shear_16bit_edge(host_shear, scoring):
         np.testing.assert_array_equal(got, want)
         np.testing.assert_array_equal(
             route, np.arange(8) < (4 if n16 is None else 0))
+    got, _, _, route = run_host(host_shear, d, 100, scoring, split=2)
+    np.testing.assert_array_equal(got, want)       # the split-band form
+    assert (route == 2).all()
 
 
 def test_long_order_puts_16bit_pairs_first():
@@ -472,6 +562,39 @@ def test_long_order_puts_16bit_pairs_first():
     idxs, rows = DeviceBSW.long_order(qls, tls, 100, np.zeros(6, bool))
     np.testing.assert_array_equal(idxs, [1, 3, 0, 5, 2, 4])
     assert (np.diff(rows) <= 0).all()
+
+
+@pytest.mark.parametrize("Wh", [100, 207])
+def test_tile_long_order_on_tensors_matches_host(Wh):
+    """bsw_shear_tiles' order and 16-bit test on tensors (ops/bsw.py:
+    tile_long_order over BswShear.fits16_t, which stay on the card there)
+    equal the host's BswShear.fits16 and DeviceBSW.long_order, on CPU
+    tensors: pairs on both sides of the 16-bit edge, equal row counts
+    (ties in index order), tlen below and above qlen + Wh + 2, and at Wh
+    207 no pair in 16 bits."""
+    from bwamem2_tpu_torch.ops.bsw import tile_long_order
+    rng = np.random.default_rng(61)
+    P = 300
+    qlen = rng.integers(1, 3000, P).astype(np.int32)
+    tlen = rng.integers(1, 3500, P).astype(np.int32)
+    tlen[::7] = tlen[0]                 # ties
+    qlen[::7] = qlen[0]
+    edge = 32767 - (qlen.astype(np.int64) + 1)
+    h0 = np.where(rng.random(P) < 0.5, edge + rng.integers(-2, 3, P),
+                  rng.integers(0, 200, P)).astype(np.int32)
+    h0[:3] = -1                         # a negative h0 never fits
+    sc = (*DEFAULT[:6], 1)
+    fit = bsw_shear_cuda.BswShear.fits16(qlen, h0, Wh, *sc)
+    assert 0 < fit.sum() < P if Wh <= 206 else not fit.any()
+    got = bsw_shear_cuda.BswShear.fits16_t(torch.from_numpy(qlen),
+                                           torch.from_numpy(h0), Wh, *sc)
+    np.testing.assert_array_equal(got.numpy(), fit)
+    want, _ = DeviceBSW.long_order(qlen, tlen, Wh, fit)
+    order, n16 = tile_long_order(torch.from_numpy(qlen),
+                                 torch.from_numpy(tlen),
+                                 torch.from_numpy(h0), Wh, *sc)
+    np.testing.assert_array_equal(order.numpy(), want)
+    assert n16.dtype == torch.int32 and n16.tolist() == [int(fit.sum())]
 
 
 def test_long_classes_cover_every_pair():

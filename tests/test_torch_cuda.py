@@ -227,7 +227,7 @@ def test_kswv_kernel_matches_ref_on_card(card):
         for part, placement in ((idx[idx < short["n"]], "registers"),
                                 (idx, "shared")):
             args = dk.kswv_args(encj, desc, part, u8)
-            smax, gpb, _ = kswv.plan(len(part), args[8], u8, card)
+            smax, gpb, _, _ = kswv.plan(len(part), args[8], u8, card)
             assert (smax > 0) == (placement == "registers")
             assert gpb > 1 and len(part) % gpb
             got = kswv(*args)
@@ -575,54 +575,87 @@ def test_legacy_backend_golden_on_card(card, klut):
 @pytest.mark.parametrize("u8", [True, False], ids=["u8", "i16"])
 def test_kswv_phase_matches_ref_on_card(card, u8):
     """kswv_phase (one phase, the caller's target directions, live flags
-    and stop scores) against kswv_phase_ref on the card."""
+    and stop scores) against kswv_phase_ref on the card, at a small batch
+    (the planner's split form) and a large one (one thread a lane), each
+    also in the other form and at every S the query allows: one launch a
+    call."""
     from bwamem2_tpu_torch.ops.kswv import NO_LIMIT, kswv_phase_ref
     from bwamem2_tpu_torch.ops.kswv_cuda import kswv_phase
     genome = FMIndex.load(PREFIX).ref_string
-    n, L, qr, tr, Qmax, Tmax = ((256, 160, (100, 161), (150, 700), 160, 700)
-                                if u8 else
-                                (64, 512, (250, 513), (300, 2049), 512,
-                                 2048))
-    enc, qoff, qdir, qcomp, qlen, toff, tlen = rescue_windows(
-        genome, seed=61, n=n, L=L, qr=qr, tr=tr, nmut=3, n_every=5, plant=7)
-    rng = np.random.default_rng(61)
-    tdir = np.where(np.arange(n) % 3 == 1, -1, 1).astype(np.int32)
-    toff = np.where(tdir < 0, toff + tlen - 1, toff).astype(np.int64)
-    endsc = rng.choice(np.array([NO_LIMIT, 20, 35], np.int32), n)
-    live = np.arange(n) % 5 != 2
-    args = [torch.from_numpy(np.ascontiguousarray(a)) for a in (
-        genome, enc, qoff, qdir, qcomp, qlen, toff, tdir, tlen, endsc, live)]
-    rest = (Qmax, Tmax, 19, 1, 4, 6, 1, 6, 1, False, u8)
-    n0 = kswv_phase.launches
-    got = kswv_phase(*(a.to(card) for a in args), *rest)
-    torch.cuda.synchronize()
-    assert kswv_phase.launches == n0 + 1
-    np.testing.assert_array_equal(got.cpu().numpy(),
-                                  kswv_phase_ref(*args, *rest).numpy())
+    L, qr, tr, Qmax, Tmax, sizes = ((160, (100, 161), (150, 700), 160, 700,
+                                     (256, 12288)) if u8 else
+                                    (512, (250, 513), (300, 2049), 512,
+                                     2048, (64, 2048)))
+    for n in sizes:
+        enc, qoff, qdir, qcomp, qlen, toff, tlen = rescue_windows(
+            genome, seed=61, n=n, L=L, qr=qr, tr=tr, nmut=3, n_every=5,
+            plant=7)
+        rng = np.random.default_rng(61)
+        tdir = np.where(np.arange(n) % 3 == 1, -1, 1).astype(np.int32)
+        toff = np.where(tdir < 0, toff + tlen - 1, toff).astype(np.int64)
+        endsc = rng.choice(np.array([NO_LIMIT, 20, 35], np.int32), n)
+        live = np.arange(n) % 5 != 2
+        args = [torch.from_numpy(np.ascontiguousarray(a)) for a in (
+            genome, enc, qoff, qdir, qcomp, qlen, toff, tdir, tlen, endsc,
+            live)]
+        rest = (Qmax, Tmax, 19, 1, 4, 6, 1, 6, 1, False, u8)
+        on = [a.to(card) for a in args]
+        want = kswv_phase_ref(*on, *rest).cpu().numpy()   # plain, on card
+        seen = set()
+        try:
+            for split in (0, 1, 2, 4, 8):
+                kswv_phase.split = split
+                try:
+                    S = kswv_phase.plan(n, Qmax, u8, torch.device(card))[3]
+                except ValueError:
+                    continue        # an S this Qmax does not allow
+                seen.add(S)
+                n0 = kswv_phase.launches
+                got = kswv_phase(*on, *rest)
+                torch.cuda.synchronize()
+                assert kswv_phase.launches == n0 + 1
+                np.testing.assert_array_equal(got.cpu().numpy(), want)
+        finally:
+            kswv_phase.split = 0
+        assert 1 in seen and len(seen) >= 2
 
 
 @pytest.mark.cuda
 def test_bsw_shear_tiles_match_ref_on_card(card):
     """bsw_shear_tiles on the card (both bodies: some h0 past 16 bits)
-    against the same adapter on the CPU (bsw_shear_desc_ref)."""
+    against the same adapter on the CPU (bsw_shear_desc_ref), at a small
+    batch (the planner's split-band form: one launch) and a large one (one
+    warp a pair: one launch per body, on two streams), each also in the
+    other form."""
     from bwamem2_tpu_torch.ops.bsw import bsw_shear_tiles
     from bwamem2_tpu_torch.tools.kernel_micro import shear_tiles
     rng = np.random.default_rng(13)
-    P, Wh = 24, 100
-    q, t, qlen, tlen = shear_tiles(rng, P, (600, 1500), "cpu")
-    h0 = torch.from_numpy(np.where(np.arange(P) % 3 == 0,
-                                   rng.integers(30000, 40000, P),
-                                   rng.integers(20, 200, P)).astype(np.int32))
-    w = torch.full((P,), Wh, dtype=torch.int32)
+    Wh = 100
     sc = (1, 4, 6, 1, 6, 1, 100, 5, 1)
-    n = bsw_shear.launches
-    got = bsw_shear_tiles(*(a.to(card) for a in (q, t, qlen, tlen, h0, w)),
-                          Wh, *sc)
-    torch.cuda.synchronize()
-    assert bsw_shear.launches == n + 2          # one launch per body
-    np.testing.assert_array_equal(
-        got.cpu().numpy(),
-        bsw_shear_tiles(q, t, qlen, tlen, h0, w, Wh, *sc).numpy())
+    for P, qr in ((24, (600, 1500)), (640, (300, 700))):
+        q, t, qlen, tlen = shear_tiles(rng, P, qr, "cpu")
+        h0 = torch.from_numpy(np.where(np.arange(P) % 3 == 0,
+                                       rng.integers(30000, 40000, P),
+                                       rng.integers(20, 200, P))
+                              .astype(np.int32))
+        w = torch.full((P,), Wh, dtype=torch.int32)
+        want = bsw_shear_tiles(q, t, qlen, tlen, h0, w, Wh, *sc).numpy()
+        on = [a.to(card) for a in (q, t, qlen, tlen, h0, w)]
+        seen = set()
+        try:
+            for split in (0, 1, 2):
+                bsw_shear.split = split
+                K = bsw_shear.plan(P, Wh, torch.device(card))[5]
+                seen.add(K)
+                n = bsw_shear.launches
+                got = bsw_shear_tiles(*on, Wh, *sc)
+                torch.cuda.synchronize()
+                # one launch per body, or one split-band launch
+                assert bsw_shear.launches == n + (2 if K == 1 else 1)
+                np.testing.assert_array_equal(got.cpu().numpy(), want)
+        finally:
+            bsw_shear.split = 0
+        assert seen == {1, 2}
 
 
 @pytest.mark.cuda

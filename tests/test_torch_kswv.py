@@ -364,23 +364,33 @@ static int kswv_sweeps_max;
 #define KSWV_SWEEP_HOOK(k) \
   (kswv_sweeps_max = (k) > kswv_sweeps_max ? (k) : kswv_sweeps_max)
 #include "kswv_group.cuh"
-template <bool U8, int SMAX> static void run_all(const KswvBatch &b) {
+template <bool U8, int SMAX, int S = 1>
+static void run_all(const KswvBatch &b) {
   std::vector<int16_t> stripes(kswv_group_bytes(b.Qmax) / 2);
-  const KswvGroup<U8 ? 16 : 8> g;
+  const KswvGroup<U8 ? 16 : 8, S> g;
   for (int p = 0; p < b.P; ++p) kswv_run<U8, SMAX>(g, b, p, stripes.data());
 }
 extern "C" void kswv_host(const int8_t *enc, int64_t n_enc, const uint8_t *ref,
     int64_t n_ref, int packed, const int *qoff, const int *qdir,
     const uint8_t *qcomp, const int *qlen, const int64_t *toff,
     const int *tlen, int P, int Qmax, int Tmax, int Tpad, int u8, int minsc,
-    const int *sc, int force_ptr, int16_t *rowmax, int *out, int *info) {
+    const int *sc, int force_ptr, int split, int16_t *rowmax, int *out,
+    int *info) {
   const KswvBatch b{enc, n_enc, ref, n_ref, packed, qoff, qdir, qcomp, qlen,
                     toff, tlen, P, Qmax, Tmax, Tpad, minsc,
                     {sc[0], sc[1], sc[2], sc[3], sc[4], sc[5]}, rowmax, out};
-  const int smax = force_ptr ? 0 : kswv_bucket(u8, Qmax);
+  // the split form: S sub-threads a lane, 8 register segments a
+  // sub-thread, as kswv.cu:kswv_plan gives them
+  const int smax = split > 1 ? 8 : force_ptr ? 0 : kswv_bucket(u8, Qmax);
   kswv_sweeps_max = 0;
-#define KSWV_HOST_CASE(U, S) if (!!u8 == U && smax == S) run_all<U, S>(b);
+#define KSWV_HOST_CASE(U, S) \
+  if (split <= 1 && !!u8 == U && smax == S) run_all<U, S>(b);
   KSWV_BUCKETS(KSWV_HOST_CASE)
+#define KSWV_SPLIT_CASE(U, S, N) \
+  if (split == N && !!u8 == U && smax == S) run_all<U, S, N>(b);
+  KSWV_SPLIT_CASE(true, 8, 2) KSWV_SPLIT_CASE(true, 8, 4)
+  KSWV_SPLIT_CASE(true, 8, 8) KSWV_SPLIT_CASE(false, 8, 2)
+  KSWV_SPLIT_CASE(false, 8, 4) KSWV_SPLIT_CASE(false, 8, 8)
   info[0] = smax;
   info[1] = kswv_sweeps_max;
 }
@@ -392,8 +402,9 @@ extern "C" void kswv_host(const int8_t *enc, int64_t n_enc, const uint8_t *ref,
     return ctypes.CDLL(str(so))
 
 
-def run_host_dp(lib, case, packed=False, force_ptr=False):
-    """(out int32[2, P, 6], stripe bucket, most lazy-F sweeps in a row)."""
+def run_host_dp(lib, case, packed=False, force_ptr=False, split=1):
+    """(out int32[2, P, 6], stripe bucket, most lazy-F sweeps in a row);
+    split > 1 runs the split form at S = split."""
     win, u8, sc = CASES[case]
     _, Qmax, Tmax = WINDOWS[win]
     enc, qoff, qdir, qcomp, qlen, toff, tlen = windows(win)
@@ -413,12 +424,13 @@ def run_host_dp(lib, case, packed=False, force_ptr=False):
                   *[ptr(x) for x in rest], ctypes.c_int(P),
                   ctypes.c_int(Qmax), ctypes.c_int(Tmax), ctypes.c_int(Tpad),
                   ctypes.c_int(u8), ctypes.c_int(MIN_SEED_LEN * sc[0]),
-                  ptr(scv), ctypes.c_int(int(force_ptr)), ptr(rowmax),
-                  ptr(out), ptr(info))
+                  ptr(scv), ctypes.c_int(int(force_ptr)),
+                  ctypes.c_int(split), ptr(rowmax), ptr(out), ptr(info))
     return out, int(info[0]), int(info[1])
 
 
-# (case, packed genome, force pointer stripes, expected stripe bucket)
+# (case, packed genome, force pointer stripes, expected stripe bucket[,
+# S: the split form])
 HOST_DP = {
     "u8": ("u8_default", False, False, 8),
     "i16": ("i16_default", False, False, 0),
@@ -438,6 +450,24 @@ HOST_DP = {
     "i16_A52": ("i16_A52", False, False, 0),
     "i16_A52_registers": ("i16_A52_short", False, False, 16),
     "u8_A52": ("u8_A52", False, False, 8),
+    # the split form (kswv_phase_split), S sub-threads a lane: ragged runs
+    # (slen not a multiple of S), runs that hold no segment, 8 register
+    # segments a sub-thread
+    "u8_split2": ("u8_default", False, False, 8, 2),
+    "u8_split4_main_shape": ("u8_main", False, False, 8, 4),
+    "u8_split8_saturating": ("u8_saturating", False, False, 8, 8),
+    "u8_split2_long": ("u8_long", False, False, 8, 2),
+    "u8_split4_saturating": ("u8_saturating", False, False, 8, 4),
+    "u8_split2_lazy_f_sweeps": ("u8_short_gaps", False, False, 8, 2),
+    "u8_split8_lazy_f_sweeps": ("u8_short_gaps", False, False, 8, 8),
+    "u8_split4_qe_ties": ("u8_ties", False, False, 8, 4),
+    "u8_split8_A52": ("u8_A52", False, False, 8, 8),
+    "i16_split2": ("i16_short", False, False, 8, 2),
+    "i16_split4_qe_ties": ("i16_ties", False, False, 8, 4),
+    "i16_split8_ties_packed": ("i16_ties", True, False, 8, 8),
+    "i16_split8_saturating": ("i16_wide", False, False, 8, 8),
+    "i16_split8_A52": ("i16_A52", False, False, 8, 8),
+    "i16_split4_A52_short": ("i16_A52_short", False, False, 8, 4),
 }
 
 
@@ -447,9 +477,12 @@ def test_cuda_dp_source_matches_ref(host_dp, name):
     array for array: u8 and i16, registers and pointer stripes (the
     launch's own choice, and pointer stripes forced), saturating u8 and
     i16 lanes, the packed genome, rows that need several lazy-F sweeps and qe decided
-    by the tie rule."""
-    case, packed, force_ptr, bucket = HOST_DP[name]
-    got, smax, sweeps = run_host_dp(host_dp, case, packed, force_ptr)
+    by the tie rule; and the split form at S = 2, 4 and 8 on the same
+    cases, whose lazy-F sweeps must also number as many as the one-thread
+    lanes' (the hook's count)."""
+    case, packed, force_ptr, bucket, *split = HOST_DP[name]
+    got, smax, sweeps = run_host_dp(host_dp, case, packed, force_ptr,
+                                    *split)
     assert smax == bucket
     want = plain(case, packed)
     np.testing.assert_array_equal(got[0], want[0])
@@ -458,6 +491,8 @@ def test_cuda_dp_source_matches_ref(host_dp, name):
         np.testing.assert_array_equal(got[0], plain(case)[0])
     if case == "u8_short_gaps":     # F crossed several stripe boundaries
         assert sweeps >= 3
+    if split:   # the split form stops its lazy-F where the lanes do
+        assert sweeps == run_host_dp(host_dp, case, packed, force_ptr)[2]
     if case == "i16_wide":
         assert (want[0][:, 0] == 32767).any()
     if CASES[case][2] == A52:
