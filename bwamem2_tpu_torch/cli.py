@@ -243,6 +243,7 @@ def main_mem(argv: list[str]) -> int:
     from .io.fastq import FastxReader
     from .io.sam import pg_line, sam_header
     from .runtime import run_pipeline
+    from .utils.profiling import PROF
 
     try:
         (opt, mode, fixed_chunk_size, no_mt_io, rg_line, hdr_line, out_path,
@@ -356,22 +357,30 @@ def main_mem(argv: list[str]) -> int:
                              "(genome-bucket mode)\n")
         elif len(devices) > 1:
             sys.stderr.write(f"* data-parallel over {len(devices)} cards\n")
-    if shard is not None:
-        from .parallel.multihost import run_sharded
-        run_sharded(aligners[0], ks1, ks2, task_size,
-                    out_dir or (out_path or "shards") + ".d", shard[0],
-                    shard[1], pes0=pes0, copy_comment=copy_comment,
-                    verbose=verbose)
-    else:
-        # -t maps to chunk-pipeline compute workers, capped at 4 (host
-        # python saturates one GIL), and at least one per card; output is
-        # order-identical for any count and any card count
-        nw = 1 if no_mt_io else max(min(max(opt.n_threads, 1), 4),
-                                    len(aligners))
-        run_pipeline(aligners, ks1, ks2, task_size, out, pes0=pes0,
-                     copy_comment=copy_comment,
-                     pipeline_depth=1 if no_mt_io else 2, verbose=verbose,
-                     n_workers=nw, resume=journal)
+    # BWAMEM2_TPU_TRACE=<dir>: the alignment runs under torch.profiler
+    # and its Chrome trace lands in <dir> (utils/profiling.py)
+    PROF.start_trace()
+    try:
+        if shard is not None:
+            from .parallel.multihost import run_sharded
+            run_sharded(aligners[0], ks1, ks2, task_size,
+                        out_dir or (out_path or "shards") + ".d", shard[0],
+                        shard[1], pes0=pes0, copy_comment=copy_comment,
+                        verbose=verbose)
+        else:
+            # -t maps to chunk-pipeline compute workers, capped at 4 (host
+            # python saturates one GIL), and at least one per card; output
+            # is order-identical for any count and any card count
+            nw = 1 if no_mt_io else max(min(max(opt.n_threads, 1), 4),
+                                        len(aligners))
+            run_pipeline(aligners, ks1, ks2, task_size, out, pes0=pes0,
+                         copy_comment=copy_comment,
+                         pipeline_depth=1 if no_mt_io else 2,
+                         verbose=verbose, n_workers=nw, resume=journal)
+    finally:
+        path = PROF.stop_trace()
+    if path and verbose >= 3:
+        sys.stderr.write(f"* trace written to {path}\n")
     if journal is not None:
         journal.close()
     if out is not sys.stdout:

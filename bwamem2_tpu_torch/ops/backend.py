@@ -228,10 +228,9 @@ class TorchBackend:
         NR = len(encs)
         long, lens = self._attach_long(encs)
         if lens.any():
-            lensj = torch.from_numpy(lens).to(self.device)
             with PROF("seeding.device"):
-                cnt, m, n, s, coords = self.seeder.run(self._bsw.encj,
-                                                       lensj, opt)
+                cnt, m, n, s, coords = self.seeder.run(self._bsw.encj, lens,
+                                                       opt)
         else:                       # no bases on the grid: no SMEMs
             cnt = np.zeros(NR, np.int32)
             m, n = np.zeros(0, np.int32), np.zeros(0, np.int32)

@@ -14,6 +14,7 @@ counted where the kernel is launched and nowhere else) and `plain_calls`
 also added to the calling thread's tally (`launch_tally`), if one is set:
 a TorchBackend sets its own when a chunk starts on a thread, so that with
 one backend per card each backend counts the launches of its chunks.
+`launch_counts` sums both counters over every wrapper made in the process.
 """
 
 from __future__ import annotations
@@ -24,6 +25,7 @@ import os
 import shutil
 import subprocess
 import threading
+import weakref
 
 import torch
 
@@ -80,6 +82,17 @@ VP, I32, I64 = ctypes.c_void_p, ctypes.c_int, ctypes.c_int64
 
 _tally = threading.local()
 _tally_lock = threading.Lock()
+_wrappers: "weakref.WeakSet[CudaKernel]" = weakref.WeakSet()
+
+
+def launch_counts(plain: bool = False) -> dict:
+    """{kernel name: launches} (with `plain`, calls that ran the plain
+    version) summed over every kernel wrapper made in this process."""
+    out: dict = {}
+    for k in list(_wrappers):
+        out[k.NAME] = out.get(k.NAME, 0) + (k.plain_calls if plain
+                                             else k.launches)
+    return out
 
 
 def launch_tally(counts: dict | None) -> None:
@@ -116,6 +129,7 @@ class CudaKernel:
         self.build_log = ""
         self._lib = None
         self._lock = threading.Lock()
+        _wrappers.add(self)
 
     def lib(self) -> ctypes.CDLL:
         with self._lock:

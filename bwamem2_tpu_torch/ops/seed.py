@@ -377,8 +377,10 @@ class FusedSeeder:
     def __init__(self, dfm: DeviceFMIndex):
         self.dfm = dfm
 
-    def run(self, encj: torch.Tensor, lensj: torch.Tensor, opt):
-        """encj int8[N, L], lensj int32[N] on the index's device.  Returns
+    def run(self, encj: torch.Tensor, lensj, opt):
+        """encj int8[N, L] on the index's device, lensj int32[N] there or
+        on the host (numpy; uploaded here, so that the chunk's device work
+        starts in this call).  Returns
         numpy (cnt int32[N] (-1: overflowed read), m, n int32, s int64,
         coords int64) — the flat arrays in (read, m, n) order, with
         min(s, max_occ) coordinates per SMEM.  PROF spans: seeding.collect
@@ -386,6 +388,7 @@ class FusedSeeder:
         fetch."""
         N, L = encj.shape
         split_len = int(opt.min_seed_len * opt.split_factor + 0.499)
+        lensj = torch.as_tensor(lensj).to(encj.device)
         with PROF("seeding.collect"):
             slot_off = slot_offsets(lensj)
             m, n, k, s, cnt, _ = smem_collect(

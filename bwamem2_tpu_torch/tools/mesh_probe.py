@@ -130,12 +130,40 @@ def main() -> None:
                       "identical": True}))
 
 
+def mem_run(prefix: str, fqs: list, sam: str, devices=None,
+            sharded: bool = False, reps: int = 2,
+            device: str = "cuda") -> tuple:
+    """`mem` (the CLI entry, -K 2,250,000) on fqs into sam, `reps` times,
+    over `devices` (ops.resolve_devices replaced for the runs; None: every
+    visible card) with BWAMEM2_TPU_SHARD_INDEX set when `sharded`: one
+    backend per device (replicated) or one over an index in a shard per
+    device.  Returns (the last run's seconds, its SAM records)."""
+    from bwamem2_tpu_torch import cli, ops
+    resolve = ops.resolve_devices
+    if devices is not None:
+        ops.resolve_devices = lambda dev=None: list(devices)
+    if sharded:
+        os.environ["BWAMEM2_TPU_SHARD_INDEX"] = "1"
+    try:
+        for _ in range(reps):
+            t0 = time.perf_counter()
+            if cli.main(["mem", "--device", device, "-K", "2250000", "-v",
+                         "1", "-o", sam, prefix, *fqs]):
+                raise RuntimeError(f"mem over {devices} (sharded "
+                                   f"{sharded}) failed")
+            secs = time.perf_counter() - t0
+    finally:
+        os.environ.pop("BWAMEM2_TPU_SHARD_INDEX", None)
+        ops.resolve_devices = resolve
+    with open(sam) as f:
+        return secs, [ln for ln in f if not ln.startswith("@")]
+
+
 def mem_runs(prefix: str, fq1: str, fq2: str, pairs: int) -> dict:
     """`mem` PE on the first `pairs` pairs over every card, replicated and
     sharded, each warm (a first run builds and uploads), their SAM held
     equal: {layout: seconds of the timed run}."""
     import tempfile
-    from bwamem2_tpu_torch import cli
     d = tempfile.mkdtemp(prefix="mesh_probe_")
     fqs = []
     for i, src in enumerate((fq1, fq2)):
@@ -144,20 +172,9 @@ def mem_runs(prefix: str, fq1: str, fq2: str, pairs: int) -> dict:
             g.writelines(ln for _, ln in zip(range(4 * pairs), f))
     out, secs = {}, {}
     for layout in ("replicated", "sharded"):
-        if layout == "sharded":
-            os.environ["BWAMEM2_TPU_SHARD_INDEX"] = "1"
-        try:
-            for _ in range(2):
-                sam = os.path.join(d, f"{layout}.sam")
-                t0 = time.perf_counter()
-                if cli.main(["mem", "-K", "2250000", "-v", "1", "-o", sam,
-                             prefix, *fqs]):
-                    sys.exit(f"mesh_probe: mem ({layout}) failed")
-                secs[layout] = time.perf_counter() - t0
-        finally:
-            os.environ.pop("BWAMEM2_TPU_SHARD_INDEX", None)
-        with open(sam) as f:
-            out[layout] = [ln for ln in f if not ln.startswith("@")]
+        secs[layout], out[layout] = mem_run(
+            prefix, fqs, os.path.join(d, f"{layout}.sam"),
+            sharded=layout == "sharded")
     if out["replicated"] != out["sharded"]:
         sys.exit("mesh_probe: the sharded mem's SAM differs from the "
                  "replicated one's")

@@ -82,6 +82,19 @@ Phases, each of which fails the run (non-zero exit, no result line):
      overflow.long_read) stay within 1 %; its wall and seeding rounds are
      printed; then the port's kernel_micro entry on this genome, one
      timed call a line, whose kswv_phase and bsw_shear_tiles must launch;
+     (i) the host ceiling: run (a)'s data through
+     bwamem2_tpu_torch/tools/host_ceiling.py's DeviceTap (warm, clean,
+     record and two replay passes, one worker): every launch counter 0
+     across the replays, no replay lookup missed, the replay's SAM equals
+     run (a)'s; its JSON (reads, wall_e2e_1worker_s, wall_host_s,
+     host_frac_of_e2e, host_ceiling_rps, wall_at_10x_device_s,
+     implied_rps_at_10x_device) is printed with the card;
+     (j) run (a) again in a fresh process under BWAMEM2_TPU_TRACE (the
+     trace hook, utils/profiling.py): smem_collect, sa_resolve,
+     bsw_extend and kswv each appear in the Chrome trace as many times as
+     its launch counter says, the SAM equals run (a)'s, and the card's
+     busy share (the union of the trace's kernel intervals over the traced
+     wall) is printed;
   5. kernel vs plain, exact equality, with times and bounds:
      a. bsw_extend against bsw_desc_ref at every production rung (Q in
         127/255/383 x T in 96..608) with P = 4096 real-length descriptors,
@@ -90,7 +103,10 @@ Phases, each of which fails the run (non-zero exit, no result line):
         summed time and bound are the kernel's line), each launch with its
         (lanes, columns) bucket, groups per block and the instantiation's
         ptxas numbers, and the earlier one-thread design's times beside
-        the kernel's;
+        the kernel's; then bsw_tiles against bsw_desc_ref on
+        tools/pallas_parity_hw.py's matrix (its eight scoring
+        configurations: asymmetric gaps, -A2 scaling, zdrop off; random
+        lengths and h0, ~10 % mutations);
      e. bsw_shear against bsw_shear_desc_ref on run (d)'s own launches
         (captured as DeviceBSW._run makes them: one call per side and
         band try, a launch per body it uses), each timed with CUDA events
@@ -543,6 +559,140 @@ def build_all() -> dict:
     return secs
 
 
+# ------------------------------------------------------ measurement layer
+# the kernels of run (a)'s path and the name CUPTI gives each in a trace:
+# its __global__ function (kswv_kernel is the two-phase kernel; the
+# one-phase kernels are kswv_phase_kernel and kswv_split_kernel)
+TRACE_KERNELS = dict(smem_collect="smem_collect_kernel",
+                     sa_resolve="sa_resolve_kernel",
+                     bsw_extend="bsw_extend_kernel", kswv="kswv_kernel")
+
+
+def host_ceiling_phase(card: str, prefix: str, fq1: str, fq2: str,
+                       sam_a: str) -> dict:
+    """[4i] the host ceiling on run (a)'s data (-K TASK_BASES) through
+    bwamem2_tpu_torch/tools/host_ceiling.py's DeviceTap: warm, clean,
+    record and two replay passes on one TorchBackend, one worker.  Fails
+    unless the replays launched no kernel (every launch counter 0 across
+    them), missed no recorded output and wrote run (a)'s SAM."""
+    from bwamem2_tpu_torch.tools import host_ceiling
+    try:
+        rep = host_ceiling.measure(prefix, fq1, fq2, TASK_BASES, "cuda",
+                                   log=lambda m: log(f"    {m}"))
+    except Exception as e:      # a miss, device work or a SAM difference
+        fail(f"4i: {type(e).__name__}: {e}")
+    rep.pop("tap")
+    if rep["replay_launches"] or rep["replay_plain_calls"] or rep["misses"]:
+        fail(f"4i: the replay ran device work: {rep}")
+    got, want = sam_records(rep.pop("sam"), False), sam_records(sam_a)
+    if got != want:
+        fail(f"4i: the replay's SAM differs from run (a)'s "
+             f"({sum(x != y for x, y in zip(got, want))} of {len(want)} "
+             f"records)")
+    log(f"  [4i] host ceiling, run (a)'s data: {json.dumps(rep)}; replay "
+        f"launches 0, misses 0, SAM == run (a)'s [{card}]")
+    return rep
+
+
+def trace_run(fq1: str, fq2: str, prefix: str, trace_dir: str,
+              sam: str) -> None:
+    """Run in a fresh process (`chip_smoke.py --trace-run ...`): run (a)
+    through the CLI entry with BWAMEM2_TPU_TRACE=trace_dir, every launch
+    counter set to 0 just before and read just after.  Prints one JSON
+    line: the exit code, the launches, the trace's path and its host
+    seconds (PROF.trace_s: the profiler's start, the traced calls, its
+    stop with the export), and the call's wall."""
+    import torch
+    os.environ["BWAMEM2_TPU_TRACE"] = trace_dir
+    from bwamem2_tpu_torch import cli
+    from bwamem2_tpu_torch.utils.profiling import PROF
+    K = kernels()
+    for k in K.values():
+        k.reset()
+    t0 = time.perf_counter()
+    rc = cli.main(["mem", "-K", str(TASK_BASES), "-v", "1", "-o", sam,
+                   prefix, fq1, fq2])
+    torch.cuda.synchronize()
+    print(json.dumps(dict(rc=rc, launches={n: k.launches
+                                           for n, k in K.items()},
+                          trace=PROF.trace_path, trace_s=PROF.trace_s,
+                          wall_s=time.perf_counter() - t0)), flush=True)
+
+
+def union_us(spans: list) -> float:
+    """The length of the union of [start, end) intervals."""
+    tot, end = 0.0, float("-inf")
+    for a, b in sorted(spans):
+        if b > end:
+            tot += b - max(a, end)
+            end = b
+    return tot
+
+
+def trace_phase(card: str, prefix: str, fq1: str, fq2: str, sam_a: str,
+                wall_a: float) -> dict:
+    """[4j] run (a) traced under BWAMEM2_TPU_TRACE in a fresh process
+    (trace_run).  Fails unless each main-path kernel (TRACE_KERNELS)
+    appears in the Chrome trace as many times as its launch counter says
+    and the SAM equals run (a)'s.  Prints the card's busy share: the
+    union of the trace's kernel intervals over the traced host wall."""
+    import shutil
+    trace_dir = os.path.join(WORK, "trace")
+    shutil.rmtree(trace_dir, ignore_errors=True)
+    sam = os.path.join(WORK, "main_traced.sam")
+    r = subprocess.run([sys.executable, os.path.abspath(__file__),
+                        "--trace-run", fq1, fq2, prefix, trace_dir, sam],
+                       capture_output=True, text=True, timeout=900)
+    if r.returncode:
+        fail(f"4j: the traced run failed:\n{r.stderr[-3000:]}")
+    run = json.loads(r.stdout.strip().splitlines()[-1])
+    if run["rc"] or not run["trace"]:
+        fail(f"4j: mem exited with {run['rc']}, trace {run['trace']}")
+    if sam_records(sam) != sam_records(sam_a):
+        fail("4j: the traced run's SAM differs from run (a)'s")
+    with open(run["trace"]) as f:
+        events = json.load(f)["traceEvents"]
+    kern = [e for e in events if e.get("cat") == "kernel" and "dur" in e]
+    copies = [e for e in events if e.get("cat") in ("gpu_memcpy",
+                                                    "gpu_memset")
+              and "dur" in e]
+    seen = {n: sum(pat in e["name"] for e in kern)
+            for n, pat in TRACE_KERNELS.items()}
+    want = {n: run["launches"][n] for n in TRACE_KERNELS}
+    if seen != want or not all(want.values()):
+        fail(f"4j: kernels in the trace {seen}, launch counters {want}")
+    wall_us = run["trace_s"]["traced"] * 1e6
+    span = lambda evs: [(e["ts"], e["ts"] + e["dur"]) for e in evs]  # noqa
+    busy = union_us(span(kern))
+    main4 = union_us(span([e for e in kern if any(
+        p in e["name"] for p in TRACE_KERNELS.values())]))
+    busy_copy = union_us(span(kern + copies))
+    out = dict(trace=os.path.relpath(run["trace"], REPO),
+               events=len(events), kernels_in_trace=len(kern),
+               launches=want, trace_s=run["trace_s"],
+               call_wall_s=round(run["wall_s"], 4),
+               untraced_wall_a_s=wall_a,
+               busy_share=round(busy / wall_us, 5),
+               busy_share_main_kernels=round(main4 / wall_us, 5),
+               busy_share_with_copies=round(busy_copy / wall_us, 5),
+               busy_share_of_untraced_wall=round(busy / (wall_a * 1e6), 5),
+               kernel_busy_ms=round(busy / 1e3, 3),
+               main_kernels_ms=round(main4 / 1e3, 3),
+               other_kernels=len(kern) - sum(seen.values()))
+    log(f"  [4j] trace of run (a) (fresh process): {len(events)} events, "
+        f"{len(kern)} kernels; in the trace {seen} == the launch "
+        f"counters; SAM == run (a)'s; card busy {busy / 1e3:.3f} ms of a "
+        f"traced wall of {wall_us / 1e6:.3f}s = busy share "
+        f"{busy / wall_us:.5f} (the four main-path kernels "
+        f"{main4 / wall_us:.5f}, with copies {busy_copy / wall_us:.5f}; "
+        f"over run (a)'s untraced wall {busy / (wall_a * 1e6):.5f}); call "
+        f"{run['wall_s']:.2f}s traced (profiler start "
+        f"{run['trace_s']['start']:.2f}s, stop and export "
+        f"{run['trace_s']['stop']:.2f}s) against run (a)'s {wall_a:.2f}s "
+        f"untraced [{card}]")
+    return out
+
+
 # ------------------------------------------------------ kernel vs plain
 def rung_inputs(torch, ref_np, Q: int, T: int, P: int, seed: int):
     """P real-length extension descriptors at rung (Q, T): qlen in
@@ -645,6 +795,73 @@ def kernel_vs_plain(torch, fm, opt) -> dict:
         fail(f"bsw_extend disagrees with bsw_desc_ref on "
              f"{tot['mismatches']} pairs (max abs err {tot['err']})")
     return tot
+
+
+# tools/pallas_parity_hw.py's matrix (its FULL list): (P, Qmax, Tmax, a,
+# b, o_del, e_del, o_ins, e_ins, zdrop, end_bonus, h0cap); h0cap bounds
+# the random h0 (below min(h0cap, 120)) and is otherwise the JAX kernel's
+PALLAS_MATRIX = (
+    (128, 127, 96, 1, 4, 6, 1, 6, 1, 100, 5, 256),
+    (256, 127, 192, 1, 4, 6, 1, 6, 1, 100, 5, 256),
+    (512, 255, 320, 1, 4, 6, 1, 6, 1, 100, 5, 256),
+    (128, 255, 608, 1, 4, 6, 1, 6, 1, 100, 5, 256),
+    (128, 127, 96, 1, 9, 16, 1, 16, 1, 200, 5, 256),
+    (128, 127, 192, 2, 8, 12, 2, 12, 2, 100, 10, 512),
+    (128, 127, 96, 1, 4, 6, 1, 13, 4, 100, 5, 256),
+    (128, 127, 96, 1, 4, 6, 1, 6, 1, 0, 5, 256),
+)
+
+
+def pallas_tiles(rng, P: int, Qmax: int, Tmax: int, h0max: int):
+    """tools/pallas_parity_hw.py:gen (tests/test_pallas.py's generator):
+    random queries, targets copied from them with ~10 % of positions
+    mutated and random tails, random lengths, h0 in [1, h0max)."""
+    import numpy as np
+    q = rng.integers(0, 4, (P, Qmax)).astype(np.int8)
+    t = np.full((P, Tmax), 4, np.int8)
+    qlen = rng.integers(1, Qmax + 1, P).astype(np.int32)
+    tlen = rng.integers(1, Tmax + 1, P).astype(np.int32)
+    for i in range(P):
+        n = min(int(tlen[i]), int(qlen[i]))
+        t[i, :n] = q[i, :n]
+        nmut = max(1, n // 10)
+        pos = rng.integers(0, n, nmut)
+        t[i, pos] = rng.integers(0, 4, nmut)
+        t[i, n:tlen[i]] = rng.integers(0, 4, int(tlen[i]) - n)
+        q[i, qlen[i]:] = 4
+    h0 = rng.integers(1, h0max, P).astype(np.int32)
+    w = np.full(P, 100, np.int32)
+    return q, t, qlen, tlen, h0, w
+
+
+def pallas_matrix(torch) -> dict:
+    """[5a] bsw_tiles (bsw_extend over tiles as descriptors) against
+    bsw_desc_ref on the card, on tools/pallas_parity_hw.py's matrix: its
+    scoring configurations (asymmetric gaps, -A2 scaling, zdrop off) and
+    random lengths and h0 at ~10 % mutation; exact or the run fails."""
+    import numpy as np
+    from bwamem2_tpu_torch.ops.bsw import (_tile_descriptors, bsw_desc_ref,
+                                           bsw_tiles)
+    from bwamem2_tpu_torch.ops.bsw_cuda import bsw_extend
+    rng = np.random.default_rng(7)
+    out = dict(configs=0, pairs=0, launches=0)
+    n0 = bsw_extend.launches
+    for cfg in PALLAS_MATRIX:
+        P, Q, T, a, b, od, ed, oi, ei, zd, eb, cap = cfg
+        x = [torch.from_numpy(v).cuda()
+             for v in pallas_tiles(rng, P, Q, T, min(cap, 120))]
+        sc = (a, b, od, ed, oi, ei, zd, eb, max(a, 1))
+        got = bsw_tiles(*x, *sc)
+        ref, enc, *desc = _tile_descriptors(*x[:4])
+        want = bsw_desc_ref(ref, enc, *desc, x[4], x[5], Q, T, *sc)
+        bad = int((got != want).any(1).sum())
+        if bad:
+            fail(f"5a: bsw_tiles disagrees with bsw_desc_ref on {bad} of "
+                 f"{P} pairs at {cfg}")
+        out["configs"] += 1
+        out["pairs"] += P
+    out["launches"] = bsw_extend.launches - n0
+    return out
 
 
 def bsw_main_path(torch, calls) -> dict:
@@ -2775,6 +2992,10 @@ def main() -> None:
         "False), K-mer table), run (a)'s data, and the kernel_micro entry:")
     run_h = legacy_mem(torch, card, prefix, fq1, fq2, sam)
     legacy_calls = run_h.pop("_launches")
+    log("[4i] host ceiling (record / replay), run (a)'s data:")
+    ceiling = host_ceiling_phase(card, prefix, fq1, fq2, sam)
+    log("[4j] run (a) traced under BWAMEM2_TPU_TRACE, fresh process:")
+    traced = trace_phase(card, prefix, fq1, fq2, sam, run_a["wall_s"])
     runs = (run_a, run_b, run_c, run_d, rr, run_g, run_h)
     # the kernels line counts the launches of the seven runs
     launches = {n: sum(r["launches"][n] for r in runs)
@@ -2826,6 +3047,10 @@ def main() -> None:
             f"{tot['plain_ms']:.1f} ms, bound {tot['bound_ms']:.4f} ms "
             f"({OPS_PER_CELL_24}-op model {tot['bound24_ms']:.4f} ms; "
             f"{tot['cells']} cells) [{card}]")
+        pm = pallas_matrix(torch)
+        log(f"[5a] bsw_tiles vs bsw_desc_ref on tools/pallas_parity_hw.py's "
+            f"matrix: {pm['configs']} configurations, {pm['pairs']} pairs "
+            f"({pm['launches']} launches), all identical [{card}]")
         log(f"[5a] bsw_extend vs plain on the main path's {len(bsw_b)} "
             f"launches of run (b)'s first chunk [{card}]:")
         bm = bsw_main_path(torch, bsw_b)
@@ -3080,6 +3305,7 @@ def main() -> None:
                   main_pacbio=run_d, round_robin=rr, shards=shards,
                   sharded_index=run_g, stages=sg, step=st,
                   legacy=run_h, legacy_kernels=lh,
+                  host_ceiling=ceiling, trace=traced, bsw_pallas_matrix=pm,
                   launches=launches,
                   build_s={k: round(v, 1) for k, v in secs.items()},
                   bsw_main=bm, bsw_rungs=tot, bsw_shear=sh,
@@ -3099,5 +3325,8 @@ if __name__ == "__main__":
     if sys.argv[1:2] == ["--first-call"]:
         sys.path.insert(0, REPO)
         first_call_split(*sys.argv[2:5])
+    elif sys.argv[1:2] == ["--trace-run"]:
+        sys.path.insert(0, REPO)
+        trace_run(*sys.argv[2:7])
     else:
         main()

@@ -85,3 +85,16 @@ def test_scan_covers_the_data_parallel_modules():
               "bwamem2_tpu_torch.ops.entry", "bwamem2_tpu_torch.ops.smem",
               "bwamem2_tpu_torch.parallel.shard_index"):
         assert m in mods, m
+
+
+def test_scan_covers_the_measurement_tools():
+    """The scans above reach the trace hook's module and the port's
+    measurement tools (host_ceiling, prof_bench, scaling_bench,
+    shard_overhead)."""
+    mods = set(_modules())
+    for m in ("bwamem2_tpu_torch.utils.profiling",
+              "bwamem2_tpu_torch.tools.host_ceiling",
+              "bwamem2_tpu_torch.tools.prof_bench",
+              "bwamem2_tpu_torch.tools.scaling_bench",
+              "bwamem2_tpu_torch.tools.shard_overhead"):
+        assert m in mods, m
